@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``mxfusion_tpu_torch``) on one NVIDIA GPU.
 
-Drives the port's main path, SVGP regression serving through
-``BatchedPredictor``, at production width (M = 512 inducing points,
-D = 32, RBF kernel, chunk 8192) on the card, in phases that each print
-one line:
+Drives the port's two main paths at production width (M = 512 inducing
+points, D = 32, RBF kernel) on the card: SVGP regression serving through
+``BatchedPredictor`` (chunk 8192), and SVGP training through
+``GradBasedInference(MAP, DeviceMinibatchLoop)`` at the bench.py
+headline step shape (B = 65536). In phases that each print one line:
 
 1. device: needs CUDA (exits nonzero without it); prints the card's
    name and power limit (nvidia-smi) and the TF32 settings;
-2. build: compiles the CUDA RBF gram kernel from
-   ``mxfusion_tpu_torch/csrc`` with nvcc for sm_90a;
-3. kernel: holds the kernel against its plain PyTorch version on the
-   card at the serving shapes (Kzx, Kuu) and one ragged ARD shape,
-   max |diff| <= 1e-5 at variance 1, and checks that the HIGHEST-tier
-   einsum stays IEEE fp32 with TF32 switched on;
+2. build: compiles the CUDA kernels from ``mxfusion_tpu_torch/csrc``
+   with nvcc for sm_90a, one nvcc per source, all started together:
+   ``rbf_gram.cu`` (K1) and ``fused_gram.cu`` (K2, K3);
+3. kernel: holds each kernel against its plain PyTorch version on the
+   card: K1 at the serving shapes (Kzx, Kuu) and one ragged ARD shape,
+   max |diff| <= 1e-5 at variance 1; K2 (rtol 2e-4, atol 2e-5) and K3
+   (2e-3 of each output's largest entry, and the same bits on a second
+   call) at the training shape (M = 512, N = 65536, D = 32) and a
+   ragged shape the gate admits; checks that the HIGHEST-tier einsum
+   stays IEEE fp32, forward and gradient, with TF32 switched on;
 4. serve: loads a seeded state through ``util.carryover``, answers three
    requests (8192, 20000 and 128 rows), checks that the kernel ran
    exactly twice per chunk (Kuu and Kzx), that outputs are finite with
@@ -22,7 +27,18 @@ one line:
    numpy evaluation of the predictive formulas (1e-3 relative);
 5. timing (information): the kernel's and the plain version's device
    time at the Kzx shape, and serving rows/s with and without the
-   kernel.
+   kernel;
+6. train: MAP with Adam (lr 3e-3) for one epoch of 4 steps on 262144
+   seeded rows, once through the fused arm and once with
+   ``fused_gram.disabled()`` (materialized Kuf) from the same start and
+   the same permutation; checks the launches of every step (K2 once,
+   K3 three times, K1 once for Kuu on the fused run), finite losses,
+   fused vs materialized losses within 1e-3 relative, the first loss
+   against a float64 evaluation of the bound within 1e-3 relative, and
+   serves 8192 rows from the trained store; prints the step wall time
+   of both arms;
+7. timing (information): K2 and K3 against their plain versions at the
+   training shape.
 
 Any failed check raises and the script exits nonzero. The last three
 lines are the card (nvidia-smi), the kernels' JSON record and
@@ -31,11 +47,14 @@ lines are the card (nvidia-smi), the kernels' JSON record and
 Run from the repository root:  python3 chip_smoke.py [--seed N]
 """
 import argparse
+import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -45,6 +64,18 @@ M, D, CHUNK = 512, 32, 8192
 REQUESTS = (8192, 20000, 128)
 BOX = 4.0              # inputs and inducing points uniform in [0, BOX]^D
 KERNEL_ATOL = 1e-5     # tests/ops/test_pallas.py tolerance, variance 1
+# the training slice: bench.py's headline step shape
+TRAIN_N, TRAIN_B, TRAIN_STEPS = 262144, 65536, 4
+FWD_RTOL, FWD_ATOL = 2e-4, 2e-5   # tests/ops/test_pallas_fused_gram.py
+BWD_RTOL = 2e-3                   # of each cotangent's largest entry
+# fused vs materialized Kuf: the two arms round the 512 x 65536 gram and
+# its products differently in fp32; Kuu's conditioning (about 2e3)
+# amplifies that, and Adam's first steps move every parameter by about
+# lr whatever the gradient's size, so the losses part at ~1e-4
+TRAIN_LOSS_RTOL = 1e-3
+# float32 vs float64 at the same start: the data tier runs the bound's
+# L⁻¹Kuf·L⁻¹Ls product in TF32 (a 10-bit mantissa) on the card
+F64_LOSS_RTOL = 1e-3
 PLAIN_MEAN_RTOL = 1e-4
 PLAIN_VAR_ATOL = 1e-4
 F64_RTOL = 1e-3
@@ -88,6 +119,20 @@ def make_state(rng, softplus_inv):
     }
 
 
+def ptxas_summary(lib_path):
+    """Registers, static shared memory and spills of each kernel, from
+    the ptxas report nvcc wrote beside the library."""
+    log = lib_path.with_suffix(".log")
+    out = []
+    for ln in log.read_text().splitlines() if log.exists() else []:
+        name = re.search(r"([a-z_]*[a-z]_kernel)E", ln)
+        if "Compiling entry function" in ln and name:
+            out.append(name.group(1) + ":")
+        elif "registers" in ln or "spill" in ln:
+            out.append(ln.split(":", 1)[-1].strip())
+    return " ".join(out)
+
+
 def rbf_f64(A, B, ls, var):
     d = A[:, None, :] / ls - B[None, :, :] / ls
     return var * np.exp(-0.5 * np.sum(d * d, axis=-1))
@@ -114,6 +159,92 @@ def predict_f64(state, softplus, X, jitter):
     mu = Kxt.T @ wv
     v = var - np.sum(LinvKxt ** 2, axis=0) + np.sum(tmp * LinvKxt, axis=0)
     return mu, v[:, None], np.linalg.cond(Kuu)
+
+
+def fused_inputs(rng, n_rows, n_cols, n_feat, dev):
+    """K2/K3 inputs as tests/ops/test_pallas_fused_gram.py makes them (a
+    well-conditioned lower-triangular stand-in for L⁻¹), with features
+    scaled by the lengthscale sqrt(D) so that the gram is not all
+    zeros."""
+    import torch
+    f32 = dict(dtype=torch.float32, device=dev)
+    ls = math.sqrt(n_feat)
+    Linv = np.tril(rng.standard_normal((n_rows, n_rows)) * 0.05) + \
+        np.eye(n_rows)
+    return (torch.as_tensor(Linv, **f32),
+            torch.as_tensor(rng.uniform(0, BOX, (n_rows, n_feat)) / ls, **f32),
+            torch.as_tensor(rng.uniform(0, BOX, (n_cols, n_feat)) / ls, **f32),
+            torch.tensor(1.4, **f32),
+            torch.as_tensor(rng.standard_normal((n_rows, n_cols)) * 0.01,
+                            **f32))
+
+
+def check_fused(fused_gram, inputs, label):
+    """K2 and K3 against their plain versions on the card; K3 twice, for
+    the same bits. Returns the largest absolute errors (K2, K3)."""
+    import torch
+    Linv, Zs, Xs, var, dG = inputs
+    with torch.no_grad():
+        G = fused_gram._fwd_cuda(Linv, Zs, Xs, var)
+        P = fused_gram._fused_fwd_torch(Linv, Zs, Xs, var)
+        first = fused_gram._bwd_cuda(Linv, Zs, Xs, var, dG)
+        second = fused_gram._bwd_cuda(Linv, Zs, Xs, var, dG)
+        plain = fused_gram._fused_bwd_torch(Linv, Zs, Xs, var, dG)
+    torch.cuda.synchronize()
+    check(G.shape == P.shape and bool(torch.isfinite(G).all()),
+          "{}: K2 output {} not finite or not {}".format(
+              label, tuple(G.shape), tuple(P.shape)))
+    fwd_err = float((G - P).abs().max())
+    check(bool(((G - P).abs() <= FWD_ATOL + FWD_RTOL * P.abs()).all()),
+          "{}: K2 vs plain max |diff| {} beyond rtol {} atol {}".format(
+              label, fwd_err, FWD_RTOL, FWD_ATOL))
+    bwd_err = 0.0
+    rel = []
+    for name, a, b, p in zip(("dU", "dZs", "dXs", "skv"), first, second,
+                             plain):
+        check(torch.equal(a, b), "{}: K3 {} differs between two calls"
+              .format(label, name))
+        err = float((a - p).abs().max())
+        scale = max(float(p.abs().max()), 1e-30)
+        check(bool(torch.isfinite(a).all()) and err <= BWD_RTOL * scale,
+              "{}: K3 {} vs plain max |diff| {} > {} x {}".format(
+                  label, name, err, BWD_RTOL, scale))
+        bwd_err = max(bwd_err, err)
+        rel.append("{} {:.2e}".format(name, err / scale))
+    print("phase 3 kernel: {} M={} N={} D={}: K2 max_abs_err={:.3e} | K3 "
+          "max_abs_err={:.3e}, relative to each max: {} | K3 bitwise "
+          "deterministic".format(label, Zs.shape[0], Xs.shape[0],
+                                 Zs.shape[1], fwd_err, bwd_err,
+                                 ", ".join(rel)), flush=True)
+    return fwd_err, bwd_err
+
+
+def make_training_data(rng):
+    """benchmarks/svgp_common.py's data at D = 32: X uniform on the box,
+    y = sin(2 x0) + 0.3 cos(3 x1) + 0.1 noise, float32."""
+    X = rng.uniform(0.0, BOX, (TRAIN_N, D)).astype(np.float32)
+    f = np.sin(2.0 * X[:, :1]) + 0.3 * np.cos(3.0 * X[:, 1:2])
+    Y = (f + 0.1 * rng.standard_normal((TRAIN_N, 1))).astype(np.float32)
+    return X, Y
+
+
+def first_loss_f64(alg, start_state, batch):
+    """The bound at the start state on the first batch, in float64 on
+    the card (plain path: no kernel takes float64)."""
+    import torch
+    from mxfusion_tpu_torch.inference import (GradBasedInference,
+                                              create_executor)
+    Xb, Yb = (b.double() for b in batch)
+    inf = GradBasedInference(alg, dtype="float64", device=Xb.device)
+    inf.initialize(X=Xb, Y=Yb)
+    inf.params.update_params({k: v.double() for k, v in start_state.items()})
+    model_y = alg.model.Y.uuid
+    executor = create_executor(alg, inf.params,
+                               rv_scaling={model_y: TRAIN_N / TRAIN_B})
+    with torch.no_grad():
+        loss = executor(inf.params.trainable_params(),
+                        inf.params.fixed_params(), [Xb, Yb], None)[0]
+    return float(loss)
 
 
 def cuda_ms(fn, reps=50):
@@ -156,11 +287,49 @@ def main():
         PositiveTransformation
     from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
     from mxfusion_tpu_torch.modules import SVGPRegression
-    from mxfusion_tpu_torch.inference import BatchedPredictor
-    from mxfusion_tpu_torch.ops import cuda_build, cuda_kernels, precision
+    from mxfusion_tpu_torch.inference import (
+        BatchedPredictor, DeviceMinibatchLoop, GradBasedInference, MAP)
+    from mxfusion_tpu_torch.ops import (cuda_build, cuda_kernels, fused_gram,
+                                        precision)
     from mxfusion_tpu_torch.util.carryover import carryover_params
 
     dev = torch.device("cuda:0")
+
+    def read_counts():
+        return {"K1": cuda_kernels.rbf_kernel_matrix.launches,
+                "K2": fused_gram._fwd_cuda.launches,
+                "K3": fused_gram._bwd_cuda.launches}
+
+    def zero_counts():
+        cuda_kernels.rbf_kernel_matrix.launches = 0
+        fused_gram._fwd_cuda.launches = 0
+        fused_gram._bwd_cuda.launches = 0
+
+    class RecordingLoop(DeviceMinibatchLoop):
+        """The device loop, recording each step's loss, kernel launches
+        and wall time (synchronized before and after), and the first
+        batch."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.losses, self.counts, self.wall_s = [], [], []
+            self.first_batch = None
+
+        def _step(self, executor, opt, trainable, fixed, batch, generator,
+                  grad_norm=False):
+            if self.first_batch is None:
+                self.first_batch = batch
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = DeviceMinibatchLoop._step(executor, opt, trainable, fixed,
+                                            batch, generator, grad_norm)
+            torch.cuda.synchronize()
+            self.wall_s.append(time.perf_counter() - t0)
+            after = read_counts()
+            self.counts.append({k: after[k] - before[k] for k in after})
+            self.losses.append(out[0])
+            return out
     card = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     print("phase 1 device: {} | nvidia-smi: {} | torch {} cuda {} | "
@@ -169,17 +338,20 @@ def main():
               torch.backends.cuda.matmul.allow_tf32,
               torch.backends.cudnn.allow_tf32), flush=True)
 
-    # ---- 2. build
+    # ---- 2. build: one nvcc per source, all started together
+    sources = ("rbf_gram.cu", "fused_gram.cu")
+    cached = [cuda_build.library_path(src).exists() for src in sources]
     t0 = time.perf_counter()
-    cached = cuda_build.library_path("rbf_gram.cu").exists()
-    lib_path = cuda_build.build("rbf_gram.cu")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = list(pool.map(cuda_build.build, sources))
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in
-             lib_path.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln] \
-        if lib_path.with_suffix(".log").exists() else []
-    print("phase 2 build: {} in {:.3f} s (cached={}) | ptxas: {}".format(
-        lib_path.name, build_s, cached, " ; ".join(ptxas)), flush=True)
+    for lib_path, was_cached in zip(libs, cached):
+        print("phase 2 build: {} (cached={}) | ptxas: {}".format(
+            lib_path.name, was_cached, ptxas_summary(lib_path)),
+            flush=True)
+    print("phase 2 build: both sources in {:.3f} s | dynamic shared memory "
+          "at D={}: {}".format(build_s, D, fused_gram.shared_memory_bytes(D)),
+          flush=True)
 
     # ---- 3. kernel against the plain version, on the card
     softplus_inv = PositiveTransformation().inverse_transform
@@ -225,6 +397,33 @@ def main():
         print("phase 3 kernel: HIGHEST einsum with allow_tf32=True: "
               "relative error vs float64 {:.3e} (IEEE fp32)".format(
                   einsum_err), flush=True)
+    # its gradient too: the backward products run later, outside the
+    # forward's call, and must not drop to TF32 either
+    A = Z[0].clone().requires_grad_(True)
+    B = Xk[0].clone().requires_grad_(True)
+    grng = np.random.default_rng(args.seed + 1)
+    g = torch.as_tensor(grng.standard_normal((M, CHUNK)), **f32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        gA, gB = torch.autograd.grad(precision.einsum("nd,md->nm", A, B),
+                                     (A, B), g)
+    finally:
+        torch.set_float32_matmul_precision(old_tf32)
+    grad_err = max(
+        float((got.double() - want).abs().max() / want.abs().max())
+        for got, want in ((gA, g.double() @ B.detach().double()),
+                          (gB, g.double().T @ A.detach().double())))
+    check(grad_err <= 1e-5, "HIGHEST einsum gradient under allow_tf32=True "
+          "has relative error {} (TF32 leaked into the backward)"
+          .format(grad_err))
+    print("phase 3 kernel: HIGHEST einsum gradient with allow_tf32=True: "
+          "relative error vs float64 {:.3e}".format(grad_err), flush=True)
+    fused_errs = [check_fused(fused_gram, fused_inputs(grng, *shape, dev),
+                              label)
+                  for label, shape in (("train_shape", (M, TRAIN_B, D)),
+                                       ("ragged", (200, 5037, 7)))]
+    fwd_err = max(e[0] for e in fused_errs)
+    bwd_err = max(e[1] for e in fused_errs)
 
     # ---- 4. the main path: BatchedPredictor on a carried-over state
     m = Model()
@@ -320,16 +519,133 @@ def main():
               card, M, CHUNK, D, ms["kernel"], ms["plain"], BULK_ROWS, CHUNK,
               rows_s["kernel"], rows_s["plain"]), flush=True)
 
+    # ---- 6. the training path: MAP + DeviceMinibatchLoop, fused and not
+    trng = np.random.default_rng(args.seed + 2)
+    Xtr, Ytr = make_training_data(trng)
+    tm = Model()
+    tm.n = Variable()
+    tm.X = Variable(shape=(tm.n, D))
+    tm.noise_var = Variable(transformation=PositiveTransformation(),
+                            initial_value=0.1)
+    # lengthscale sqrt(D): at 1, every Kuf entry is about e^-42 and the
+    # kernels would be checked on zeros
+    tm.Y = SVGPRegression.define_variable(
+        X=tm.X, kernel=RBF(input_dim=D, variance=1.0,
+                           lengthscale=math.sqrt(D)),
+        noise_var=tm.noise_var, shape=(tm.n, 1),
+        inducing_inputs=Variable(shape=(M, D), initial_value=trng.uniform(
+            0.0, BOX, (M, D))))
+    alg = MAP(model=tm, observed=[tm.X, tm.Y])
+    start = GradBasedInference(alg, dtype="float32", device=dev)
+    start.initialize(X=Xtr[:TRAIN_B], Y=Ytr[:TRAIN_B],
+                     generator=torch.Generator(dev).manual_seed(args.seed))
+    start_state = {k: v.clone() for k, v in start.params.param_dict.items()}
+
+    def train(fused):
+        """One epoch from ``start_state``; per-step losses, launch counts
+        and wall times, and the trained inference."""
+        loop = RecordingLoop(batch_size=TRAIN_B,
+                             rv_scaling={tm.Y: TRAIN_N / TRAIN_B})
+        inf = GradBasedInference(alg, grad_loop=loop, dtype="float32",
+                                 device=dev)
+        inf.params.update_params(
+            {k: v.clone() for k, v in start_state.items()})
+        with contextlib.nullcontext() if fused else fused_gram.disabled():
+            inf.run(X=Xtr, Y=Ytr, max_iter=1, learning_rate=3e-3)
+        return loop, inf
+
+    zero_counts()
+    fused_loop, trained = train(True)
+    train_launches = read_counts()
+    plain_loop, _ = train(False)
+    fused_losses = [float(x) for x in fused_loop.losses]
+    plain_losses = [float(x) for x in plain_loop.losses]
+    per_step = {"K1": 1, "K2": 1, "K3": fused_gram.BWD_LAUNCHES}
+    for i, counts in enumerate(fused_loop.counts):
+        check(counts == per_step, "fused step {} launched {}; expected {} "
+              "(K1 for Kuu only)".format(i, counts, per_step))
+    for i, counts in enumerate(plain_loop.counts):
+        check(counts == {"K1": 2, "K2": 0, "K3": 0}, "materialized step {} "
+              "launched {}; expected K1 twice (Kuu, Kuf) and no K2/K3"
+              .format(i, counts))
+    check(len(fused_losses) == len(plain_losses) == TRAIN_STEPS,
+          "expected {} steps, got {} and {}".format(
+              TRAIN_STEPS, len(fused_losses), len(plain_losses)))
+    check(all(math.isfinite(x) for x in fused_losses + plain_losses),
+          "non-finite training loss: {} {}".format(fused_losses,
+                                                   plain_losses))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(fused_losses,
+                                                       plain_losses))
+    check(loss_rel <= TRAIN_LOSS_RTOL, "fused vs materialized losses part "
+          "by {} relative: {} vs {}".format(loss_rel, fused_losses,
+                                            plain_losses))
+    f64_loss = first_loss_f64(alg, start_state, fused_loop.first_batch)
+    f64_rel = abs(fused_losses[0] - f64_loss) / abs(f64_loss)
+    check(f64_rel <= F64_LOSS_RTOL, "first fused loss {} vs float64 {}: "
+          "relative {}".format(fused_losses[0], f64_loss, f64_rel))
+    pred = BatchedPredictor(model=tm, infr_params=trained.params,
+                            observed=[tm.X], target_variables=[tm.Y.uuid],
+                            chunk_size=CHUNK)
+    mu, var = pred.predict(X=Xtr[:CHUNK])[0]
+    check(mu.shape == var.shape == (1, CHUNK, 1) and np.isfinite(mu).all()
+          and np.isfinite(var).all(), "serving the trained store gave "
+          "{} {}".format(mu.shape, var.shape))
+    step_s = {"fused": [], "plain": []}
+    for which in ("plain", "fused", "fused", "plain"):
+        loop, _ = train(which == "fused")
+        step_s[which].append(float(np.median(loop.wall_s)))
+    print("phase 6 train: {} rows, B={}, M={}, D={}, {} Adam steps | per "
+          "step launches fused {} materialized {} | losses fused {} "
+          "materialized {} (max rel {:.3e}, tol {:.0e}) | first loss vs "
+          "float64 {:.6f}: rel {:.3e} | served {} rows from the trained "
+          "store | step wall s ({}): fused {} materialized {}".format(
+              TRAIN_N, TRAIN_B, M, D, TRAIN_STEPS, fused_loop.counts[0],
+              plain_loop.counts[0], fused_losses, plain_losses, loss_rel,
+              TRAIN_LOSS_RTOL, f64_loss, f64_rel, CHUNK, card,
+              step_s["fused"], step_s["plain"]), flush=True)
+
+    # ---- 7. timing of K2 and K3, for information
+    Linv, Zs, Xs, var, dG = fused_inputs(grng, M, TRAIN_B, D, dev)
+    fms = {"K2": [], "K2 plain": [], "K3": [], "K3 plain": []}
+    with torch.no_grad():
+        for which in ("plain", "kernel", "kernel", "plain"):
+            if which == "plain":
+                fms["K2 plain"].append(cuda_ms(lambda: fused_gram
+                                               ._fused_fwd_torch(
+                                                   Linv, Zs, Xs, var), 20))
+                fms["K3 plain"].append(cuda_ms(lambda: fused_gram
+                                               ._fused_bwd_torch(
+                                                   Linv, Zs, Xs, var, dG),
+                                               20))
+            else:
+                fms["K2"].append(cuda_ms(lambda: fused_gram._fwd_cuda(
+                    Linv, Zs, Xs, var), 20))
+                fms["K3"].append(cuda_ms(lambda: fused_gram._bwd_cuda(
+                    Linv, Zs, Xs, var, dG), 20))
+    print("phase 7 timing ({}): M={} N={} D={}: {}".format(
+        card, M, TRAIN_B, D, " | ".join("{} {} ms".format(k, v)
+                                        for k, v in fms.items())),
+        flush=True)
+
     check(not any(k == "jax" or k.startswith(("jax.", "mxfusion_tpu."))
                   or k == "mxfusion_tpu" for k in sys.modules),
           "JAX or the JAX package was imported")
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "rbf_gram", "route": "cuda",
-        "source": "mxfusion_tpu_torch/csrc/rbf_gram.cu",
-        "replaces": "mxfusion_tpu/ops/pallas_kernels.py:89",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": min(ms["kernel"]), "plain_ms": min(ms["plain"])}]}))
+    fused_src = "mxfusion_tpu_torch/csrc/fused_gram.cu"
+    print(json.dumps({"kernels": [
+        {"name": "rbf_gram", "route": "cuda",
+         "source": "mxfusion_tpu_torch/csrc/rbf_gram.cu",
+         "replaces": "mxfusion_tpu/ops/pallas_kernels.py:89",
+         "launches": launches + train_launches["K1"], "max_abs_err": max_err,
+         "ms": min(ms["kernel"]), "plain_ms": min(ms["plain"])},
+        {"name": "fused_gram_fwd", "route": "cuda", "source": fused_src,
+         "replaces": "mxfusion_tpu/ops/pallas_fused_gram.py:93",
+         "launches": train_launches["K2"], "max_abs_err": fwd_err,
+         "ms": min(fms["K2"]), "plain_ms": min(fms["K2 plain"])},
+        {"name": "fused_gram_bwd", "route": "cuda", "source": fused_src,
+         "replaces": "mxfusion_tpu/ops/pallas_fused_gram.py:109",
+         "launches": train_launches["K3"], "max_abs_err": bwd_err,
+         "ms": min(fms["K3"]), "plain_ms": min(fms["K3 plain"])}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -56,3 +56,42 @@ class PositiveTransformation(Softplus):
 
     def __init__(self):
         super().__init__(offset=0.0)
+
+
+class SimplexTransformation(VariableTransformation):
+    """Maps R^K onto the interior of the K-simplex via softmax over the
+    last axis (MAP point-mass locations for simplex-support latents).
+    Softmax is a smooth surjection, not a bijection; ``inverse_transform``
+    is the right inverse ``log(x)``."""
+
+    def transform(self, var):
+        e = torch.exp(var - torch.amax(var, dim=-1, keepdim=True))
+        return e / torch.sum(e, dim=-1, keepdim=True)
+
+    def inverse_transform(self, out_var):
+        if isinstance(out_var, (int, float, np.ndarray)):
+            x = np.asarray(out_var, dtype=np.float64)
+            return np.log(np.maximum(x, np.finfo(np.float64).tiny))
+        return torch.log(torch.clamp(out_var,
+                                     min=torch.finfo(out_var.dtype).tiny))
+
+
+class Logistic(VariableTransformation):
+    """Maps the real line to ``(lower, upper)`` via a scaled sigmoid."""
+
+    def __init__(self, lower, upper):
+        self.lower = lower
+        self.upper = upper
+
+    def transform(self, var):
+        # sigmoid as 0.5·(tanh(x/2) + 1), the JAX package's formula
+        return self.lower + (self.upper - self.lower) * 0.5 * (
+            torch.tanh(0.5 * var) + 1.0)
+
+    def inverse_transform(self, out_var):
+        if isinstance(out_var, (int, float, np.ndarray)):
+            p = (np.asarray(out_var, dtype=np.float64) - self.lower) / (
+                self.upper - self.lower)
+            return np.log(p) - np.log1p(-p)
+        p = (out_var - self.lower) / (self.upper - self.lower)
+        return torch.log(p) - torch.log1p(-p)

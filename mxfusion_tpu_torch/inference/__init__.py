@@ -2,6 +2,15 @@ from .inference import Inference, TransferInference
 from .inference_parameters import InferenceParameters
 from .inference_alg import (
     InferenceAlgorithm, SamplingAlgorithm, RuntimeContext, VariableEnv,
-    create_sampling_executor)
+    create_executor, create_sampling_executor)
+from .grad_based_inference import GradBasedInference, GradTransferInference
+from .grad_loop import GradLoop, TrainState
+from .batch_loop import BatchInferenceLoop
+from .minibatch_loop import MinibatchInferenceLoop
+from .device_loop import DeviceMinibatchLoop
+from .variational import (
+    VariationalInference, VariationalSamplingAlgorithm,
+    StochasticVariationalInference)
+from .map import MAP
 from .prediction import ModulePredictionAlgorithm
 from .serving import BatchedPredictor

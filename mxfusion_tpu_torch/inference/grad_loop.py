@@ -1,0 +1,117 @@
+"""Abstract gradient loop and the loops' resume state.
+
+Counterpart of ``mxfusion_tpu/inference/grad_loop.py``. The JAX loops
+thread (trainable, optimizer state, key) through a jitted step; here the
+trainable parameters are leaf tensors that a ``torch.optim`` optimizer
+updates in place, and the key is a ``torch.Generator``.
+:func:`make_optimizer` lives here (in JAX: ``batch_loop.py``), beside
+the loop code that calls it.
+"""
+import copy
+from abc import ABC, abstractmethod
+
+import torch
+
+
+class TrainState:
+    """Loop-internal state for a deterministic resume: the step (the
+    epoch, for the minibatch loops), the generator's state and the
+    optimizer's ``state_dict``. A loop resumed from it rebuilds the same
+    optimizer (same ``optimizer`` and ``learning_rate``) and loads them."""
+
+    def __init__(self, step=0, generator_state=None, opt_state=None):
+        self.step = step
+        self.generator_state = generator_state
+        self.opt_state = opt_state
+
+
+def make_optimizer(optimizer, learning_rate, params):
+    """A ``torch.optim`` optimizer over ``params``, set up as the optax
+    optimizer of the same name: ``adam`` (eps outside the square root,
+    as in optax), ``sgd``, ``adagrad`` (initial accumulator 0.1, eps
+    1e-7), ``rmsprop`` (decay 0.9, eps 1e-8) and ``adamw`` (weight decay
+    1e-4). ``optimizer`` may also be a callable ``(params, lr) ->
+    torch.optim.Optimizer``."""
+    opts = {
+        "adam": lambda p, lr: torch.optim.Adam(p, lr=lr),
+        "sgd": lambda p, lr: torch.optim.SGD(p, lr=lr),
+        "adagrad": lambda p, lr: torch.optim.Adagrad(
+            p, lr=lr, initial_accumulator_value=0.1, eps=1e-7),
+        "rmsprop": lambda p, lr: torch.optim.RMSprop(
+            p, lr=lr, alpha=0.9, eps=1e-8),
+        "adamw": lambda p, lr: torch.optim.AdamW(p, lr=lr,
+                                                 weight_decay=1e-4),
+    }
+    if callable(optimizer):
+        return optimizer(params, learning_rate)
+    if optimizer not in opts:
+        raise ValueError("Unknown optimizer {}.".format(optimizer))
+    return opts[optimizer](params, learning_rate)
+
+
+def _global_norm(tensors):
+    return torch.sqrt(sum(torch.sum(torch.square(t)) for t in tensors))
+
+
+class GradLoop(ABC):
+
+    @staticmethod
+    def _start(params, optimizer, learning_rate, generator, resume_state):
+        """Trainable leaf tensors (copies of the store's), the fixed
+        ones, the optimizer over the first, the generator and the first
+        step, restored from ``resume_state`` when one is given."""
+        trainable = {k: v.detach().clone().requires_grad_(True)
+                     for k, v in params.trainable_params().items()}
+        fixed = dict(params.fixed_params())
+        opt = make_optimizer(optimizer, learning_rate,
+                             list(trainable.values()))
+        if generator is None:
+            generator = torch.Generator(
+                device=params.device).manual_seed(0)
+        start = 0
+        if resume_state is not None:
+            if resume_state.opt_state is not None:
+                opt.load_state_dict(resume_state.opt_state)
+            if resume_state.generator_state is not None:
+                generator.set_state(resume_state.generator_state)
+            start = int(resume_state.step or 0)
+        return trainable, fixed, opt, generator, start
+
+    @staticmethod
+    def _step(executor, opt, trainable, fixed, batch, generator,
+              grad_norm=False):
+        """One optimizer step. The loss is the one at the parameters
+        before the update, as in the JAX loops. Returns (loss, aux,
+        gradient norm or None); ``aux`` is merged into ``fixed`` by the
+        caller."""
+        opt.zero_grad(set_to_none=True)
+        loss, loss_for_grad, aux = executor(trainable, fixed, batch,
+                                            generator)
+        loss_for_grad.backward()
+        gnorm = None
+        if grad_norm:
+            gnorm = _global_norm([p.grad for p in trainable.values()
+                                  if p.grad is not None])
+        opt.step()
+        return loss.detach(), aux, gnorm
+
+    @staticmethod
+    def _sync_live_state(params, trainable, fixed, opt=None, generator=None,
+                         step=None):
+        """Write the loop's current trainable/fixed state back into the
+        parameter store (copies, so later steps do not change it), and,
+        when the optimizer is given, publish a :class:`TrainState` as
+        ``params.train_state``."""
+        params.update_params({k: v.detach().clone()
+                              for k, v in trainable.items()})
+        params.update_params(fixed)
+        if opt is not None:
+            params.train_state = TrainState(
+                step=step, generator_state=generator.get_state(),
+                opt_state=copy.deepcopy(opt.state_dict()))
+
+    @abstractmethod
+    def run(self, executor, params, data, optimizer="adam",
+            learning_rate=1e-3, max_iter=1000, generator=None,
+            verbose=False, callback=None, resume_state=None):
+        """Run the optimization loop; returns the final loss."""

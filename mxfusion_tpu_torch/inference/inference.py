@@ -3,8 +3,7 @@
 Counterpart of ``mxfusion_tpu/inference/inference.py``. ``Inference``
 owns an algorithm plus :class:`InferenceParameters`; ``initialize``
 binds symbolic shapes from data and allocates parameters; ``run`` builds
-the executor and calls it. Zip save/load and the loss-driven run
-(training) come later.
+the executor and calls it once. Zip save/load comes later.
 """
 import warnings
 
@@ -12,7 +11,8 @@ import numpy as np
 import torch
 
 from .inference_parameters import InferenceParameters
-from .inference_alg import create_sampling_executor, SamplingAlgorithm
+from .inference_alg import (create_executor, create_sampling_executor,
+                            SamplingAlgorithm)
 from ..util.inference import discover_shape_constants, init_outcomes
 from ..common.exceptions import InferenceError
 
@@ -77,21 +77,29 @@ class Inference:
         self._initialized = True
 
     def run(self, generator=None, **kwargs):
-        """Initialize (if needed) and execute the algorithm once."""
-        if not isinstance(self._algorithm, SamplingAlgorithm):
-            raise NotImplementedError(
-                "Inference.run of a loss algorithm is not ported yet: "
-                "training comes with the training slice of "
-                "mxfusion_tpu_torch.")
+        """Initialize (if needed) and execute the algorithm once. A loss
+        algorithm returns ``(loss, loss_for_gradient, aux)`` and its aux
+        (SET_) values persist into the parameter store as fixed
+        entries."""
         data = self._fetch_observed(kwargs)
         if not self._initialized:
             self.initialize(generator=generator, **kwargs)
         if generator is None:
             generator = torch.Generator(
                 device=self.params.device).manual_seed(0)
-        executor = create_sampling_executor(self._algorithm, self.params)
-        return executor(self.params.trainable_params(),
-                        self.params.fixed_params(), data, generator)
+        if isinstance(self._algorithm, SamplingAlgorithm):
+            executor = create_sampling_executor(self._algorithm,
+                                                self.params)
+            return executor(self.params.trainable_params(),
+                            self.params.fixed_params(), data, generator)
+        executor = create_executor(self._algorithm, self.params)
+        loss, loss_for_grad, aux = executor(
+            self.params.trainable_params(), self.params.fixed_params(),
+            data, generator)
+        if aux:
+            self.params.update_params(aux)
+            self.params.fixed.update(aux.keys())
+        return loss, loss_for_grad, aux
 
 
 class TransferInference(Inference):

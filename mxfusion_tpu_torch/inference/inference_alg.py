@@ -9,11 +9,14 @@ that builds the runtime env (constants, bijector-transformed parameters,
 observed data, variable ties, each with the leading sample axis) and
 calls ``algorithm.compute``. PyTorch runs eagerly, so there is nothing
 to compile. The JAX package's PRNG key becomes a ``torch.Generator``
-that the :class:`RuntimeContext` holds. The loss executor, minibatch
-``rv_scaling`` and the aux writeback come with training.
+that the :class:`RuntimeContext` holds. The loss executor returns
+``(loss, loss_for_gradient, aux)``: ``aux`` is the JAX package's
+replacement for the reference's ``SET_`` side channel, detached values
+that the loops write back into the parameter store after each step.
 """
 from abc import ABC, abstractmethod
 
+import numpy as np
 import torch
 
 from ..common.exceptions import InferenceError
@@ -54,11 +57,12 @@ class VariableEnv(dict):
 
 class RuntimeContext:
     """Per-execution state threaded through ``compute``: the
-    ``torch.Generator`` that random draws take. (The aux writeback of
-    training-time state comes with training.)"""
+    ``torch.Generator`` that random draws take, and the aux (SET_
+    parameter) writeback dict."""
 
     def __init__(self, generator):
         self.generator = generator
+        self.aux = {}
 
     def next_generator(self):
         """The generator for the next draw (draws advance its state)."""
@@ -110,10 +114,18 @@ class InferenceAlgorithm(ABC):
         return replica
 
     # ------------------------------------------------------------------
-    def prepare_executor(self):
+    def prepare_executor(self, rv_scaling=None):
         """Collect {uuid: transformation} for every unobserved parameter
-        with a bijector, and reset every random variable's generating
-        factor to an unscaled log-pdf."""
+        with a bijector, and set each random variable's generating factor
+        to its scalar ``rv_scaling`` (the minibatch correction N/B), 1.0
+        where none is given. Array scalings (observation masks) are not
+        ported yet and raise."""
+        rv_scaling = rv_scaling if rv_scaling is not None else {}
+        for uuid, s in rv_scaling.items():
+            if np.ndim(s) > 0:
+                raise NotImplementedError(
+                    "array rv_scaling (an observation mask) for {} is not "
+                    "ported yet; pass a scalar.".format(uuid))
         excluded = set(self._observed_uuid)
         var_trans = {}
         for g in self.graphs:
@@ -123,8 +135,14 @@ class InferenceAlgorithm(ABC):
                         v.uuid not in excluded:
                     var_trans[v.uuid] = v.transformation
                 if v.type == VariableType.RANDVAR:
-                    v.factor.log_pdf_scaling = 1.0
+                    v.factor.log_pdf_scaling = float(
+                        rv_scaling.get(v.uuid, 1.0))
         return var_trans
+
+    def set_parameter(self, ctx, variable, value):
+        """Record a training-time state update (e.g. a cached Cholesky)
+        to be written back into the parameter store after the step."""
+        ctx.aux[variable.uuid] = value.detach()
 
     @abstractmethod
     def compute(self, env, ctx):
@@ -171,7 +189,7 @@ class SamplingAlgorithm(InferenceAlgorithm):
         return self._num_samples
 
 
-def _make_env_builder(algorithm, params):
+def _make_env_builder(algorithm, params, rv_scaling=None):
     """Shared env-construction closure for all executors.
 
     Applies, in order: constants (python ints stay shape constants;
@@ -179,7 +197,7 @@ def _make_env_builder(algorithm, params):
     (bijector-transformed, sample dim added), observed data (sample dim
     added), variable ties. Constants are converted to tensors once, here.
     """
-    var_trans = algorithm.prepare_executor()
+    var_trans = algorithm.prepare_executor(rv_scaling=rv_scaling)
     for g in algorithm.graphs:
         for m in g.modules.values():
             var_trans.update(m.collect_internal_transformations())
@@ -214,6 +232,29 @@ def _make_env_builder(algorithm, params):
         return env
 
     return build_env
+
+
+def create_executor(algorithm, params, rv_scaling=None):
+    """The objective of a loss algorithm: ``executor(trainable, fixed,
+    data_list, generator) -> (loss, loss_for_gradient, aux)``, where
+    ``trainable``/``fixed`` are {uuid: unconstrained tensor} dicts and
+    ``data_list`` is the observed data in
+    ``algorithm.observed_variable_UUIDs`` order. Gradients flow from
+    ``loss_for_gradient`` to the tensors of ``trainable``."""
+    build_env = _make_env_builder(algorithm, params, rv_scaling=rv_scaling)
+
+    def executor(trainable, fixed, data_list, generator):
+        env = build_env(trainable, fixed, data_list)
+        ctx = RuntimeContext(generator)
+        result = algorithm.compute(env, ctx)
+        if isinstance(result, tuple) and len(result) == 2:
+            loss, loss_for_grad = result
+        else:
+            loss = loss_for_grad = result
+        return loss, loss_for_grad, ctx.aux
+
+    executor.build_env = build_env
+    return executor
 
 
 def create_sampling_executor(algorithm, params):

@@ -22,6 +22,9 @@ class InferenceParameters:
         self._fixed = set()
         self.dtype = as_torch_dtype(dtype)
         self.device = resolve_device(device)
+        # live loop state (grad_loop.TrainState), published by the
+        # gradient loops for a deterministic resume
+        self.train_state = None
 
     # ------------------------------------------------------------------
     @property
@@ -43,6 +46,10 @@ class InferenceParameters:
 
     def fixed_params(self):
         return {k: v for k, v in self._params.items() if k in self._fixed}
+
+    def update_params(self, new_values):
+        """Overwrite entries: {uuid: unconstrained tensor}."""
+        self._params.update(new_values)
 
     def as_tensor(self, value):
         """``value`` as a tensor of this store's dtype on its device."""

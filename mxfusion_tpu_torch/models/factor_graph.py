@@ -21,6 +21,13 @@ from ..components.functions.function_evaluation import FunctionEvaluation
 from ..common.exceptions import ModelSpecificationError, InferenceError
 
 
+def _sum_event_dims(lp):
+    """(s, ...) -> (s,). ``torch.sum`` over an empty dim tuple would sum
+    everything, so an (s,) term (a module's bound) is returned as is."""
+    return torch.sum(lp, dim=tuple(range(1, lp.ndim))) if lp.ndim > 1 \
+        else lp
+
+
 class FactorGraph:
     """Container of a directed factor graph."""
 
@@ -136,8 +143,7 @@ class FactorGraph:
                                       if v.uuid in targets]
                 if module_targets:
                     lp = f.log_pdf(env, targets=module_targets, ctx=ctx)
-                    terms.append(torch.sum(
-                        lp, dim=tuple(range(1, lp.ndim))))
+                    terms.append(_sum_event_dims(lp))
             elif isinstance(f, FunctionEvaluation):
                 results = f.eval(env)
                 for name, var in f.outputs:
@@ -145,8 +151,7 @@ class FactorGraph:
             elif isinstance(f, Distribution):
                 if targets is None or f.random_variable.uuid in targets:
                     lp = f.log_pdf(env)
-                    terms.append(torch.sum(
-                        lp, dim=tuple(range(1, lp.ndim))))
+                    terms.append(_sum_event_dims(lp))
             else:
                 raise ModelSpecificationError(
                     "Non-factor {} in ordered_factors.".format(f))

@@ -2,12 +2,18 @@
 
 Counterpart of ``mxfusion_tpu/modules/gp_modules/svgp_regression.py``.
 The posterior holds explicit variational parameters ``q(U) = N(qU_mean,
-qU_cov_W qU_cov_Wᵀ + diag(qU_cov_diag))``. So far the module serves:
-the predictive moments (standard and whitened parameterization,
-diagonal variance or full covariance). The ELBO
-(``SVGPRegressionLogPdf``, with the fused gram kernel) and the sampling
-algorithms come with the training slice.
+qU_cov_W qU_cov_Wᵀ + diag(qU_cov_diag))``; the ELBO is
+
+    log_pdf_scaling · E_q[log N(Y | KfuKuu⁻¹U, σ²)] − KL(q(U) ‖ p(U))
+
+(:class:`SVGPRegressionLogPdf`, standard and whitened), with the data
+terms minibatchable. On the wide RBF data path the bound calls the fused
+L⁻¹·Kuf gram (``ops/fused_gram.py``, K2 and K3 on the card). The module
+also serves predictive moments and samples. Forward sampling of the
+module (``draw_samples``) waits for ``ForwardSamplingAlgorithm``.
 """
+import math
+
 import numpy as np
 import torch
 
@@ -22,13 +28,170 @@ from ...components.distributions.gp.gp import GaussianProcess
 from ...components.distributions.gp.cond_gp import \
     ConditionalGaussianProcess
 from ...components.functions.operators import broadcast_to
+from ...inference.variational import VariationalInference
 from ...inference.inference_alg import SamplingAlgorithm
-from ...ops.linalg import make_diagonal
+from ...ops import fused_gram
+from ...ops.linalg import (make_diagonal, broadcast_to_w_samples,
+                           wide_triangular_solve, triangular_inverse)
 from ...ops.precision import einsum as p_einsum
+from ...ops.precision import (data_einsum, data_precision_scope,
+                              guarded_data_einsum, guarded_forward_matmul)
+
+LOG2PI = math.log(2.0 * math.pi)
 
 
 def _solve_lower(L, B):
     return torch.linalg.solve_triangular(L, B, upper=False)
+
+
+def _solve_lower_t(L, B):
+    """``L⁻ᵀ·B`` (JAX: ``solve_triangular(L, B, lower=True, trans="T")``)."""
+    return torch.linalg.solve_triangular(L.mT, B, upper=True)
+
+
+def _log_diag_sum(L):
+    return torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
+
+
+class SVGPRegressionLogPdf(VariationalInference):
+    """Uncollapsed SVGP ELBO.
+
+    ``whitened=True`` parameterizes q over the whitened inducing values
+    v = L⁻¹u (u = L v, L = chol(Kuu)), whose KL term is against N(0, I).
+    Every branch is the JAX package's (``svgp_regression.py:43-220``):
+    narrow/wide solves, the reuse of L⁻¹, the fused arm, the
+    residual-form data fit and the guarded products.
+    """
+
+    def __init__(self, model, posterior, observed, jitter=0.0,
+                 whitened=False):
+        super().__init__(num_samples=1, model=model, posterior=posterior,
+                         observed=observed)
+        self.log_pdf_scaling = 1.0
+        self.jitter = jitter
+        self.whitened = whitened
+
+    def compute(self, env, ctx):
+        from ...components.distributions.gp.kernels import RBF
+        has_mean = self.model.F.factor.has_mean
+        X = env[self.model.X]
+        Y = env[self.model.Y]
+        Z = env[self.model.inducing_inputs]
+        noise_var = env[self.model.noise_var]
+        mu = env[self.posterior.qU_mean]
+        S_W = env[self.posterior.qU_cov_W]
+        S_diag = env[self.posterior.qU_cov_diag]
+        D = Y.shape[-1]
+        M = Z.shape[-2]
+        kern = self.model.kernel
+        kern_params = kern.fetch_parameters(env)
+        X, Y, Z, noise_var, mu, S_W, S_diag, kern_params = arrays_as_samples(
+            [X, Y, Z, noise_var, mu, S_W, S_diag, kern_params])
+
+        if noise_var.ndim == 2:
+            # homoscedastic (s, 1) -> (s, 1, 1); heteroscedastic stays
+            # (s, N, 1) or (s, N, D)
+            noise_var = torch.unsqueeze(noise_var, -2)
+        if noise_var.shape[-1] == 1:
+            beta_sum = D * torch.sum(1.0 / noise_var, dim=-1)   # (s, N|1)
+        else:
+            beta_sum = torch.sum(1.0 / noise_var, dim=-1)
+
+        Kuu = kern.K(Z, **kern_params)
+        if self.jitter > 0.0:
+            Kuu = Kuu + torch.eye(M, dtype=Z.dtype, device=Z.device) * \
+                self.jitter
+        N = X.shape[-2]
+        wide = N >= 4 * M
+        # the fused arm: Kuf is never materialized (K2/K3 on the card).
+        # Exact class identity, not isinstance: a subclass may override
+        # _compute_K, and the kernels hard-code the plain RBF gram.
+        use_fused = (fused_gram.enabled() and wide
+                     and X.shape[0] == 1
+                     and type(kern) is RBF
+                     and getattr(kern, "active_dims", None) is None
+                     and fused_gram.supported(M, N, X.shape[-1], X.dtype,
+                                              X.device))
+        Kuf = None if use_fused else kern.K(Z, X, **kern_params)
+        Kff_diag = kern.Kdiag(X, **kern_params)
+
+        S = p_einsum("...ik,...jk->...ij", S_W, S_W) + \
+            make_diagonal(S_diag)
+
+        if has_mean:
+            Y = Y - env[self.model.mean]
+
+        # one batched Cholesky for the two independent M×M factors
+        LL = torch.linalg.cholesky(torch.stack([Kuu, S], dim=-3))
+        L = LL[..., 0, :, :]
+        Ls = LL[..., 1, :, :]
+        Linv = None
+        if use_fused or (wide and not self.whitened):
+            # the wide data solve materializes L⁻¹ anyway: reuse it for
+            # the narrow solves too (the fused kernel consumes it)
+            Linv = triangular_inverse(L, lower=True)
+        if self.whitened:
+            # q parameterizes v = L⁻¹u directly: the L-solves and the
+            # prior logdet correction drop out of the bound
+            LinvLs = Ls
+            Linvmu = mu
+        elif Linv is not None:
+            LinvLs = p_einsum("...ij,...jk->...ik", Linv, Ls)
+            Linvmu = p_einsum("...ij,...jk->...ik", Linv, mu)
+        else:
+            LinvLs = _solve_lower(L, Ls)
+            Linvmu = _solve_lower(L, mu)
+        if use_fused:
+            kp = kern._strip_prefix(kern_params)
+            ls = kp["lengthscale"][0]
+            var = kp["variance"][0].reshape(())
+            LinvKuf = fused_gram.fused_linv_rbf_gram(
+                Linv[0].contiguous(), Z[0] / ls, X[0] / ls, var)[None]
+        elif Linv is not None:
+            LinvKuf = guarded_forward_matmul(Linv, Kuf)
+        else:
+            LinvKuf = wide_triangular_solve(L, Kuf, lower=True)
+
+        # predictive-mean path m = Kufᵀ(Kuu⁻¹mu), associated through the
+        # narrow w-vector at the guarded tier: its rounding enters the
+        # bound as R·δm/σ² with |R| → σ at convergence
+        if use_fused:
+            # Kuf does not exist: associate through G (same quantity)
+            KfuKuuInvmu = guarded_data_einsum("...mn,...md->...nd",
+                                              LinvKuf, Linvmu)
+        else:
+            if Linv is not None and not self.whitened:
+                w_vec = p_einsum("...ji,...jk->...ik", Linv, Linvmu)
+            else:
+                w_vec = _solve_lower_t(L, Linvmu)
+            KfuKuuInvmu = guarded_data_einsum("...mn,...md->...nd",
+                                              Kuf, w_vec)
+        KfuKuuInvLs = data_einsum("...mn,...mk->...nk", LinvKuf, LinvLs)
+
+        sumlogdiag_Ls = _log_diag_sum(Ls)
+        if self.whitened:
+            sumlogdiag_L_D = 0.0
+        else:
+            sumlogdiag_L_D = _log_diag_sum(L) * D
+        # negative KL(q || p), summed over output columns
+        KL_u = (M / 2.0 + sumlogdiag_Ls) * D - sumlogdiag_L_D \
+            - torch.sum(torch.square(LinvLs), dim=(-2, -1)) / 2.0 * D \
+            - torch.sum(torch.square(Linvmu), dim=(-2, -1)) / 2.0
+
+        # residual-form data fit (svgp_regression.py:198-209 there): the
+        # residual R = Y − m is formed elementwise, so the term's rounding
+        # scales with |R| and not with |Y|; Kff and qff are grouped per
+        # point before the β-weighted reduction
+        R = Y - KfuKuuInvmu                                   # (s, N, D)
+        qff_diag = torch.sum(torch.square(LinvKuf), dim=-2)   # (s, N)
+        logL = -torch.sum(torch.square(R) / noise_var + LOG2PI +
+                          torch.log(noise_var), dim=(-2, -1)) / 2.0
+        logL = logL - torch.sum((Kff_diag - qff_diag) * beta_sum,
+                                dim=-1) / 2.0
+        logL = logL - torch.sum(
+            torch.square(KfuKuuInvLs) * torch.unsqueeze(beta_sum, -1),
+            dim=(-2, -1)) / 2.0
+        return self.log_pdf_scaling * logL + KL_u
 
 
 class SVGPRegressionMeanVariancePrediction(SamplingAlgorithm):
@@ -118,6 +281,48 @@ class SVGPRegressionMeanVariancePrediction(SamplingAlgorithm):
         return outcomes
 
 
+class SVGPRegressionSamplingPrediction(SVGPRegressionMeanVariancePrediction):
+    """Predictive sampling: mean plus noise shaped by the diagonal
+    variance, or by the Cholesky factor of the full covariance."""
+
+    serving_data_axes = ((1,),)  # one (s, N, D) samples leaf
+
+    def __init__(self, model, posterior, observed, rand_gen=None,
+                 noise_free=True, diagonal_variance=True, jitter=0.0,
+                 whitened=False):
+        super().__init__(model=model, posterior=posterior, observed=observed,
+                         noise_free=noise_free,
+                         diagonal_variance=diagonal_variance, jitter=jitter,
+                         whitened=whitened)
+        from ...components.distributions.random_gen import default_rand_gen
+        self._rand_gen = rand_gen if rand_gen is not None \
+            else default_rand_gen()
+
+    def compute(self, env, ctx):
+        if self.diagonal_variance:
+            mu, var = self._moments(env)
+        else:
+            # the full predictive covariance feeds a Cholesky below: pin
+            # HIGHEST even when the data-side precision is relaxed
+            with data_precision_scope("highest"):
+                mu, var = self._moments(env)
+        out_shape = (self.num_samples,) + tuple(mu.shape[1:])
+        die = self._rand_gen.sample_normal(
+            ctx.next_generator(), shape=out_shape,
+            dtype=self.model.F.factor.dtype)
+        if self.diagonal_variance:
+            samples = mu + die * torch.sqrt(torch.clamp(var, min=0.0))
+        else:
+            Lc = broadcast_to_w_samples(
+                torch.linalg.cholesky(var),
+                out_shape[1:-1] + out_shape[-2:-1], self.num_samples)
+            samples = mu + p_einsum("...ij,...jk->...ik", Lc, die)
+        outcomes = {self.model.Y.uuid: samples}
+        if self.target_variables:
+            return tuple(outcomes[v] for v in self.target_variables)
+        return outcomes
+
+
 class SVGPRegression(Module):
     """SVGP regression module."""
 
@@ -192,6 +397,14 @@ class SVGPRegression(Module):
         return graph, [post]
 
     def _attach_default_inference_algorithms(self):
+        observed = [v for _, v in self.inputs] + \
+            [v for _, v in self.outputs]
+        self.attach_log_pdf_algorithms(
+            targets=self.output_names, conditionals=self.input_names,
+            algorithm=SVGPRegressionLogPdf(
+                self._module_graph, self._extra_graphs[0], observed,
+                jitter=self.jitter, whitened=self.whitened),
+            alg_name="svgp_log_pdf")
         observed = [v for _, v in self.inputs]
         self.attach_prediction_algorithms(
             targets=self.output_names, conditionals=self.input_names,
@@ -200,17 +413,11 @@ class SVGPRegression(Module):
                 jitter=self.jitter, whitened=self.whitened),
             alg_name="svgp_predict")
 
-    def log_pdf(self, env, targets=None, ctx=None):
-        raise NotImplementedError(
-            "SVGPRegression.log_pdf is not ported yet: the ELBO "
-            "(SVGPRegressionLogPdf and its fused gram kernel) comes with "
-            "the training slice of mxfusion_tpu_torch.")
-
     def draw_samples(self, env, generator, num_samples=1, targets=None):
         raise NotImplementedError(
-            "SVGPRegression.draw_samples is not ported yet: the sampling "
-            "algorithms come with the training slice of "
-            "mxfusion_tpu_torch.")
+            "SVGPRegression.draw_samples is not ported yet: it runs "
+            "ForwardSamplingAlgorithm, which mxfusion_tpu_torch has not "
+            "ported.")
 
     @staticmethod
     def define_variable(X, kernel, noise_var, shape=None,

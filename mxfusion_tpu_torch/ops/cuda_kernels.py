@@ -13,6 +13,12 @@ take; a CPU tensor takes the plain version :func:`_rbf_torch`, the
 counterpart of ``_rbf_jnp``. Nothing falls back from the kernel to the
 plain version.
 
+The gradient is a :class:`torch.autograd.Function` on both devices:
+its backward recomputes K through :func:`_rbf_torch` and differentiates
+that, as the JAX ``_rbf_bwd`` (``pallas_kernels.py:168-176``)
+recomputes through ``_rbf_jnp``. The JAX package has no backward kernel
+for this gram, so neither has the port.
+
 The flag defaults to on. The JAX package turned its Pallas kernel off
 after a TPU measurement; that measurement says nothing about this card.
 """
@@ -82,17 +88,40 @@ def rbf_kernel_matrix(X, X2, lengthscale, variance):
     ``X`` (s, N, D); ``X2`` (s, M, D) or None (then X2 = X);
     ``lengthscale`` (s, 1) or (s, D); ``variance`` (s, 1). Returns
     (s, N, M). CPU tensors take the plain version; CUDA tensors launch
-    the kernel (float32, contiguous X and X2, no gradient) or raise.
+    the kernel (float32, contiguous X and X2) or raise. Differentiable
+    in every input (see :class:`_RbfGram`).
     """
-    if X.device.type == "cpu":
-        return _rbf_torch(X, X2, lengthscale, variance)
-    if X.device.type != "cuda":
+    if X.device.type not in ("cpu", "cuda"):
         raise ValueError("rbf_kernel_matrix takes CPU or CUDA tensors, "
                          "got {}.".format(X.device))
-    return _rbf_cuda(X, X2, lengthscale, variance)
+    return _RbfGram.apply(X, X2, lengthscale, variance)
 
 
 rbf_kernel_matrix.launches = 0
+
+
+class _RbfGram(torch.autograd.Function):
+    """K1 with the gradient of its plain version. With ``X2 is None``
+    both operand roles feed dX (the recomputation passes X twice)."""
+
+    @staticmethod
+    def forward(ctx, X, X2, lengthscale, variance):
+        ctx.save_for_backward(X, X2, lengthscale, variance)
+        if X.device.type == "cpu":
+            return _rbf_torch(X, X2, lengthscale, variance)
+        return _rbf_cuda(X, X2, lengthscale, variance)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        wanted = [t for t, need in zip(saved, ctx.needs_input_grad)
+                  if need and t is not None]
+        with torch.enable_grad():
+            grads = iter(torch.autograd.grad(
+                _rbf_torch(*saved), wanted, g,
+                create_graph=torch.is_grad_enabled()))
+        return tuple(next(grads) if need and t is not None else None
+                     for t, need in zip(saved, ctx.needs_input_grad))
 
 
 def _rbf_cuda(X, X2, lengthscale, variance):
@@ -106,11 +135,6 @@ def _rbf_cuda(X, X2, lengthscale, variance):
                 "rbf_kernel_matrix: {} is {} on {}; the CUDA kernel takes "
                 "float32 tensors on one device ({}).".format(
                     name, t.dtype, t.device, X.device))
-        if torch.is_grad_enabled() and t.requires_grad:
-            raise NotImplementedError(
-                "the CUDA RBF gram kernel has no backward yet: call it "
-                "under torch.no_grad(). Its gradient comes with the "
-                "training slice.")
     X2_ = X if X2 is None else X2
     if X.ndim != 3 or X2_.ndim != 3 or X2_.shape[0] != X.shape[0] or \
             X2_.shape[2] != X.shape[2]:

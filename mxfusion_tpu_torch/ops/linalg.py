@@ -1,7 +1,6 @@
 """Linalg building blocks for the GP/inference stack.
 
-Counterpart of ``mxfusion_tpu/ops/linalg.py`` (so far the two helpers
-the serving path uses).
+Counterpart of ``mxfusion_tpu/ops/linalg.py``.
 """
 import torch
 
@@ -24,3 +23,33 @@ def broadcast_to_w_samples(x, shape, num_samples):
             tuple(x.shape[1:])
         x = torch.reshape(x, t_shape)
     return torch.broadcast_to(x, (num_samples,) + tuple(shape))
+
+
+def wide_triangular_solve(L, B, lower=True):
+    """``L⁻¹·B`` for a right-hand side of any width.
+
+    For N_rhs ≥ 4·M the JAX package forms ``L⁻¹`` once and applies it as
+    a product (``linalg.py:36-61`` there); the port keeps that split so
+    that the two packages round alike. The wide product is the data
+    axis: its forward is floored at HIGH and its cotangents ride the
+    data tier (:func:`~.precision.guarded_forward_matmul`)."""
+    from .precision import guarded_forward_matmul
+    if B.shape[-1] < 4 * L.shape[-1]:
+        return torch.linalg.solve_triangular(L, B, upper=not lower)
+    return guarded_forward_matmul(triangular_inverse(L, lower=lower), B)
+
+
+def triangular_inverse(L, lower=True):
+    """Explicit ``L⁻¹`` by one triangular solve against I (batched)."""
+    M = L.shape[-1]
+    eye = torch.eye(M, dtype=L.dtype, device=L.device)
+    return torch.linalg.solve_triangular(
+        L, torch.broadcast_to(eye, L.shape[:-2] + (M, M)), upper=not lower)
+
+
+def cholesky_logdet(A):
+    """(L, logdet) for SPD A via one Cholesky (batched)."""
+    L = torch.linalg.cholesky(A)
+    logdet = 2.0 * torch.sum(
+        torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
+    return L, logdet

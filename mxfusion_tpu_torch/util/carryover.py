@@ -66,17 +66,8 @@ def name_paths(graphs):
     return paths
 
 
-def carryover_params(state, graphs, source_graphs=None, dtype=None,
-                     device=None):
-    """The port's :class:`InferenceParameters` holding ``state``.
-
-    ``state``: ``{key: array}`` of unconstrained values (the JAX
-    package's layout; numpy arrays or tensors). Its keys are name paths,
-    or, when ``source_graphs`` (the graphs the state was trained on, of
-    either package) are given, UUIDs of those graphs, translated to name
-    paths by the same walk. ``graphs``: the port's model (and posterior)
-    graphs. Raises on any array that finds no match.
-    """
+def _match(state, graphs, source_graphs):
+    """``state`` re-keyed by the UUIDs of ``graphs``."""
     if source_graphs is not None:
         source_paths = name_paths(source_graphs)
         unknown = [k for k in state if k not in source_paths]
@@ -90,9 +81,35 @@ def carryover_params(state, graphs, source_graphs=None, dtype=None,
         raise KeyError(
             "no variable of the target graphs has the name path(s) {}; "
             "known paths: {}.".format(unmatched, sorted(by_path)))
-    params = InferenceParameters(dtype=dtype, device=device)
-    for path, value in state.items():
+    return {by_path[path]: value for path, value in state.items()}
+
+
+def load_state(params, state, graphs, source_graphs=None):
+    """Overwrite entries of the port's :class:`InferenceParameters`
+    ``params`` with ``state``, matched by name path, and return it.
+
+    ``params`` may be a store that an inference has initialized (e.g.
+    ``GradBasedInference.initialize(...)``): its constants, its ``fixed``
+    set and every entry ``state`` does not name stay as they are, so
+    training starts from ``state``. Keys and ``source_graphs`` as for
+    :func:`carryover_params`."""
+    for uuid, value in _match(state, graphs, source_graphs).items():
         if not isinstance(value, torch.Tensor):
             value = np.array(value)  # a writable copy (JAX's are not)
-        params.param_dict[by_path[path]] = params.as_tensor(value)
+        params.param_dict[uuid] = params.as_tensor(value)
     return params
+
+
+def carryover_params(state, graphs, source_graphs=None, dtype=None,
+                     device=None):
+    """The port's :class:`InferenceParameters` holding ``state``.
+
+    ``state``: ``{key: array}`` of unconstrained values (the JAX
+    package's layout; numpy arrays or tensors). Its keys are name paths,
+    or, when ``source_graphs`` (the graphs the state was trained on, of
+    either package) are given, UUIDs of those graphs, translated to name
+    paths by the same walk. ``graphs``: the port's model (and posterior)
+    graphs. Raises on any array that finds no match.
+    """
+    return load_state(InferenceParameters(dtype=dtype, device=device),
+                      state, graphs, source_graphs)

@@ -1,5 +1,8 @@
 """The port's CUDA kernel wrappers and their build, without JAX.
 
+K1 (``rbf_gram.cu``) with its gradient, K2 and K3 (``fused_gram.cu``)
+and the precision tiers on the card.
+
 The tests marked ``cuda`` hold each CUDA kernel against its plain
 PyTorch version on the card; they skip on a machine without one. This
 file imports no JAX, so it runs on a card machine that has none:
@@ -13,6 +16,7 @@ import pytest
 import torch
 
 from mxfusion_tpu_torch.ops import cuda_build, cuda_kernels as ck
+from mxfusion_tpu_torch.ops import fused_gram as fg
 from mxfusion_tpu_torch.ops import precision
 
 # (s, N, M, D, ARD): X2 = None for M None; ragged N, M and D throughout
@@ -133,8 +137,8 @@ def test_cuda_kernel_rejects_what_it_does_not_take(cuda_device):
                              None, one, one)
     with pytest.raises(ValueError, match="float32"):
         ck.rbf_kernel_matrix(X.double(), None, one.double(), one.double())
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ck.rbf_kernel_matrix(X.requires_grad_(), None, one, one)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ck.rbf_kernel_matrix(X.to("meta"), None, one, one)
 
 
 @pytest.mark.cuda
@@ -173,8 +177,142 @@ def test_highest_einsum_restores_matmul_precision():
     old = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("high")
     try:
-        with precision.ieee_fp32_matmul():
+        with precision._matmul_precision("highest"):
             assert torch.get_float32_matmul_precision() == "highest"
         assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(old)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("X2_none", [False, True])
+def test_cuda_kernel_gradient_matches_plain(cuda_device, X2_none):
+    """K1's backward recomputes through the plain version; the gradient
+    of the kernel path and of the plain path agree (the forward values
+    differ by fp32 summation order only)."""
+    X, X2, ls, var = _inputs(6, 1, 300, None if X2_none else 200, 7, True,
+                             dtype=np.float32)
+
+    def grads(fn):
+        ts = [None if a is None else
+              torch.as_tensor(a, device=cuda_device).requires_grad_(True)
+              for a in (X, X2, ls, var)]
+        K = fn(*ts)
+        torch.sum(torch.sin(K)).backward()
+        return [t.grad for t in ts if t is not None]
+
+    before = ck.rbf_kernel_matrix.launches
+    got = grads(ck.rbf_kernel_matrix)
+    assert ck.rbf_kernel_matrix.launches == before + 1
+    want = grads(ck._rbf_torch)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+FUSED = [(128, 2048, 8), (200, 5037, 7), (1, 1, 1), (130, 300, 128),
+         (512, 65536, 32)]
+
+
+def _fused_inputs(seed, M, N, D, device):
+    rng = np.random.default_rng(seed)
+    ls = np.sqrt(D)
+    Zs = rng.uniform(0, 4, (M, D)) / ls
+    Xs = rng.uniform(0, 4, (N, D)) / ls
+    Linv = np.tril(rng.standard_normal((M, M)) * 0.05) + np.eye(M)
+    dG = rng.standard_normal((M, N)) * 0.01
+    return [torch.as_tensor(a, dtype=torch.float32, device=device)
+            for a in (Linv, Zs, Xs, np.asarray(1.4), dG)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,D", FUSED)
+def test_cuda_fused_forward_matches_plain(cuda_device, M, N, D):
+    Linv, Zs, Xs, var, _ = _fused_inputs(7, M, N, D, cuda_device)
+    before = fg._fwd_cuda.launches
+    G = fg._fwd_cuda(Linv, Zs, Xs, var)
+    P = fg._fused_fwd_torch(Linv, Zs, Xs, var)
+    torch.cuda.synchronize()
+    assert fg._fwd_cuda.launches == before + 1
+    assert G.shape == (M, N)
+    torch.testing.assert_close(G, P, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,D", FUSED)
+def test_cuda_fused_backward_matches_plain_and_is_deterministic(
+        cuda_device, M, N, D):
+    """rtol 2e-3 of each tensor's largest entry; two calls give the same
+    bits (fixed-order partial sums, no atomics)."""
+    Linv, Zs, Xs, var, dG = _fused_inputs(8, M, N, D, cuda_device)
+    before = fg._bwd_cuda.launches
+    first = fg._bwd_cuda(Linv, Zs, Xs, var, dG)
+    second = fg._bwd_cuda(Linv, Zs, Xs, var, dG)
+    plain = fg._fused_bwd_torch(Linv, Zs, Xs, var, dG)
+    torch.cuda.synchronize()
+    assert fg._bwd_cuda.launches == before + 2 * fg.BWD_LAUNCHES
+    for a, b, p in zip(first, second, plain):
+        assert torch.equal(a, b)
+        assert a.shape == p.shape
+        assert float((a - p).abs().max()) <= \
+            2e-3 * max(float(p.abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_function_runs_both_kernels(cuda_device):
+    Linv, Zs, Xs, var, dG = _fused_inputs(9, 64, 1000, 4, cuda_device)
+    args = [t.requires_grad_(True) for t in (Linv, Zs, Xs, var)]
+    f0, b0 = fg._fwd_cuda.launches, fg._bwd_cuda.launches
+    fg.fused_linv_rbf_gram(*args).backward(dG)
+    assert fg._fwd_cuda.launches == f0 + 1
+    assert fg._bwd_cuda.launches == b0 + fg.BWD_LAUNCHES
+    assert args[3].grad.shape == var.shape
+
+
+@pytest.mark.cuda
+def test_cuda_fused_rejects_what_it_does_not_take(cuda_device):
+    Linv, Zs, Xs, var, _ = _fused_inputs(10, 8, 16, 3, cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        fg._fwd_cuda(Linv.double(), Zs.double(), Xs.double(), var.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        fg._fwd_cuda(Linv.T.contiguous().T, Zs, Xs, var)
+    wide = torch.zeros((8, 129), device=cuda_device)
+    with pytest.raises(ValueError, match="D = 129"):
+        fg._fwd_cuda(Linv, wide, torch.zeros((16, 129), device=cuda_device),
+                     var)
+
+
+@pytest.mark.cuda
+def test_cuda_tiers_set_their_precision_in_both_directions(cuda_device):
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Record(TorchDispatchMode):
+        seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket in (torch.ops.aten.mm,
+                                       torch.ops.aten.bmm):
+                self.seen.append(torch.get_float32_matmul_precision())
+            return func(*args, **(kwargs or {}))
+
+    A = torch.ones((1, 64, 32), device=cuda_device, requires_grad=True)
+    B = torch.ones((1, 32, 16), device=cuda_device, requires_grad=True)
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("medium")
+    try:
+        for fn, fwd, bwd in (
+                (lambda: precision.einsum("...ij,...jk->...ik", A, B),
+                 "highest", "highest"),
+                (lambda: precision.guarded_forward_matmul(A, B),
+                 "highest", "high"),
+                (lambda: precision.data_einsum("...ij,...jk->...ik", A, B),
+                 "high", "high")):
+            rec = Record()
+            rec.seen = []
+            with rec:
+                out = fn()
+                n_fwd = len(rec.seen)
+                out.sum().backward()
+            assert set(rec.seen[:n_fwd]) == {fwd}, rec.seen
+            assert set(rec.seen[n_fwd:]) == {bwd}, rec.seen
     finally:
         torch.set_float32_matmul_precision(old)

@@ -150,3 +150,14 @@ def test_gp_distributions_log_pdf_match_jax(jitter):
                     np.asarray(cgp.log_pdf(env))))
     for a, b in zip(*out):
         np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-9)
+
+
+def test_module_terms_keep_their_sample_axis():
+    """A module's bound comes back as (s,). ``torch.sum`` over an empty
+    dim tuple sums every axis (``jnp.sum`` with ``axis=()`` sums none),
+    so the factor graph must not reduce an (s,) term further."""
+    from mxfusion_tpu_torch.models.factor_graph import _sum_event_dims
+    term = torch.tensor([1.0, 2.0, 3.0])
+    assert torch.equal(_sum_event_dims(term), term)
+    assert torch.equal(_sum_event_dims(torch.ones((3, 2, 4))),
+                       torch.full((3,), 8.0))

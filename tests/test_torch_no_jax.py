@@ -1,6 +1,6 @@
 """mxfusion_tpu_torch stands without JAX: a fresh interpreter in which
-``import jax`` fails imports the port and serves the small slice from a
-numpy state. Also: chip_smoke.py refuses to run without a GPU and
+``import jax`` fails imports the port, trains the small slice with both
+minibatch loops and serves it from a numpy state. Also: chip_smoke.py refuses to run without a GPU and
 without the rest of the repository."""
 import os
 import shutil
@@ -53,6 +53,59 @@ jaxy = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib",
 assert not jaxy, jaxy
 print("SERVED", float(mu.mean()))
 """
+
+
+TRAIN_WITHOUT_JAX = r"""
+import sys
+sys.modules["jax"] = None          # any `import jax` now raises
+sys.path.insert(0, {root!r})
+import numpy as np
+from mxfusion_tpu_torch import Model, Variable
+from mxfusion_tpu_torch.components.variables import PositiveTransformation
+from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
+from mxfusion_tpu_torch.modules import SVGPRegression
+from mxfusion_tpu_torch.inference import (GradBasedInference, MAP,
+                                          DeviceMinibatchLoop,
+                                          MinibatchInferenceLoop)
+from mxfusion_tpu_torch.ops import fused_gram, linalg, precision
+
+N, M, D, B = 200, 8, 2, 64
+rng = np.random.default_rng(0)
+X = rng.uniform(0, 4, (N, D))
+Y = np.sin(2 * X[:, :1]) + 0.1 * rng.standard_normal((N, 1))
+for Loop in (DeviceMinibatchLoop, MinibatchInferenceLoop):
+    m = Model()
+    m.n = Variable()
+    m.X = Variable(shape=(m.n, D))
+    m.noise_var = Variable(transformation=PositiveTransformation(),
+                           initial_value=0.1)
+    m.Y = SVGPRegression.define_variable(
+        X=m.X, kernel=RBF(input_dim=D), noise_var=m.noise_var,
+        shape=(m.n, 1), inducing_inputs=Variable(
+            shape=(M, D), initial_value=rng.uniform(0, 4, (M, D))))
+    infr = GradBasedInference(
+        MAP(model=m, observed=[m.X, m.Y]),
+        grad_loop=Loop(batch_size=B, rv_scaling={{m.Y: N / B}}),
+        device="cpu")
+    losses = []
+    infr.run(X=X, Y=Y, max_iter=5, learning_rate=0.05,
+             callback=lambda e, l: losses.append(l))
+    assert len(losses) == 5 and np.all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+jaxy = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib",
+                                                       "mxfusion_tpu")
+        and sys.modules[k] is not None]
+assert not jaxy, jaxy
+print("TRAINED", losses[-1])
+"""
+
+
+def test_port_trains_without_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", TRAIN_WITHOUT_JAX.format(root=str(ROOT))],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert "TRAINED" in proc.stdout
 
 
 def test_port_imports_and_serves_without_jax():

@@ -208,10 +208,14 @@ def test_serving_matches_jax_pallas_interpret_f32(trained, monkeypatch):
 
 
 def test_port_module_raises_for_training_paths(trained):
+    """The bound is attached now (tests/test_torch_svgp_training.py holds
+    it to the JAX package); forward sampling of the module still waits
+    for ForwardSamplingAlgorithm."""
+    from mxfusion_tpu_torch.modules.gp_modules.svgp_regression import \
+        SVGPRegressionLogPdf
     tm, _ = _port(trained, "float64")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tm.Y.factor.log_pdf({}, targets=None)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    assert isinstance(tm.Y.factor.svgp_log_pdf, SVGPRegressionLogPdf)
+    with pytest.raises(NotImplementedError, match="ForwardSampling"):
         tm.Y.factor.draw_samples({}, torch.Generator())
 
 
