@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``mxfusion_tpu_torch``) on one NVIDIA GPU.
 
-Drives the port's two main paths at production width (M = 512 inducing
-points, D = 32, RBF kernel) on the card: SVGP regression serving through
-``BatchedPredictor`` (chunk 8192), and SVGP training through
-``GradBasedInference(MAP, DeviceMinibatchLoop)`` at the bench.py
-headline step shape (B = 65536). In phases that each print one line:
+Drives the port's main paths on the card: SVGP regression serving
+through ``BatchedPredictor`` (M = 512 inducing points, D = 32, RBF
+kernel, chunk 8192), SVGP training through ``GradBasedInference(MAP,
+DeviceMinibatchLoop)`` at the bench.py headline step shape (B = 65536),
+and the multivariate-normal slice: structured-PPCA SVI with a
+full-covariance posterior, then forward sampling. In phases that each
+print one line:
 
 1. device: needs CUDA (exits nonzero without it); prints the card's
    name and power limit (nvidia-smi) and the TF32 settings;
 2. build: compiles the CUDA kernels from ``mxfusion_tpu_torch/csrc``
    with nvcc for sm_90a, one nvcc per source, all started together:
-   ``rbf_gram.cu`` (K1) and ``fused_gram.cu`` (K2, K3);
+   ``rbf_gram.cu`` (K1), ``fused_gram.cu`` (K2, K3) and
+   ``batched_cholesky.cu`` (K4, K5);
 3. kernel: holds each kernel against its plain PyTorch version on the
    card: K1 at the serving shapes (Kzx, Kuu) and one ragged ARD shape,
    max |diff| <= 1e-5 at variance 1; K2 (rtol 2e-4, atol 2e-5) and K3
@@ -38,7 +41,27 @@ headline step shape (B = 65536). In phases that each print one line:
    serves 8192 rows from the trained store; prints the step wall time
    of both arms;
 7. timing (information): K2 and K3 against their plain versions at the
-   training shape.
+   training shape;
+8. cholesky: K4 and K5 (``batched_cholesky.cu``) against the plain
+   version at 512×32², 512×64², 2048×64², 512×128², 8192×64², a ragged
+   B (777×60²) and n = 20: error within 5e-6 of max |L| of the float64
+   factor, upper triangle exactly 0, the same bits over two calls, K4's
+   custom gradient within 1e-4 of ``torch.linalg.cholesky``'s; and the
+   plain version's NaN pattern on matrices that are not positive
+   definite;
+9. ppca: the MVN slice's main path at full width, structured PPCA
+   (N = 2048, Q = 64, D = 128, a full-covariance posterior per point)
+   by ``GradBasedInference(StochasticVariationalInference)`` with S = 4
+   and 20 Adam steps: K4 three times per step, the loss falls, the
+   first loss on fixed draws float32 vs float64 within 1e-4; prints the
+   step wall time;
+10. sampling: ``VariationalPosteriorForwardSampling`` and
+   ``ForwardSampling`` (16 draws each; K4 once each); the draws of z,
+   whitened by the float64 factor of q's (or the prior's) covariance,
+   have mean 0 and covariance I within 8/sqrt(16·N);
+11. r3 entry: ``batched_cholesky_r3`` (K5, which no library path calls,
+   as in JAX) on the trained posterior's covariance stack, against K4;
+12. timing (information): K4, K5 and the plain version at five stacks.
 
 Any failed check raises and the script exits nonzero. The last three
 lines are the card (nvidia-smi), the kernels' JSON record and
@@ -81,6 +104,24 @@ PLAIN_VAR_ATOL = 1e-4
 F64_RTOL = 1e-3
 F64_ROWS = 256
 BULK_ROWS = 32 * CHUNK
+# the MVN slice: the batched Cholesky at the shapes the JAX package
+# measured K4 at (benchmarks/NOTES.md), the structured-PPCA SVI step's
+# log-pdf stack (S·N = 8192), a ragged B and an n that is not a
+# multiple of 8
+CHOL_SHAPES = ((512, 32), (512, 64), (2048, 64), (512, 128), (8192, 64),
+               (777, 60), (512, 20))
+CHOL_TIMED = ((512, 32), (512, 64), (2048, 64), (512, 128), (8192, 64))
+CHOL_MAIN = (8192, 64)  # the PPCA step's log-pdf stacks: the JSON's times
+CHOL_RTOL = 5e-6       # of max |L|: tests/ops/test_cholesky_variants.py
+CHOL_GRAD_RTOL = 1e-4  # fp32 custom backward vs torch's, of the max entry
+PPCA_N, PPCA_Q, PPCA_D, PPCA_S = 2048, 64, 128, 4
+PPCA_STEPS, PPCA_LR, PPCA_FS, PPCA_JITTER = 20, 0.02, 16, 1e-3
+# float32 (K4, IEEE products) vs float64 (plain) at the same state and
+# draws: a sum of 2048·128 likelihood and 2048·64 latent terms
+PPCA_F64_RTOL = 1e-4
+# draws whitened by the float64 factor, pooled over s·N = 32768 vectors:
+# the mean and the covariance's entries scatter by about 1/sqrt(32768)
+PPCA_MOMENT_TOL = 8.0 / math.sqrt(PPCA_FS * PPCA_N)
 
 
 def check(ok, message):
@@ -266,6 +307,224 @@ def cuda_ms(fn, reps=50):
     return start.elapsed_time(end) / reps
 
 
+def spd_stack(rng, B, n, dev):
+    """A float32 stack of SPD matrices W·Wᵀ + n·I on ``dev``."""
+    import torch
+    W = rng.standard_normal((B, n, n)).astype(np.float32)
+    A = W @ np.swapaxes(W, -1, -2) + n * np.eye(n, dtype=np.float32)
+    return torch.as_tensor(A, device=dev)
+
+
+def check_cholesky(bc, A, label):
+    """K4 and K5 against the plain version on one stack: error relative
+    to max |L| of the float64 factor, the upper triangle exactly 0, the
+    same bits over two calls; K4's custom gradient against
+    ``torch.linalg.cholesky``'s. Returns {kernel: max |kernel − plain|}
+    and a printable summary."""
+    import torch
+    B, n, _ = A.shape
+    ref = bc._cholesky_torch(A.double())
+    plain = bc._cholesky_torch(A)
+    scale = float(ref.abs().max())
+    errs, notes = {}, []
+    for name, wrapper in (("K4", bc._k4_cuda), ("K5", bc._k5_cuda)):
+        with torch.no_grad():
+            first, second = wrapper(A), wrapper(A)
+        torch.cuda.synchronize()
+        rel = float((first.double() - ref).abs().max()) / scale
+        check(bool(torch.isfinite(first).all()) and rel <= CHOL_RTOL,
+              "{} {}: {} vs float64 max |diff| / max |L| = {} > {}".format(
+                  label, name, tuple(A.shape), rel, CHOL_RTOL))
+        check(bool((torch.triu(first, 1) == 0).all()),
+              "{} {}: upper triangle not exactly 0".format(label, name))
+        check(torch.equal(first, second), "{} {}: two calls differ".format(
+            label, name))
+        errs[name] = float((first - plain).abs().max())
+        notes.append("{} rel {:.2e}".format(name, rel))
+    G = torch.as_tensor(np.random.default_rng(B * n).standard_normal(
+        (B, n, n)), dtype=torch.float32, device=A.device)
+    grads = []
+    for fn in (bc.batched_cholesky, torch.linalg.cholesky):
+        a = A.clone().requires_grad_(True)
+        torch.sum(fn(a) * G).backward()
+        grads.append(a.grad + a.grad.transpose(-1, -2))
+    grad_rel = float((grads[0] - grads[1]).abs().max()
+                     / grads[1].abs().max())
+    check(grad_rel <= CHOL_GRAD_RTOL, "{}: K4 custom gradient vs "
+          "torch.linalg.cholesky's: {} > {}".format(label, grad_rel,
+                                                   CHOL_GRAD_RTOL))
+    notes.append("grad rel {:.2e}".format(grad_rel))
+    return errs, "{} B={} n={}: {}".format(label, B, n, ", ".join(notes))
+
+
+def posterior_covariance(A):
+    """q(z_n)'s covariance A_n·A_nᵀ + 1e-3·I."""
+    import torch
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return torch.matmul(A, A.transpose(-1, -2)) + PPCA_JITTER * eye
+
+
+def build_ppca(n, q_dim, d, W0, rand_gens=None, dtype="float32"):
+    """Structured PPCA through the port's public API: z_n ~ N(0, I) in
+    precision form, x = z·W + noise, and q(z_n) = N(q_mu_n, q_A_n
+    q_A_nᵀ + 1e-3·I), a full-covariance posterior. ``rand_gens``
+    optionally fixes the noise of q's draw ("q"). Returns (model,
+    posterior)."""
+    from mxfusion_tpu_torch import Model, Variable
+    from mxfusion_tpu_torch.models import Posterior
+    from mxfusion_tpu_torch.components.distributions import (
+        MultivariateNormal, MultivariateNormalMeanPrecision, Normal)
+    from mxfusion_tpu_torch.components.functions import Function
+    from mxfusion_tpu_torch.components.functions.operators import (
+        broadcast_to, dot)
+    from mxfusion_tpu_torch.components.variables import \
+        PositiveTransformation
+    gens = rand_gens or {}
+    m = Model()
+    m.zero = Variable(value=0.)
+    m.eye = Variable(value=np.eye(q_dim))
+    m.W = Variable(shape=(q_dim, d), initial_value=W0)
+    # every variable named: the float64 check loads states by name path
+    m.z_mean = broadcast_to(m.zero, (n, q_dim))
+    m.z_precision = broadcast_to(m.eye, (n, q_dim, q_dim))
+    m.z = MultivariateNormalMeanPrecision.define_variable(
+        mean=m.z_mean, precision=m.z_precision, shape=(n, q_dim),
+        dtype=dtype)
+    m.noise = Variable(transformation=PositiveTransformation(),
+                       initial_value=1.0)
+    m.x_mean = dot(m.z, m.W)
+    m.x_variance = broadcast_to(m.noise, (n, d))
+    m.x = Normal.define_variable(mean=m.x_mean, variance=m.x_variance,
+                                 shape=(n, d), dtype=dtype)
+    q = Posterior(m)
+    q.q_mu = Variable(shape=(n, q_dim))
+    q.q_A = Variable(shape=(n, q_dim, q_dim),
+                     initial_value=np.tile(0.5 * np.eye(q_dim), (n, 1, 1)))
+    q.q_cov = Function(posterior_covariance, input_names=["A"],
+                       output_names=["cov"], broadcastable=True)(q.q_A)
+    q.z.set_prior(MultivariateNormal(mean=q.q_mu, covariance=q.q_cov,
+                                     rand_gen=gens.get("q"), dtype=dtype))
+    return m, q
+
+
+def ppca_data(rng, n, q_dim, d):
+    """z and x from a true PPCA (x = z·W + 0.5·noise), and W's start."""
+    W = rng.standard_normal((q_dim, d))
+    z = rng.standard_normal((n, q_dim))
+    x = z @ W + 0.5 * rng.standard_normal((n, d))
+    return x.astype(np.float32), 0.1 * rng.standard_normal((q_dim, d))
+
+
+def ppca_loss_at(state, x, noise, W0, dtype, dev):
+    """The negative ELBO at the name-path ``state`` on q-draws fixed to
+    ``noise``, in ``dtype`` (float64 runs the plain Cholesky)."""
+    import torch
+    from mxfusion_tpu_torch.components.distributions import \
+        FixedRandomGenerator
+    from mxfusion_tpu_torch.inference import (
+        GradBasedInference, StochasticVariationalInference, create_executor)
+    from mxfusion_tpu_torch.util.carryover import load_state
+    n, d = x.shape
+    m, q = build_ppca(n, W0.shape[0], d, W0, dtype=dtype,
+                      rand_gens={"q": FixedRandomGenerator(noise)})
+    inf = GradBasedInference(StochasticVariationalInference(
+        num_samples=PPCA_S, model=m, posterior=q, observed=[m.x]),
+        dtype=dtype, device=dev)
+    inf.initialize(x=x)
+    load_state(inf.params, {k: v.double().cpu().numpy()
+                            for k, v in state.items()}, inf.graphs)
+    ex = create_executor(inf.inference_algorithm, inf.params)
+    with torch.no_grad():
+        return float(ex(inf.params.trainable_params(),
+                        inf.params.fixed_params(), [x],
+                        torch.Generator(dev))[0])
+
+
+def whitened_moments(z, mu, L):
+    """Draws z (s, N, Q) of N(mu_n, L_n L_nᵀ) whitened, w = L_n⁻¹(z − mu_n),
+    pooled over samples and points: the largest |mean| and the largest
+    |cov − I| entry of w (0 for exact draws; about 1/sqrt(s·N) apart by
+    chance)."""
+    import torch
+    w = torch.linalg.solve_triangular(
+        L, (z - mu)[..., None], upper=False)[..., 0].reshape(
+            -1, z.shape[-1]).double()
+    mean = w.mean(0)
+    cov = torch.cov(w.T)
+    eye = torch.eye(z.shape[-1], dtype=w.dtype, device=w.device)
+    return float(mean.abs().max()), float((cov - eye).abs().max())
+
+
+def recording_batch_loop(read_counts, sync):
+    """A ``BatchInferenceLoop`` that records each step's loss, kernel
+    launches and wall time (synchronized before and after), and the
+    trainable state the first step starts from."""
+    from mxfusion_tpu_torch.inference import BatchInferenceLoop
+
+    class RecordingBatchLoop(BatchInferenceLoop):
+        def __init__(self):
+            super().__init__()
+            self.losses, self.counts, self.wall_s = [], [], []
+            self.start_state = None
+
+        def _step(self, executor, opt, trainable, fixed, batch, generator,
+                  grad_norm=False):
+            if self.start_state is None:
+                self.start_state = {k: v.detach().clone()
+                                    for k, v in trainable.items()}
+            before = read_counts()
+            sync()
+            t0 = time.perf_counter()
+            out = BatchInferenceLoop._step(executor, opt, trainable, fixed,
+                                           batch, generator, grad_norm)
+            sync()
+            self.wall_s.append(time.perf_counter() - t0)
+            after = read_counts()
+            self.counts.append({k: after[k] - before[k] for k in after})
+            self.losses.append(float(out[0]))
+            return out
+
+    return RecordingBatchLoop()
+
+
+def train_ppca(dev, seed, n, q_dim, d, steps, read_counts, sync):
+    """Structured-PPCA SVI through ``GradBasedInference`` (S = 4 samples,
+    Adam): returns the trained inference, the data, W's start, the start
+    state by name path and the recording loop."""
+    import torch
+    from mxfusion_tpu_torch.inference import (
+        GradBasedInference, StochasticVariationalInference)
+    from mxfusion_tpu_torch.util.carryover import name_paths
+    x, W0 = ppca_data(np.random.default_rng(seed), n, q_dim, d)
+    m, q = build_ppca(n, q_dim, d, W0)
+    loop = recording_batch_loop(read_counts, sync)
+    inf = GradBasedInference(StochasticVariationalInference(
+        num_samples=PPCA_S, model=m, posterior=q, observed=[m.x]),
+        grad_loop=loop, dtype="float32", device=dev)
+    inf.run(x=x, max_iter=steps, learning_rate=PPCA_LR,
+            generator=torch.Generator(dev).manual_seed(seed))
+    paths = name_paths(inf.graphs)
+    start = {paths[k]: v for k, v in loop.start_state.items()}
+    return inf, x, W0, start, loop
+
+
+def sample_ppca(inf, seed):
+    """``VariationalPosteriorForwardSampling`` of the trained posterior
+    and ``ForwardSampling`` of the prior, PPCA_FS draws of (z, x) each."""
+    import torch
+    from mxfusion_tpu_torch.inference import (
+        ForwardSampling, VariationalPosteriorForwardSampling)
+    m = inf.inference_algorithm.model
+    gen = torch.Generator(inf.params.device).manual_seed(seed)
+    post = VariationalPosteriorForwardSampling(
+        num_samples=PPCA_FS, observed=[], inherited_inference=inf,
+        target_variables=[m.z, m.x])
+    prior = ForwardSampling(num_samples=PPCA_FS, model=m, observed=[],
+                            infr_params=inf.params,
+                            target_variables=[m.z, m.x])
+    return post.run(generator=gen), prior.run(generator=gen)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -289,8 +548,8 @@ def main():
     from mxfusion_tpu_torch.modules import SVGPRegression
     from mxfusion_tpu_torch.inference import (
         BatchedPredictor, DeviceMinibatchLoop, GradBasedInference, MAP)
-    from mxfusion_tpu_torch.ops import (cuda_build, cuda_kernels, fused_gram,
-                                        precision)
+    from mxfusion_tpu_torch.ops import (batched_cholesky, cuda_build,
+                                        cuda_kernels, fused_gram, precision)
     from mxfusion_tpu_torch.util.carryover import carryover_params
 
     dev = torch.device("cuda:0")
@@ -298,12 +557,16 @@ def main():
     def read_counts():
         return {"K1": cuda_kernels.rbf_kernel_matrix.launches,
                 "K2": fused_gram._fwd_cuda.launches,
-                "K3": fused_gram._bwd_cuda.launches}
+                "K3": fused_gram._bwd_cuda.launches,
+                "K4": batched_cholesky._k4_cuda.launches,
+                "K5": batched_cholesky._k5_cuda.launches}
 
     def zero_counts():
         cuda_kernels.rbf_kernel_matrix.launches = 0
         fused_gram._fwd_cuda.launches = 0
         fused_gram._bwd_cuda.launches = 0
+        batched_cholesky._k4_cuda.launches = 0
+        batched_cholesky._k5_cuda.launches = 0
 
     class RecordingLoop(DeviceMinibatchLoop):
         """The device loop, recording each step's loss, kernel launches
@@ -339,7 +602,7 @@ def main():
               torch.backends.cudnn.allow_tf32), flush=True)
 
     # ---- 2. build: one nvcc per source, all started together
-    sources = ("rbf_gram.cu", "fused_gram.cu")
+    sources = ("rbf_gram.cu", "fused_gram.cu", "batched_cholesky.cu")
     cached = [cuda_build.library_path(src).exists() for src in sources]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
@@ -349,9 +612,11 @@ def main():
         print("phase 2 build: {} (cached={}) | ptxas: {}".format(
             lib_path.name, was_cached, ptxas_summary(lib_path)),
             flush=True)
-    print("phase 2 build: both sources in {:.3f} s | dynamic shared memory "
-          "at D={}: {}".format(build_s, D, fused_gram.shared_memory_bytes(D)),
-          flush=True)
+    print("phase 2 build: {} sources in {:.3f} s | dynamic shared memory "
+          "at D={}: {} | K4/K5 at n=32, 64, 128: {} B".format(
+              len(sources), build_s, D, fused_gram.shared_memory_bytes(D),
+              [batched_cholesky.shared_memory_bytes(n)
+               for n in (32, 64, 128)]), flush=True)
 
     # ---- 3. kernel against the plain version, on the card
     softplus_inv = PositiveTransformation().inverse_transform
@@ -560,12 +825,14 @@ def main():
     plain_loop, _ = train(False)
     fused_losses = [float(x) for x in fused_loop.losses]
     plain_losses = [float(x) for x in plain_loop.losses]
-    per_step = {"K1": 1, "K2": 1, "K3": fused_gram.BWD_LAUNCHES}
+    per_step = {"K1": 1, "K2": 1, "K3": fused_gram.BWD_LAUNCHES, "K4": 0,
+                "K5": 0}
     for i, counts in enumerate(fused_loop.counts):
         check(counts == per_step, "fused step {} launched {}; expected {} "
               "(K1 for Kuu only)".format(i, counts, per_step))
     for i, counts in enumerate(plain_loop.counts):
-        check(counts == {"K1": 2, "K2": 0, "K3": 0}, "materialized step {} "
+        check(counts == {"K1": 2, "K2": 0, "K3": 0, "K4": 0, "K5": 0},
+              "materialized step {} "
               "launched {}; expected K1 twice (Kuu, Kuf) and no K2/K3"
               .format(i, counts))
     check(len(fused_losses) == len(plain_losses) == TRAIN_STEPS,
@@ -627,11 +894,144 @@ def main():
                                         for k, v in fms.items())),
         flush=True)
 
+    # ---- 8. K4 and K5 against the plain version, on the card
+    crng = np.random.default_rng(args.seed + 3)
+    chol_errs = {"K4": 0.0, "K5": 0.0}
+    for B, n in CHOL_SHAPES:
+        errs, note = check_cholesky(batched_cholesky,
+                                    spd_stack(crng, B, n, dev), "stack")
+        for k in chol_errs:
+            chol_errs[k] = max(chol_errs[k], errs[k])
+        print("phase 8 cholesky: {} | max |kernel - plain| K4 {:.3e} K5 "
+              "{:.3e}".format(note, errs["K4"], errs["K5"]), flush=True)
+    bad = spd_stack(crng, 6, 20, dev)
+    bad[2] = -bad[2]
+    bad[4, 0, 1] = bad[4, 1, 0] = 10.0 * bad[4, 0, 0]
+    nan_plain = torch.isnan(batched_cholesky._cholesky_torch(bad))
+    for name, wrapper in (("K4", batched_cholesky._k4_cuda),
+                          ("K5", batched_cholesky._k5_cuda)):
+        L = wrapper(bad)
+        check(torch.equal(torch.isnan(L), nan_plain)
+              and int(nan_plain.sum()) == 2 * 210
+              and bool((torch.triu(L, 1) == 0).all()),
+              "{}: NaN pattern on matrices that are not positive definite "
+              "differs from the plain version's".format(name))
+    print("phase 8 cholesky: not positive definite (2 of 6 matrices): K4 "
+          "and K5 give the plain version's NaN lower triangles", flush=True)
+
+    # ---- 9. the MVN slice: structured-PPCA SVI at full width
+    def sync():
+        torch.cuda.synchronize()
+
+    zero_counts()
+    ppca, x_ppca, W0, ppca_start, ploop = train_ppca(
+        dev, args.seed + 4, PPCA_N, PPCA_Q, PPCA_D, PPCA_STEPS,
+        read_counts, sync)
+    (zq, xq), (zp, xp) = sample_ppca(ppca, args.seed + 5)
+    sync()
+    ppca_launches = read_counts()
+    per_step = {"K1": 0, "K2": 0, "K3": 0, "K4": 3, "K5": 0}
+    for i, counts in enumerate(ploop.counts):
+        check(counts == per_step, "PPCA step {} launched {}; expected {} "
+              "(q's draw, the prior's and q's log-pdf)".format(
+                  i, counts, per_step))
+    check(ppca_launches["K4"] == 3 * PPCA_STEPS + 2, "PPCA path launched "
+          "K4 {} times; expected {} (3 per step, 1 per forward sampling)"
+          .format(ppca_launches["K4"], 3 * PPCA_STEPS + 2))
+    losses = ploop.losses
+    check(len(losses) == PPCA_STEPS and all(math.isfinite(v) for v in losses)
+          and losses[-1] < losses[0], "PPCA losses do not fall: {}".format(
+              losses))
+    noise = np.random.default_rng(args.seed + 6).standard_normal(
+        PPCA_S * PPCA_N * PPCA_Q)
+    l32 = ppca_loss_at(ppca_start, x_ppca, noise, W0, "float32", dev)
+    l64 = ppca_loss_at(ppca_start, x_ppca, noise, W0, "float64", dev)
+    ppca_f64_rel = abs(l32 - l64) / abs(l64)
+    check(ppca_f64_rel <= PPCA_F64_RTOL, "PPCA first loss float32 {} vs "
+          "float64 {}: relative {}".format(l32, l64, ppca_f64_rel))
+    step_wall = float(np.median(ploop.wall_s[1:]))
+    print("phase 9 ppca: N={} Q={} D={} S={}, {} Adam steps (lr {}) | K4 "
+          "launches per step {} | losses {:.6g} -> {:.6g} | first loss on "
+          "fixed draws float32 {:.8g} vs float64 {:.8g}: rel {:.3e} (tol "
+          "{:.0e}) | step wall ms ({}): median {:.3f} of {} (first {:.3f})"
+          .format(PPCA_N, PPCA_Q, PPCA_D, PPCA_S, PPCA_STEPS, PPCA_LR,
+                  ploop.counts[0]["K4"], losses[0], losses[-1], l32, l64,
+                  ppca_f64_rel, PPCA_F64_RTOL, card, 1e3 * step_wall,
+                  [round(1e3 * w, 3) for w in ploop.wall_s],
+                  1e3 * ploop.wall_s[0]), flush=True)
+
+    # ---- 10. forward sampling from the trained posterior and the prior
+    q = ppca.inference_algorithm.posterior
+    mu = ppca.params[q.q_mu].double()
+    cov64 = posterior_covariance(ppca.params[q.q_A].double())
+    Lq = torch.linalg.cholesky(cov64)
+    for label, z, xs in (("posterior", zq, xq), ("prior", zp, xp)):
+        check(tuple(z.shape) == (PPCA_FS, PPCA_N, PPCA_Q)
+              and tuple(xs.shape) == (PPCA_FS, PPCA_N, PPCA_D)
+              and bool(torch.isfinite(z).all())
+              and bool(torch.isfinite(xs).all()),
+              "{} samples: z {} x {} not finite or not ({}, {}, {}/{})"
+              .format(label, tuple(z.shape), tuple(xs.shape), PPCA_FS,
+                      PPCA_N, PPCA_Q, PPCA_D))
+    eye = torch.eye(PPCA_Q, dtype=torch.float64, device=dev)
+    moments = {"posterior": whitened_moments(zq.double(), mu, Lq),
+               "prior": whitened_moments(zp.double(), 0.0,
+                                         eye.expand(PPCA_N, -1, -1))}
+    for label, (mean_err, cov_err) in moments.items():
+        check(mean_err <= PPCA_MOMENT_TOL and cov_err <= PPCA_MOMENT_TOL,
+              "{} draws whitened: |mean| {} |cov - I| {} > {}".format(
+                  label, mean_err, cov_err, PPCA_MOMENT_TOL))
+    print("phase 10 sampling: {} draws of z ({}, {}) and x ({}, {}) from "
+          "the trained posterior and the prior; whitened by the float64 "
+          "factor, max |mean| and max |cov - I|: posterior {:.4f} {:.4f}, "
+          "prior {:.4f} {:.4f} (tol {:.4f})".format(
+              PPCA_FS, PPCA_N, PPCA_Q, PPCA_N, PPCA_D,
+              *moments["posterior"], *moments["prior"], PPCA_MOMENT_TOL),
+          flush=True)
+
+    # ---- 11. K5's own entry (the r3 variant; no library caller, as in
+    # JAX) on the trained posterior's covariance stack
+    cov32 = posterior_covariance(ppca.params[q.q_A]).detach().contiguous()
+    zero_counts()
+    with torch.no_grad():
+        L5 = batched_cholesky.batched_cholesky_r3(cov32)
+        sync()
+        r3_launches = read_counts()
+        L4 = batched_cholesky.cholesky(cov32)
+    sync()
+    r3_rel = float((L5 - L4).abs().max() / L4.abs().max())
+    check(r3_launches["K5"] == 1 and r3_rel <= 2 * CHOL_RTOL,
+          "batched_cholesky_r3 launched K5 {} times; K5 vs K4 on the "
+          "posterior stack {} > {}".format(r3_launches["K5"], r3_rel,
+                                           2 * CHOL_RTOL))
+    print("phase 11 r3 entry: batched_cholesky_r3 on the posterior's "
+          "({}, {}, {}) stack: K5 launches {}, vs K4 max |diff| / max |L| "
+          "{:.3e}".format(PPCA_N, PPCA_Q, PPCA_Q, r3_launches["K5"], r3_rel),
+          flush=True)
+
+    # ---- 12. timing of K4 and K5, for information
+    chol_ms = {}
+    with torch.no_grad():
+        for B, n in CHOL_TIMED:
+            A = spd_stack(crng, B, n, dev)
+            t = {"plain": [], "K4": [], "K5": []}
+            for which in ("plain", "K4", "K5", "K5", "K4", "plain"):
+                fn = {"plain": batched_cholesky._cholesky_torch,
+                      "K4": batched_cholesky._k4_cuda,
+                      "K5": batched_cholesky._k5_cuda}[which]
+                t[which].append(cuda_ms(lambda: fn(A), 20))
+            chol_ms[(B, n)] = t
+    print("phase 12 timing ({}): {}".format(card, " | ".join(
+        "{}x{}^2: K4 {} K5 {} plain {} ms".format(B, n, *(
+            [round(v, 5) for v in t[k]] for k in ("K4", "K5", "plain")))
+        for (B, n), t in chol_ms.items())), flush=True)
+
     check(not any(k == "jax" or k.startswith(("jax.", "mxfusion_tpu."))
                   or k == "mxfusion_tpu" for k in sys.modules),
           "JAX or the JAX package was imported")
     print(card)
     fused_src = "mxfusion_tpu_torch/csrc/fused_gram.cu"
+    chol_src = "mxfusion_tpu_torch/csrc/batched_cholesky.cu"
     print(json.dumps({"kernels": [
         {"name": "rbf_gram", "route": "cuda",
          "source": "mxfusion_tpu_torch/csrc/rbf_gram.cu",
@@ -645,7 +1045,17 @@ def main():
         {"name": "fused_gram_bwd", "route": "cuda", "source": fused_src,
          "replaces": "mxfusion_tpu/ops/pallas_fused_gram.py:109",
          "launches": train_launches["K3"], "max_abs_err": bwd_err,
-         "ms": min(fms["K3"]), "plain_ms": min(fms["K3 plain"])}]}))
+         "ms": min(fms["K3"]), "plain_ms": min(fms["K3 plain"])},
+        {"name": "batched_cholesky", "route": "cuda", "source": chol_src,
+         "replaces": "mxfusion_tpu/ops/pallas_batched_cholesky.py:111",
+         "launches": ppca_launches["K4"], "max_abs_err": chol_errs["K4"],
+         "ms": min(chol_ms[CHOL_MAIN]["K4"]),
+         "plain_ms": min(chol_ms[CHOL_MAIN]["plain"])},
+        {"name": "batched_cholesky_r3", "route": "cuda", "source": chol_src,
+         "replaces": "mxfusion_tpu/ops/pallas_batched_cholesky.py:56",
+         "launches": r3_launches["K5"], "max_abs_err": chol_errs["K5"],
+         "ms": min(chol_ms[CHOL_MAIN]["K5"]),
+         "plain_ms": min(chol_ms[CHOL_MAIN]["plain"])}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

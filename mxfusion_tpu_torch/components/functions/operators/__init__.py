@@ -1,2 +1,2 @@
-from .operators import Operator
-from .operator_impl import broadcast_to
+from .operators import Operator, operator_definition
+from .operator_impl import broadcast_to, dot

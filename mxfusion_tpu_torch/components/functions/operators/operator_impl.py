@@ -1,15 +1,25 @@
 """Operator library.
 
 Counterpart of ``mxfusion_tpu/components/functions/operators/
-operator_impl.py``. So far only ``broadcast_to``, which the SVGP module
-uses to broadcast its noise variance over the data.
+operator_impl.py``. So far ``dot`` (the PPCA model's ``z·W``) and
+``broadcast_to``, which the SVGP module uses to broadcast its noise
+variance over the data.
 """
 import torch
 
-from .operators import Operator
+from .operators import operator_definition, Operator
 from ...variables.variable import Variable
 from ....util.inference import realize_shape
 
+
+# --- matrix ops (batched over the sample axis) ----------------------------
+
+@operator_definition(name="dot", args=["x", "y"], inputs=["x", "y"])
+def dot(x, y):
+    return torch.matmul(x, y)
+
+
+# --- special: broadcast_to with symbolic target shape --------------------
 
 class BroadcastToOperator(Operator):
     def __init__(self, data, shape):

@@ -12,5 +12,8 @@ from .variational import (
     VariationalInference, VariationalSamplingAlgorithm,
     StochasticVariationalInference)
 from .map import MAP
+from .forward_sampling import (
+    ForwardSamplingAlgorithm, ForwardSampling,
+    VariationalPosteriorForwardSampling, merge_posterior_into_model)
 from .prediction import ModulePredictionAlgorithm
 from .serving import BatchedPredictor

@@ -9,8 +9,8 @@ qU_cov_W qU_cov_Wᵀ + diag(qU_cov_diag))``; the ELBO is
 (:class:`SVGPRegressionLogPdf`, standard and whitened), with the data
 terms minibatchable. On the wide RBF data path the bound calls the fused
 L⁻¹·Kuf gram (``ops/fused_gram.py``, K2 and K3 on the card). The module
-also serves predictive moments and samples. Forward sampling of the
-module (``draw_samples``) waits for ``ForwardSamplingAlgorithm``.
+also serves predictive moments and samples, and draws from its prior
+by forward sampling of the module graph (``svgp_sampling``).
 """
 import math
 
@@ -30,6 +30,7 @@ from ...components.distributions.gp.cond_gp import \
 from ...components.functions.operators import broadcast_to
 from ...inference.variational import VariationalInference
 from ...inference.inference_alg import SamplingAlgorithm
+from ...inference.forward_sampling import ForwardSamplingAlgorithm
 from ...ops import fused_gram
 from ...ops.linalg import (make_diagonal, broadcast_to_w_samples,
                            wide_triangular_solve, triangular_inverse)
@@ -406,18 +407,16 @@ class SVGPRegression(Module):
                 jitter=self.jitter, whitened=self.whitened),
             alg_name="svgp_log_pdf")
         observed = [v for _, v in self.inputs]
+        self.attach_draw_samples_algorithms(
+            targets=self.output_names, conditionals=self.input_names,
+            algorithm=ForwardSamplingAlgorithm(self._module_graph, observed),
+            alg_name="svgp_sampling")
         self.attach_prediction_algorithms(
             targets=self.output_names, conditionals=self.input_names,
             algorithm=SVGPRegressionMeanVariancePrediction(
                 self._module_graph, self._extra_graphs[0], observed,
                 jitter=self.jitter, whitened=self.whitened),
             alg_name="svgp_predict")
-
-    def draw_samples(self, env, generator, num_samples=1, targets=None):
-        raise NotImplementedError(
-            "SVGPRegression.draw_samples is not ported yet: it runs "
-            "ForwardSamplingAlgorithm, which mxfusion_tpu_torch has not "
-            "ported.")
 
     @staticmethod
     def define_variable(X, kernel, noise_var, shape=None,

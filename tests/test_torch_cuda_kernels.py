@@ -1,7 +1,7 @@
 """The port's CUDA kernel wrappers and their build, without JAX.
 
-K1 (``rbf_gram.cu``) with its gradient, K2 and K3 (``fused_gram.cu``)
-and the precision tiers on the card.
+K1 (``rbf_gram.cu``) with its gradient, K2 and K3 (``fused_gram.cu``),
+K4 and K5 (``batched_cholesky.cu``) and the precision tiers on the card.
 
 The tests marked ``cuda`` hold each CUDA kernel against its plain
 PyTorch version on the card; they skip on a machine without one. This
@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from mxfusion_tpu_torch.ops import batched_cholesky as bc
 from mxfusion_tpu_torch.ops import cuda_build, cuda_kernels as ck
 from mxfusion_tpu_torch.ops import fused_gram as fg
 from mxfusion_tpu_torch.ops import precision
@@ -316,3 +317,99 @@ def test_cuda_tiers_set_their_precision_in_both_directions(cuda_device):
             assert set(rec.seen[n_fwd:]) == {bwd}, rec.seen
     finally:
         torch.set_float32_matmul_precision(old)
+
+
+# (B, n): the MVN slice's stacks, the JAX benchmark's shapes, a ragged B
+# and n that are not multiples of 8
+CHOL = [(512, 32), (512, 64), (2048, 64), (512, 128), (8192, 64), (37, 24),
+        (100, 20), (3, 1), (5, 127)]
+
+
+def _spd32(B, n, seed, device):
+    rng = np.random.default_rng(seed)
+    W = rng.standard_normal((B, n, n))
+    A = W @ np.swapaxes(W, -1, -2) + n * np.eye(n)
+    return torch.as_tensor(A, dtype=torch.float32, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n", CHOL)
+@pytest.mark.parametrize("variant", ["K4", "K5"])
+def test_cuda_cholesky_matches_plain(cuda_device, variant, B, n):
+    """Within 5e-6 of max |L| of the float64 factor and of the float32
+    plain version (the JAX test's bound), upper triangle exactly 0, the
+    same bits on a second call, one launch per call."""
+    A = _spd32(B, n, 11, cuda_device)
+    wrapper = bc._k4_cuda if variant == "K4" else bc._k5_cuda
+    before = wrapper.launches
+    L1 = wrapper(A)
+    L2 = wrapper(A)
+    ref = bc._cholesky_torch(A.double())
+    plain = bc._cholesky_torch(A)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert torch.equal(L1, L2)
+    assert bool((torch.triu(L1, 1) == 0).all())
+    scale = float(ref.abs().max())
+    assert float((L1.double() - ref).abs().max()) <= 5e-6 * scale
+    assert float((L1 - plain).abs().max()) <= 5e-6 * scale
+
+
+@pytest.mark.cuda
+def test_cuda_cholesky_gradient_matches_torch(cuda_device):
+    """The custom backward around K4 against ``torch.linalg.cholesky``'s
+    own gradient on the card, float32: 1e-4 of the largest entry."""
+    A = _spd32(512, 64, 12, cuda_device)
+    G = torch.as_tensor(np.random.default_rng(13).standard_normal(
+        (512, 64, 64)), dtype=torch.float32, device=cuda_device)
+
+    def grad(fn):
+        a = A.clone().requires_grad_(True)
+        torch.sum(fn(a) * G).backward()
+        return a.grad
+
+    before = bc._k4_cuda.launches
+    g = grad(bc.batched_cholesky)
+    assert bc._k4_cuda.launches == before + 1
+    gt = grad(torch.linalg.cholesky)
+    g, gt = g + g.transpose(-1, -2), gt + gt.transpose(-1, -2)
+    assert float((g - gt).abs().max()) <= 1e-4 * float(gt.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["K4", "K5"])
+def test_cuda_cholesky_not_positive_definite(cuda_device, variant):
+    """The kernels give the plain version's (and JAX's) NaN pattern: the
+    whole lower triangle of a failed matrix, 0 above it."""
+    A = _spd32(6, 5, 14, cuda_device)
+    A[2] = -A[2]
+    A[4, 0, 1] = A[4, 1, 0] = 10 * A[4, 0, 0]
+    wrapper = bc._k4_cuda if variant == "K4" else bc._k5_cuda
+    L = wrapper(A)
+    P = bc._cholesky_torch(A)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(L), torch.isnan(P))
+    assert int(torch.isnan(L).sum()) == 2 * 15
+    assert bool((torch.triu(L, 1) == 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_cholesky_dispatch(cuda_device):
+    """``cholesky`` of a broadcast (s, N, n, n) view launches K4 once on
+    the dense copy; float64 stays on the plain version; the launchers
+    refuse what the kernels do not take."""
+    A = _spd32(64, 16, 15, cuda_device)
+    before = bc._k4_cuda.launches
+    L = bc.cholesky(A[None].expand(4, 64, 16, 16))
+    assert bc._k4_cuda.launches == before + 1
+    assert L.shape == (4, 64, 16, 16)
+    assert torch.equal(L[3], L[0])
+    bc.cholesky(A.double())
+    assert bc._k4_cuda.launches == before + 1
+    for wrapper in (bc._k4_cuda, bc._k5_cuda):
+        with pytest.raises(ValueError, match="contiguous"):
+            wrapper(A.transpose(1, 2))
+        with pytest.raises(ValueError, match="float32"):
+            wrapper(A.double())
+        with pytest.raises(ValueError, match="n <= 128"):
+            wrapper(torch.zeros((2, 129, 129), device=cuda_device))

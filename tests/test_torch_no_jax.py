@@ -1,7 +1,8 @@
 """mxfusion_tpu_torch stands without JAX: a fresh interpreter in which
 ``import jax`` fails imports the port, trains the small slice with both
-minibatch loops and serves it from a numpy state. Also: chip_smoke.py refuses to run without a GPU and
-without the rest of the repository."""
+minibatch loops and serves it from a numpy state, and runs the MVN slice
+(structured-PPCA SVI, then forward sampling). Also: chip_smoke.py refuses
+to run without a GPU and without the rest of the repository."""
 import os
 import shutil
 import subprocess
@@ -98,6 +99,75 @@ jaxy = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib",
 assert not jaxy, jaxy
 print("TRAINED", losses[-1])
 """
+
+
+PPCA_WITHOUT_JAX = r"""
+import sys
+sys.modules["jax"] = None          # any `import jax` now raises
+sys.path.insert(0, {root!r})
+import numpy as np
+import torch
+from mxfusion_tpu_torch import Model, Variable
+from mxfusion_tpu_torch.models import Posterior
+from mxfusion_tpu_torch.components.distributions import (
+    MultivariateNormal, MultivariateNormalMeanPrecision, Normal)
+from mxfusion_tpu_torch.components.functions import Function
+from mxfusion_tpu_torch.components.functions.operators import (
+    broadcast_to, dot)
+from mxfusion_tpu_torch.components.variables import PositiveTransformation
+from mxfusion_tpu_torch.inference import (
+    ForwardSampling, GradBasedInference, StochasticVariationalInference,
+    VariationalPosteriorForwardSampling)
+
+N, Q, D = 24, 3, 5
+rng = np.random.default_rng(0)
+x = rng.standard_normal((N, Q)) @ rng.standard_normal((Q, D))
+m = Model()
+m.W = Variable(shape=(Q, D), initial_value=0.1 * rng.standard_normal((Q, D)))
+m.z = MultivariateNormalMeanPrecision.define_variable(
+    mean=broadcast_to(Variable(value=0.), (N, Q)),
+    precision=broadcast_to(Variable(value=np.eye(Q)), (N, Q, Q)),
+    shape=(N, Q))
+m.noise = Variable(transformation=PositiveTransformation(), initial_value=1.)
+m.x = Normal.define_variable(mean=dot(m.z, m.W),
+                             variance=broadcast_to(m.noise, (N, D)),
+                             shape=(N, D))
+q = Posterior(m)
+q.q_mu = Variable(shape=(N, Q))
+q.q_A = Variable(shape=(N, Q, Q),
+                 initial_value=np.tile(0.5 * np.eye(Q), (N, 1, 1)))
+cov = Function(lambda A: A @ A.transpose(-1, -2) + 1e-3 * torch.eye(Q),
+               input_names=["A"], output_names=["cov"],
+               broadcastable=True)(q.q_A)
+q.z.set_prior(MultivariateNormal(mean=q.q_mu, covariance=cov))
+infr = GradBasedInference(StochasticVariationalInference(
+    num_samples=4, model=m, posterior=q, observed=[m.x]), device="cpu")
+losses = []
+infr.run(x=x, max_iter=10, learning_rate=0.05,
+         callback=lambda i, l: losses.append(float(l)))
+assert np.all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+z, xs = VariationalPosteriorForwardSampling(
+    num_samples=7, observed=[], inherited_inference=infr,
+    target_variables=[m.z, m.x]).run()
+assert z.shape == (7, N, Q) and xs.shape == (7, N, D)
+(zp,) = ForwardSampling(num_samples=3, model=m, observed=[],
+                        infr_params=infr.params,
+                        target_variables=[m.z]).run()
+assert zp.shape == (3, N, Q) and bool(torch.isfinite(zp).all())
+jaxy = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib",
+                                                       "mxfusion_tpu")
+        and sys.modules[k] is not None]
+assert not jaxy, jaxy
+print("PPCA", losses[-1])
+"""
+
+
+def test_port_runs_the_mvn_slice_without_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", PPCA_WITHOUT_JAX.format(root=str(ROOT))],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert "PPCA" in proc.stdout
 
 
 def test_port_trains_without_jax():

@@ -208,14 +208,19 @@ def test_serving_matches_jax_pallas_interpret_f32(trained, monkeypatch):
 
 
 def test_port_module_raises_for_training_paths(trained):
-    """The bound is attached now (tests/test_torch_svgp_training.py holds
-    it to the JAX package); forward sampling of the module still waits
-    for ForwardSamplingAlgorithm."""
+    """The bound is attached (tests/test_torch_svgp_training.py holds it
+    to the JAX package), and so is forward sampling of the module
+    (tests/test_torch_forward_sampling.py holds its draws to JAX's),
+    which raises when the module's input is missing from the env."""
+    from mxfusion_tpu_torch.common.exceptions import \
+        ModelSpecificationError
+    from mxfusion_tpu_torch.inference import ForwardSamplingAlgorithm
     from mxfusion_tpu_torch.modules.gp_modules.svgp_regression import \
         SVGPRegressionLogPdf
     tm, _ = _port(trained, "float64")
     assert isinstance(tm.Y.factor.svgp_log_pdf, SVGPRegressionLogPdf)
-    with pytest.raises(NotImplementedError, match="ForwardSampling"):
+    assert isinstance(tm.Y.factor.svgp_sampling, ForwardSamplingAlgorithm)
+    with pytest.raises(ModelSpecificationError, match="No inference"):
         tm.Y.factor.draw_samples({}, torch.Generator())
 
 
