@@ -20,8 +20,10 @@ print one line:
    max |diff| <= 1e-5 at variance 1; K2 (rtol 2e-4, atol 2e-5) and K3
    (2e-3 of each output's largest entry, and the same bits on a second
    call) at the training shape (M = 512, N = 65536, D = 32) and a
-   ragged shape the gate admits; checks that the HIGHEST-tier einsum
-   stays IEEE fp32, forward and gradient, with TF32 switched on;
+   ragged shape the gate admits, each with ``lower`` True and False on
+   an L⁻¹ stand-in whose upper triangle is not 0; checks that the
+   HIGHEST-tier einsum stays IEEE fp32, forward and gradient, with TF32
+   switched on;
 4. serve: loads a seeded state through ``util.carryover``, answers three
    requests (8192, 20000 and 128 rows), checks that the kernel ran
    exactly twice per chunk (Kuu and Kzx), that outputs are finite with
@@ -39,9 +41,13 @@ print one line:
    fused vs materialized losses within 1e-3 relative, the first loss
    against a float64 evaluation of the bound within 1e-3 relative, and
    serves 8192 rows from the trained store; prints the step wall time
-   of both arms;
+   of both arms; then evaluates the bound and its gradient at a Kuu that
+   is not positive definite (jitter 0, a lengthscale far beyond the
+   box): the loss is NaN, as in JAX, and nothing raises;
 7. timing (information): K2 and K3 against their plain versions at the
-   training shape;
+   training shape, ``lower`` True (the bound's) and False, and the
+   plain backward with its two M²N products in TF32 (cuBLAS at the
+   kernel's precision);
 8. cholesky: K4 and K5 (``batched_cholesky.cu``) against the plain
    version at 512×32², 512×64², 2048×64², 512×128², 8192×64², a ragged
    B (777×60²) and n = 20: error within 5e-6 of max |L| of the float64
@@ -202,16 +208,16 @@ def predict_f64(state, softplus, X, jitter):
     return mu, v[:, None], np.linalg.cond(Kuu)
 
 
-def fused_inputs(rng, n_rows, n_cols, n_feat, dev):
+def fused_inputs(rng, n_rows, n_cols, n_feat, dev, upper=0.0):
     """K2/K3 inputs as tests/ops/test_pallas_fused_gram.py makes them (a
-    well-conditioned lower-triangular stand-in for L⁻¹), with features
-    scaled by the lengthscale sqrt(D) so that the gram is not all
-    zeros."""
+    well-conditioned lower-triangular stand-in for L⁻¹, plus ``upper``
+    times noise above the diagonal), with features scaled by the
+    lengthscale sqrt(D) so that the gram is not all zeros."""
     import torch
     f32 = dict(dtype=torch.float32, device=dev)
     ls = math.sqrt(n_feat)
-    Linv = np.tril(rng.standard_normal((n_rows, n_rows)) * 0.05) + \
-        np.eye(n_rows)
+    A = rng.standard_normal((n_rows, n_rows))
+    Linv = np.tril(A * 0.05) + np.eye(n_rows) + upper * np.triu(A, 1)
     return (torch.as_tensor(Linv, **f32),
             torch.as_tensor(rng.uniform(0, BOX, (n_rows, n_feat)) / ls, **f32),
             torch.as_tensor(rng.uniform(0, BOX, (n_cols, n_feat)) / ls, **f32),
@@ -220,17 +226,17 @@ def fused_inputs(rng, n_rows, n_cols, n_feat, dev):
                             **f32))
 
 
-def check_fused(fused_gram, inputs, label):
+def check_fused(fused_gram, inputs, label, lower):
     """K2 and K3 against their plain versions on the card; K3 twice, for
     the same bits. Returns the largest absolute errors (K2, K3)."""
     import torch
     Linv, Zs, Xs, var, dG = inputs
     with torch.no_grad():
-        G = fused_gram._fwd_cuda(Linv, Zs, Xs, var)
-        P = fused_gram._fused_fwd_torch(Linv, Zs, Xs, var)
-        first = fused_gram._bwd_cuda(Linv, Zs, Xs, var, dG)
-        second = fused_gram._bwd_cuda(Linv, Zs, Xs, var, dG)
-        plain = fused_gram._fused_bwd_torch(Linv, Zs, Xs, var, dG)
+        G = fused_gram._fwd_cuda(Linv, Zs, Xs, var, lower)
+        P = fused_gram._fused_fwd_torch(Linv, Zs, Xs, var, lower)
+        first = fused_gram._bwd_cuda(Linv, Zs, Xs, var, dG, G, lower)
+        second = fused_gram._bwd_cuda(Linv, Zs, Xs, var, dG, G, lower)
+        plain = fused_gram._fused_bwd_torch(Linv, Zs, Xs, var, dG, lower)
     torch.cuda.synchronize()
     check(G.shape == P.shape and bool(torch.isfinite(G).all()),
           "{}: K2 output {} not finite or not {}".format(
@@ -252,12 +258,72 @@ def check_fused(fused_gram, inputs, label):
                   label, name, err, BWD_RTOL, scale))
         bwd_err = max(bwd_err, err)
         rel.append("{} {:.2e}".format(name, err / scale))
-    print("phase 3 kernel: {} M={} N={} D={}: K2 max_abs_err={:.3e} | K3 "
-          "max_abs_err={:.3e}, relative to each max: {} | K3 bitwise "
+    print("phase 3 kernel: {} M={} N={} D={} lower={}: K2 max_abs_err={:.3e}"
+          " | K3 max_abs_err={:.3e}, relative to each max: {} | K3 bitwise "
           "deterministic".format(label, Zs.shape[0], Xs.shape[0],
-                                 Zs.shape[1], fwd_err, bwd_err,
+                                 Zs.shape[1], lower, fwd_err, bwd_err,
                                  ", ".join(rel)), flush=True)
     return fwd_err, bwd_err
+
+
+def plain_bwd_tf32(fused_gram, Linv, Zs, Xs, var, dG):
+    """The plain backward under ``lower`` with its two M²N products
+    (Uᵀ·dG, dG·Kᵀ) in TF32 on cuBLAS, the kernel's tier; the rest as
+    the plain version computes it. For timing only."""
+    import torch
+    K = fused_gram._gram_torch(Zs, Xs, var)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        de = K * (torch.tril(Linv).T @ dG)
+        dU = torch.tril(dG @ K.T)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    dZs = de @ Xs - torch.sum(de, dim=1)[:, None] * Zs
+    dXs = de.T @ Zs - torch.sum(de, dim=0)[:, None] * Xs
+    return dU, dZs, dXs, torch.sum(de)
+
+
+def bound_at_singular_kuu(rng, X, Y, dev, read_counts):
+    """The SVGP bound and its gradient at a Kuu that is not positive
+    definite in float32: jitter 0 and a lengthscale 1e3 times the box, so
+    that every entry of Kuu lies within 2e-5 of the variance, far below
+    what a float32 factorization of a 512 × 512 matrix resolves. The
+    fused arm runs (K2 once, K3 once). Returns the loss and the
+    launches."""
+    import torch
+    from mxfusion_tpu_torch import Model, Variable
+    from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
+    from mxfusion_tpu_torch.components.variables import \
+        PositiveTransformation
+    from mxfusion_tpu_torch.inference import (GradBasedInference, MAP,
+                                              create_executor)
+    from mxfusion_tpu_torch.modules import SVGPRegression
+    m = Model()
+    m.n = Variable()
+    m.X = Variable(shape=(m.n, D))
+    m.noise_var = Variable(transformation=PositiveTransformation(),
+                           initial_value=0.1)
+    m.Y = SVGPRegression.define_variable(
+        X=m.X, kernel=RBF(input_dim=D, variance=1.0,
+                          lengthscale=1e3 * BOX),
+        noise_var=m.noise_var, shape=(m.n, 1), jitter=0.0,
+        inducing_inputs=Variable(shape=(M, D), initial_value=rng.uniform(
+            0.0, BOX, (M, D))))
+    alg = MAP(model=m, observed=[m.X, m.Y])
+    inf = GradBasedInference(alg, dtype="float32", device=dev)
+    Xb = torch.as_tensor(X[:TRAIN_B], device=dev)
+    Yb = torch.as_tensor(Y[:TRAIN_B], device=dev)
+    inf.initialize(X=Xb, Y=Yb)
+    executor = create_executor(alg, inf.params)
+    train = {k: v.clone().requires_grad_(True)
+             for k, v in inf.params.trainable_params().items()}
+    before = read_counts()
+    loss = executor(train, inf.params.fixed_params(), [Xb, Yb], None)[1]
+    loss.backward()
+    torch.cuda.synchronize()
+    after = read_counts()
+    return float(loss.detach()), {k: after[k] - before[k] for k in after}
 
 
 def make_training_data(rng):
@@ -683,10 +749,12 @@ def main():
           .format(grad_err))
     print("phase 3 kernel: HIGHEST einsum gradient with allow_tf32=True: "
           "relative error vs float64 {:.3e}".format(grad_err), flush=True)
-    fused_errs = [check_fused(fused_gram, fused_inputs(grng, *shape, dev),
-                              label)
-                  for label, shape in (("train_shape", (M, TRAIN_B, D)),
-                                       ("ragged", (200, 5037, 7)))]
+    fused_errs = []
+    for label, shape in (("train_shape", (M, TRAIN_B, D)),
+                         ("ragged", (200, 5037, 7))):
+        inputs = fused_inputs(grng, *shape, dev, upper=0.05)
+        fused_errs += [check_fused(fused_gram, inputs, label, lower)
+                       for lower in (True, False)]
     fwd_err = max(e[0] for e in fused_errs)
     bwd_err = max(e[1] for e in fused_errs)
 
@@ -861,34 +929,53 @@ def main():
     for which in ("plain", "fused", "fused", "plain"):
         loop, _ = train(which == "fused")
         step_s[which].append(float(np.median(loop.wall_s)))
+    nan_loss, nan_launches = bound_at_singular_kuu(trng, Xtr, Ytr, dev,
+                                                   read_counts)
+    check(math.isnan(nan_loss) and nan_launches["K2"] == 1
+          and nan_launches["K3"] == fused_gram.BWD_LAUNCHES,
+          "bound at a Kuu that is not positive definite: loss {} (expected "
+          "NaN, as in JAX), launches {}".format(nan_loss, nan_launches))
     print("phase 6 train: {} rows, B={}, M={}, D={}, {} Adam steps | per "
           "step launches fused {} materialized {} | losses fused {} "
           "materialized {} (max rel {:.3e}, tol {:.0e}) | first loss vs "
           "float64 {:.6f}: rel {:.3e} | served {} rows from the trained "
-          "store | step wall s ({}): fused {} materialized {}".format(
+          "store | step wall s ({}): fused {} materialized {} | Kuu not "
+          "positive definite: fused loss {} (NaN as in JAX), gradient "
+          "taken, nothing raised".format(
               TRAIN_N, TRAIN_B, M, D, TRAIN_STEPS, fused_loop.counts[0],
               plain_loop.counts[0], fused_losses, plain_losses, loss_rel,
               TRAIN_LOSS_RTOL, f64_loss, f64_rel, CHUNK, card,
-              step_s["fused"], step_s["plain"]), flush=True)
+              step_s["fused"], step_s["plain"], nan_loss), flush=True)
 
-    # ---- 7. timing of K2 and K3, for information
+    # ---- 7. timing of K2 and K3, for information: lower=True is the
+    # bound's call and the PERF.md yardstick
     Linv, Zs, Xs, var, dG = fused_inputs(grng, M, TRAIN_B, D, dev)
-    fms = {"K2": [], "K2 plain": [], "K3": [], "K3 plain": []}
+    fms = {"K2": [], "K2 plain": [], "K3": [], "K3 plain": [],
+           "K2 dense": [], "K3 dense": [], "K3 plain, TF32 products": []}
     with torch.no_grad():
+        G = fused_gram._fwd_cuda(Linv, Zs, Xs, var, True)
         for which in ("plain", "kernel", "kernel", "plain"):
             if which == "plain":
                 fms["K2 plain"].append(cuda_ms(lambda: fused_gram
                                                ._fused_fwd_torch(
-                                                   Linv, Zs, Xs, var), 20))
+                                                   Linv, Zs, Xs, var, True),
+                                               20))
                 fms["K3 plain"].append(cuda_ms(lambda: fused_gram
                                                ._fused_bwd_torch(
-                                                   Linv, Zs, Xs, var, dG),
-                                               20))
+                                                   Linv, Zs, Xs, var, dG,
+                                                   True), 20))
+                fms["K3 plain, TF32 products"].append(cuda_ms(
+                    lambda: plain_bwd_tf32(fused_gram, Linv, Zs, Xs, var,
+                                           dG), 20))
             else:
                 fms["K2"].append(cuda_ms(lambda: fused_gram._fwd_cuda(
-                    Linv, Zs, Xs, var), 20))
+                    Linv, Zs, Xs, var, True), 20))
                 fms["K3"].append(cuda_ms(lambda: fused_gram._bwd_cuda(
-                    Linv, Zs, Xs, var, dG), 20))
+                    Linv, Zs, Xs, var, dG, G, True), 20))
+                fms["K2 dense"].append(cuda_ms(lambda: fused_gram._fwd_cuda(
+                    Linv, Zs, Xs, var, False), 20))
+                fms["K3 dense"].append(cuda_ms(lambda: fused_gram._bwd_cuda(
+                    Linv, Zs, Xs, var, dG, G, False), 20))
     print("phase 7 timing ({}): M={} N={} D={}: {}".format(
         card, M, TRAIN_B, D, " | ".join("{} {} ms".format(k, v)
                                         for k, v in fms.items())),

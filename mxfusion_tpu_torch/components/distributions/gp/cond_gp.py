@@ -16,6 +16,7 @@ import torch
 from .gp import _add_jitter
 from ..distribution import Distribution
 from ...variables.variable import Variable
+from ....ops.linalg import cholesky
 from ....ops.precision import einsum as p_einsum
 
 LOG2PI = math.log(2.0 * math.pi)
@@ -52,7 +53,7 @@ class ConditionalGaussianProcess(Distribution):
         Kzz = _add_jitter(self.kernel.K(X_cond, **kp), self.jitter)
         Kxz = self.kernel.K(X, X2=X_cond, **kp)
         Kxx = self.kernel.K(X, **kp)
-        Lz = torch.linalg.cholesky(Kzz)
+        Lz = cholesky(Kzz)
         # A = Lz^{-1} K_zx : (..., M, N)
         A = torch.linalg.solve_triangular(Lz, Kxz.transpose(-1, -2),
                                           upper=False)
@@ -65,7 +66,7 @@ class ConditionalGaussianProcess(Distribution):
 
     def log_pdf_impl(self, random_variable, X, X_cond, Y_cond, **inputs):
         mean, cov = self._conditional_moments(X, X_cond, Y_cond, inputs)
-        L = torch.linalg.cholesky(_add_jitter(cov, self.jitter))
+        L = cholesky(_add_jitter(cov, self.jitter))
         diff = random_variable - mean
         alpha = torch.linalg.solve_triangular(L, diff, upper=False)
         N = diff.shape[-2]
@@ -78,7 +79,7 @@ class ConditionalGaussianProcess(Distribution):
     def draw_samples_impl(self, rv_shape, num_samples, generator, X, X_cond,
                           Y_cond, **inputs):
         mean, cov = self._conditional_moments(X, X_cond, Y_cond, inputs)
-        L = torch.linalg.cholesky(_add_jitter(cov, self.jitter))
+        L = cholesky(_add_jitter(cov, self.jitter))
         eps = self._rand_gen.sample_normal(
             generator, shape=(num_samples,) + rv_shape, dtype=self.dtype)
         return mean + p_einsum("...ij,...jk->...ik", L, eps)

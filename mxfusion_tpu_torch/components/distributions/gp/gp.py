@@ -12,6 +12,7 @@ import torch
 
 from ..distribution import Distribution
 from ...variables.variable import Variable
+from ....ops.linalg import cholesky
 from ....ops.precision import einsum as p_einsum
 
 LOG2PI = math.log(2.0 * math.pi)
@@ -56,7 +57,7 @@ class GaussianProcess(Distribution):
             rv = rv - inputs["mean"]
         K = _add_jitter(self.kernel.K(X, **self._kernel_args(inputs)),
                         self.jitter)
-        L = torch.linalg.cholesky(K)
+        L = cholesky(K)
         alpha = torch.linalg.solve_triangular(L, rv, upper=False)
         N = rv.shape[-2]
         logdet = torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)),
@@ -69,7 +70,7 @@ class GaussianProcess(Distribution):
                           **inputs):
         K = _add_jitter(self.kernel.K(X, **self._kernel_args(inputs)),
                         self.jitter)
-        L = torch.linalg.cholesky(K)
+        L = cholesky(K)
         eps = self._rand_gen.sample_normal(
             generator, shape=(num_samples,) + rv_shape, dtype=self.dtype)
         out = p_einsum("...ij,...jk->...ik", L, eps)

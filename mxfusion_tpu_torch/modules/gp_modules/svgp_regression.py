@@ -32,8 +32,8 @@ from ...inference.variational import VariationalInference
 from ...inference.inference_alg import SamplingAlgorithm
 from ...inference.forward_sampling import ForwardSamplingAlgorithm
 from ...ops import fused_gram
-from ...ops.linalg import (make_diagonal, broadcast_to_w_samples,
-                           wide_triangular_solve, triangular_inverse)
+from ...ops.linalg import (broadcast_to_w_samples, cholesky, make_diagonal,
+                           triangular_inverse, wide_triangular_solve)
 from ...ops.precision import einsum as p_einsum
 from ...ops.precision import (data_einsum, data_precision_scope,
                               guarded_data_einsum, guarded_forward_matmul)
@@ -123,7 +123,7 @@ class SVGPRegressionLogPdf(VariationalInference):
             Y = Y - env[self.model.mean]
 
         # one batched Cholesky for the two independent M×M factors
-        LL = torch.linalg.cholesky(torch.stack([Kuu, S], dim=-3))
+        LL = cholesky(torch.stack([Kuu, S], dim=-3))
         L = LL[..., 0, :, :]
         Ls = LL[..., 1, :, :]
         Linv = None
@@ -147,7 +147,8 @@ class SVGPRegressionLogPdf(VariationalInference):
             ls = kp["lengthscale"][0]
             var = kp["variance"][0].reshape(())
             LinvKuf = fused_gram.fused_linv_rbf_gram(
-                Linv[0].contiguous(), Z[0] / ls, X[0] / ls, var)[None]
+                Linv[0].contiguous(), Z[0] / ls, X[0] / ls, var,
+                lower=True)[None]
         elif Linv is not None:
             LinvKuf = guarded_forward_matmul(Linv, Kuf)
         else:
@@ -237,7 +238,7 @@ class SVGPRegressionMeanVariancePrediction(SamplingAlgorithm):
             Kuu = Kuu + torch.eye(M, dtype=Z.dtype, device=Z.device) * \
                 self.jitter
         # one batched Cholesky for the two independent M×M factors
-        LL = torch.linalg.cholesky(torch.stack([Kuu, S], dim=-3))
+        LL = cholesky(torch.stack([Kuu, S], dim=-3))
         L = LL[..., 0, :, :]
         Ls = LL[..., 1, :, :]
         if self.whitened:
@@ -315,7 +316,7 @@ class SVGPRegressionSamplingPrediction(SVGPRegressionMeanVariancePrediction):
             samples = mu + die * torch.sqrt(torch.clamp(var, min=0.0))
         else:
             Lc = broadcast_to_w_samples(
-                torch.linalg.cholesky(var),
+                cholesky(var),
                 out_shape[1:-1] + out_shape[-2:-1], self.num_samples)
             samples = mu + p_einsum("...ij,...jk->...ik", Lc, die)
         outcomes = {self.model.Y.uuid: samples}

@@ -17,9 +17,10 @@ the matrix in shared memory:
   left-looking column order. :func:`batched_cholesky_r3` reaches it;
   nothing in the library does, as in the JAX package.
 
-The plain version of both is :func:`_cholesky_torch`,
-``torch.linalg.cholesky_ex`` with the JAX convention for a matrix that
-is not positive definite: its lower triangle is NaN (``jnp.linalg.
+The plain version of both is :func:`_cholesky_torch`, which is the GP
+path's :func:`.linalg.cholesky`: ``torch.linalg.cholesky_ex`` with the
+JAX convention for a matrix that is not positive definite: its lower
+triangle is NaN (``jnp.linalg.
 cholesky`` returns NaN, ``torch.linalg.cholesky`` raises). The kernels
 give the same pattern. All of them factor ½(A + Aᵀ), as
 ``jnp.linalg.cholesky`` does (LAPACK's ``potrf`` and
@@ -44,6 +45,8 @@ import math
 import torch
 
 from . import cuda_build
+from .linalg import _nan_lower, _sym
+from .linalg import cholesky as _cholesky_torch
 from .precision import einsum as p_einsum
 
 MAX_N = 128  # the largest n whose working matrix csrc/batched_cholesky.cu holds
@@ -66,31 +69,9 @@ def _phi(X):
         torch.diagonal(X, dim1=-2, dim2=-1))
 
 
-def _sym(A):
-    return 0.5 * (A + A.transpose(-1, -2))
-
-
-def _nan_lower(L, failed):
-    """NaN in the lower triangle (diagonal included) of each matrix whose
-    ``failed`` flag is set; the upper triangle stays 0."""
-    n = L.shape[-1]
-    lower = torch.ones((n, n), dtype=torch.bool, device=L.device).tril()
-    return torch.where(failed[..., None, None] & lower,
-                       torch.full((), math.nan, dtype=L.dtype,
-                                  device=L.device), L)
-
-
 # ---------------------------------------------------------------------------
-# plain version and the kernels' column orders written out
+# the kernels' column orders written out
 # ---------------------------------------------------------------------------
-
-def _cholesky_torch(A):
-    """Plain PyTorch Cholesky of ``(..., n, n)`` with JAX's convention:
-    the factor of ½(A + Aᵀ), and a matrix that is not positive definite
-    gives NaN in its lower triangle."""
-    L, info = torch.linalg.cholesky_ex(_sym(A), check_errors=False)
-    return _nan_lower(L, info > 0)
-
 
 def _k4_emulate(A):
     """K4's arithmetic in plain PyTorch, in its order: at column j the

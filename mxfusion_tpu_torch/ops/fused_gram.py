@@ -5,20 +5,28 @@ Counterpart of ``mxfusion_tpu/ops/pallas_fused_gram.py``.
 without the gram ``Kuf`` ever reaching device memory, and its backward
 fuses the whole cotangent chain (dLinv, dZs, dXs, dvar) the same way.
 On the card the forward is K2 and the backward is K3, hand-written CUDA
-kernels (``csrc/fused_gram.cu``: the forward one launch, the backward
-three). On a CPU tensor the same ``autograd.Function`` runs the plain
-versions :func:`_fused_fwd_torch` and :func:`_fused_bwd_torch`; the
-tests use that. A CUDA tensor launches the kernels or raises: nothing
-falls back.
+kernels on the TF32 tensor cores (``csrc/fused_gram.cu``: the forward
+one launch, the backward three). On a CPU tensor the same
+``autograd.Function`` runs the plain versions :func:`_fused_fwd_torch`
+and :func:`_fused_bwd_torch`; the tests use that. A CUDA tensor
+launches the kernels or raises: nothing falls back.
 
 The gate. ``SVGPRegressionLogPdf`` engages the fused arm under the JAX
 package's caller conditions (:func:`enabled`, wide N ≥ 4M, s = 1, the
 exact ``RBF`` class, no ``active_dims``) and :func:`supported`, which
 here means what the kernels take: a CUDA tensor, float32, D ≤ 128. The
 JAX envelope (N ≥ 131072, M ≤ 512, M % 128 = 0) was measured on a TPU
-and does not carry over. Precision: IEEE fp32 FMA for the exponent's
-cross term, the G-product and the cotangent products, which meets or
-exceeds the TPU kernel's 3-pass bf16 floor and its 1-pass cotangents.
+and does not carry over. Precision, the TPU kernel's tiers as
+``ops/precision.py`` maps them: the G-product at 3×TF32 (its HIGH,
+3-pass bf16) and so the exponent's cross term Zs·Xsᵀ, the cotangent
+products Uᵀ·dG and dG·Kᵀ and the D-wide de·Xs and deᵀ·Zs at 1-pass TF32
+(its DEFAULT). The plain versions run every product at HIGHEST (IEEE
+fp32).
+
+``lower=True`` declares ``Linv`` lower triangular: the function is then
+that of ``tril(Linv)``, its gradient with respect to ``Linv`` is lower
+triangular, and the kernels skip the tiles above the diagonal. The SVGP
+bound passes it (its L⁻¹ is ``triangular_inverse(L, lower=True)``).
 
 Forward-mode AD cannot go through the Function (it has no ``jvp``, as
 the JAX ``custom_vjp`` has none): wrap such traces in :func:`disabled`.
@@ -33,11 +41,11 @@ from .precision import einsum as p_einsum
 
 # tiling of csrc/fused_gram.cu, checked against the library when it loads
 TILE_ROWS = 128
-TILE_COLS = 64
+TILE_COLS = 128
 MAX_D = 128
 # the backward splits dU = dG·Kᵀ over at most this many slices of N
-MAX_DU_SLICES = 32
-DU_SLICE_TARGET = 2048
+MAX_DU_SLICES = 64
+DU_SLICE_TARGET = 1024
 BWD_LAUNCHES = 3  # K3a, K3b, K3c per backward call
 
 _ENABLED = True
@@ -94,23 +102,30 @@ def _gram_torch(Zs, Xs, var):
     return var * torch.exp(torch.clamp(P - zn - xn, max=0.0))
 
 
-def _fused_fwd_torch(Linv, Zs, Xs, var):
-    """Plain PyTorch forward: materializes K, then ``Linv @ K``."""
-    return p_einsum("ij,jk->ik", Linv, _gram_torch(Zs, Xs, var))
+def _fused_fwd_torch(Linv, Zs, Xs, var, lower=False):
+    """Plain PyTorch forward: materializes K, then ``Linv @ K``
+    (``tril(Linv) @ K`` under ``lower``)."""
+    U = torch.tril(Linv) if lower else Linv
+    return p_einsum("ij,jk->ik", U, _gram_torch(Zs, Xs, var))
 
 
 #: the differentiable reference the tests hold the kernels to
 reference_linv_rbf_gram = _fused_fwd_torch
 
 
-def _fused_bwd_torch(Linv, Zs, Xs, var, dG):
+def _fused_bwd_torch(Linv, Zs, Xs, var, dG, lower=False):
     """Plain PyTorch backward, K3's arithmetic written out: recompute K,
     dK = Uᵀ·dG, de = K∘dK, then dU = dG·Kᵀ, dZs = de·Xs − row(de)∘Zs,
-    dXs = deᵀ·Zs − col(de)∘Xs and skv = Σde (dvar = skv/var). The
-    clamp's derivative is taken as 1, as the TPU kernel takes it."""
+    dXs = deᵀ·Zs − col(de)∘Xs and skv = Σde (dvar = skv/var). Under
+    ``lower``, U = tril(Linv) and dU = tril(dG·Kᵀ), the exact gradient of
+    the function of tril(Linv). The clamp's derivative is taken as 1, as
+    the TPU kernel takes it."""
     K = _gram_torch(Zs, Xs, var)
-    de = K * p_einsum("mi,mn->in", Linv, dG)
+    U = torch.tril(Linv) if lower else Linv
+    de = K * p_einsum("mi,mn->in", U, dG)
     dU = p_einsum("mn,kn->mk", dG, K)
+    if lower:
+        dU = torch.tril(dU)
     dZs = p_einsum("kn,nd->kd", de, Xs) - torch.sum(de, dim=1)[:, None] * Zs
     dXs = p_einsum("kn,kd->nd", de, Zs) - torch.sum(de, dim=0)[:, None] * Xs
     return dU, dZs, dXs, torch.sum(de)
@@ -126,9 +141,9 @@ def _lib():
         lib = cuda_build.load("fused_gram.cu")
         ptr = ctypes.c_void_p
         cint = ctypes.c_int
-        lib.mxf_fused_gram_fwd_f32.argtypes = [ptr] * 5 + [cint] * 3 + [ptr]
+        lib.mxf_fused_gram_fwd_f32.argtypes = [ptr] * 5 + [cint] * 4 + [ptr]
         lib.mxf_fused_gram_fwd_f32.restype = cint
-        lib.mxf_fused_gram_bwd_f32.argtypes = [ptr] * 13 + [cint] * 5 + [ptr]
+        lib.mxf_fused_gram_bwd_f32.argtypes = [ptr] * 14 + [cint] * 6 + [ptr]
         lib.mxf_fused_gram_bwd_f32.restype = cint
         lib.mxf_fused_gram_error_string.argtypes = [cint]
         lib.mxf_fused_gram_error_string.restype = ctypes.c_char_p
@@ -192,7 +207,7 @@ def _raise_on(err, what):
             what, _lib().mxf_fused_gram_error_string(err).decode(), err))
 
 
-def _fwd_cuda(Linv, Zs, Xs, var):
+def _fwd_cuda(Linv, Zs, Xs, var, lower=False):
     """K2: one launch."""
     M, N, D = _check(Linv, Zs, Xs, var)
     G = torch.empty((M, N), dtype=torch.float32, device=Zs.device)
@@ -201,7 +216,7 @@ def _fwd_cuda(Linv, Zs, Xs, var):
         stream = torch.cuda.current_stream(Zs.device).cuda_stream
         err = lib.mxf_fused_gram_fwd_f32(
             Linv.data_ptr(), Zs.data_ptr(), Xs.data_ptr(), var.data_ptr(),
-            G.data_ptr(), M, N, D, stream)
+            G.data_ptr(), M, N, D, int(lower), stream)
     _raise_on(err, "fused_gram_fwd")
     _fwd_cuda.launches += 1
     return G
@@ -210,10 +225,16 @@ def _fwd_cuda(Linv, Zs, Xs, var):
 _fwd_cuda.launches = 0
 
 
-def _bwd_cuda(Linv, Zs, Xs, var, dG):
+def _bwd_cuda(Linv, Zs, Xs, var, dG, G, lower=False):
     """K3: three launches into fixed partial slots, then a fixed-order
-    sum; returns (dU, dZs, dXs, skv)."""
+    sum; returns (dU, dZs, dXs, skv). ``G`` is the forward's output: K3
+    takes skv = Σ dG∘G, which equals Σ de (the TF32 rounding of dK would
+    show in Σ de, whose terms cancel)."""
     M, N, D = _check(Linv, Zs, Xs, var, dG)
+    if G.shape != dG.shape or G.dtype != dG.dtype or \
+            G.device != dG.device or not G.is_contiguous():
+        raise ValueError("fused_linv_rbf_gram: G must be the forward's "
+                         "contiguous (M, N) float32 output.")
     n_tiles = -(-N // TILE_COLS)
     k_tiles = -(-M // TILE_ROWS)
     slices, slice_len = du_slices(N)
@@ -225,15 +246,16 @@ def _bwd_cuda(Linv, Zs, Xs, var, dG):
     pdU = torch.empty((slices, M, M), **f32)
     pdZs = torch.empty((n_tiles, M, D), **f32)
     pdXs = torch.empty((k_tiles, N, D), **f32)
-    pskv = torch.empty((k_tiles * n_tiles,), **f32)
+    pskv = torch.empty((n_tiles,), **f32)
     lib = _lib()
     with torch.cuda.device(Zs.device):
         stream = torch.cuda.current_stream(Zs.device).cuda_stream
         err = lib.mxf_fused_gram_bwd_f32(
             Linv.data_ptr(), Zs.data_ptr(), Xs.data_ptr(), var.data_ptr(),
-            dG.data_ptr(), dU.data_ptr(), dZs.data_ptr(), dXs.data_ptr(),
-            skv.data_ptr(), pdU.data_ptr(), pdZs.data_ptr(), pdXs.data_ptr(),
-            pskv.data_ptr(), M, N, D, slices, slice_len, stream)
+            dG.data_ptr(), G.data_ptr(), dU.data_ptr(), dZs.data_ptr(),
+            dXs.data_ptr(), skv.data_ptr(), pdU.data_ptr(), pdZs.data_ptr(),
+            pdXs.data_ptr(), pskv.data_ptr(), M, N, D, slices, slice_len,
+            int(lower), stream)
     _raise_on(err, "fused_gram_bwd")
     _bwd_cuda.launches += BWD_LAUNCHES
     return dU, dZs, dXs, skv
@@ -245,33 +267,40 @@ _bwd_cuda.launches = 0
 class _FusedLinvRbfGram(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, Linv, Zs, Xs, var):
-        ctx.save_for_backward(Linv, Zs, Xs, var)
+    def forward(ctx, Linv, Zs, Xs, var, lower):
+        ctx.lower = lower
         if Zs.device.type == "cpu":
-            return _fused_fwd_torch(Linv, Zs, Xs, var)
-        return _fwd_cuda(Linv, Zs, Xs, var.reshape(()))
+            G = _fused_fwd_torch(Linv, Zs, Xs, var, lower)
+        else:
+            G = _fwd_cuda(Linv, Zs, Xs, var.reshape(()), lower)
+        # K3 reads G back (skv = Σ dG∘G); saving the output copies nothing
+        ctx.save_for_backward(Linv, Zs, Xs, var, G)
+        return G
 
     @staticmethod
     def backward(ctx, dG):
-        Linv, Zs, Xs, var = ctx.saved_tensors
+        Linv, Zs, Xs, var, G = ctx.saved_tensors
         if Zs.device.type == "cpu":
-            dU, dZs, dXs, skv = _fused_bwd_torch(Linv, Zs, Xs, var, dG)
+            dU, dZs, dXs, skv = _fused_bwd_torch(Linv, Zs, Xs, var, dG,
+                                                 ctx.lower)
         else:
             dU, dZs, dXs, skv = _bwd_cuda(Linv, Zs, Xs, var.reshape(()),
-                                          dG.contiguous())
-        return dU, dZs, dXs, (skv / var).reshape(var.shape)
+                                          dG.contiguous(), G, ctx.lower)
+        return dU, dZs, dXs, (skv / var).reshape(var.shape), None
 
 
-def fused_linv_rbf_gram(Linv, Zs, Xs, var):
+def fused_linv_rbf_gram(Linv, Zs, Xs, var, lower=False):
     """``G = Linv @ (var·exp(−½·|zs_m − xs_n|²))`` with Kuf never
     materialized on the card.
 
     ``Linv`` (M, M), typically L⁻¹ of chol(Kuu); ``Zs`` (M, D) and ``Xs``
     (N, D) lengthscale-scaled inputs; ``var`` the kernel variance (one
-    value). Returns ``G`` (M, N). Differentiable in all four (K3 on the
-    card); not twice, and not in forward mode.
+    value). Returns ``G`` (M, N). ``lower=True`` computes the function
+    of ``tril(Linv)`` (the kernels skip the upper triangle); ``False`` is
+    the JAX kernel's dense function. Differentiable in all four (K3 on
+    the card); not twice, and not in forward mode.
     """
     if Zs.device.type not in ("cpu", "cuda"):
         raise ValueError("fused_linv_rbf_gram takes CPU or CUDA tensors, "
                          "got {}.".format(Zs.device))
-    return _FusedLinvRbfGram.apply(Linv, Zs, Xs, var)
+    return _FusedLinvRbfGram.apply(Linv, Zs, Xs, var, bool(lower))

@@ -2,7 +2,34 @@
 
 Counterpart of ``mxfusion_tpu/ops/linalg.py``.
 """
+import math
+
 import torch
+
+
+def _sym(A):
+    return 0.5 * (A + A.transpose(-1, -2))
+
+
+def _nan_lower(L, failed):
+    """NaN in the lower triangle (diagonal included) of each matrix whose
+    ``failed`` flag is set; the upper triangle stays 0."""
+    n = L.shape[-1]
+    lower = torch.ones((n, n), dtype=torch.bool, device=L.device).tril()
+    return torch.where(failed[..., None, None] & lower,
+                       torch.full((), math.nan, dtype=L.dtype,
+                                  device=L.device), L)
+
+
+def cholesky(A):
+    """Cholesky of ``(..., n, n)`` with ``jnp.linalg.cholesky``'s
+    convention: the factor of ½(A + Aᵀ), and a matrix that is not
+    positive definite gives NaN in its lower triangle and 0 above it
+    (``torch.linalg.cholesky`` raises instead). Every Cholesky of the GP
+    path goes through it, so that a run whose Kuu loses definiteness sees
+    a NaN loss, as in JAX, and does not die."""
+    L, info = torch.linalg.cholesky_ex(_sym(A), check_errors=False)
+    return _nan_lower(L, info > 0)
 
 
 def make_diagonal(x):
@@ -49,7 +76,7 @@ def triangular_inverse(L, lower=True):
 
 def cholesky_logdet(A):
     """(L, logdet) for SPD A via one Cholesky (batched)."""
-    L = torch.linalg.cholesky(A)
+    L = cholesky(A)
     logdet = 2.0 * torch.sum(
         torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
     return L, logdet

@@ -214,24 +214,28 @@ FUSED = [(128, 2048, 8), (200, 5037, 7), (1, 1, 1), (130, 300, 128),
          (512, 65536, 32)]
 
 
-def _fused_inputs(seed, M, N, D, device):
+def _fused_inputs(seed, M, N, D, device, upper=0.0):
+    """A lower-triangular L⁻¹ stand-in plus ``upper`` times noise above
+    the diagonal (which ``lower=True`` must ignore)."""
     rng = np.random.default_rng(seed)
     ls = np.sqrt(D)
     Zs = rng.uniform(0, 4, (M, D)) / ls
     Xs = rng.uniform(0, 4, (N, D)) / ls
-    Linv = np.tril(rng.standard_normal((M, M)) * 0.05) + np.eye(M)
+    A = rng.standard_normal((M, M))
+    Linv = np.tril(A * 0.05) + np.eye(M) + upper * np.triu(A, 1)
     dG = rng.standard_normal((M, N)) * 0.01
     return [torch.as_tensor(a, dtype=torch.float32, device=device)
             for a in (Linv, Zs, Xs, np.asarray(1.4), dG)]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lower", [False, True])
 @pytest.mark.parametrize("M,N,D", FUSED)
-def test_cuda_fused_forward_matches_plain(cuda_device, M, N, D):
-    Linv, Zs, Xs, var, _ = _fused_inputs(7, M, N, D, cuda_device)
+def test_cuda_fused_forward_matches_plain(cuda_device, M, N, D, lower):
+    Linv, Zs, Xs, var, _ = _fused_inputs(7, M, N, D, cuda_device, 0.05)
     before = fg._fwd_cuda.launches
-    G = fg._fwd_cuda(Linv, Zs, Xs, var)
-    P = fg._fused_fwd_torch(Linv, Zs, Xs, var)
+    G = fg._fwd_cuda(Linv, Zs, Xs, var, lower)
+    P = fg._fused_fwd_torch(Linv, Zs, Xs, var, lower)
     torch.cuda.synchronize()
     assert fg._fwd_cuda.launches == before + 1
     assert G.shape == (M, N)
@@ -239,16 +243,19 @@ def test_cuda_fused_forward_matches_plain(cuda_device, M, N, D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lower", [False, True])
 @pytest.mark.parametrize("M,N,D", FUSED)
 def test_cuda_fused_backward_matches_plain_and_is_deterministic(
-        cuda_device, M, N, D):
+        cuda_device, M, N, D, lower):
     """rtol 2e-3 of each tensor's largest entry; two calls give the same
-    bits (fixed-order partial sums, no atomics)."""
-    Linv, Zs, Xs, var, dG = _fused_inputs(8, M, N, D, cuda_device)
+    bits (fixed-order partial sums, no atomics); under ``lower`` the
+    upper triangle of dU is exactly 0."""
+    Linv, Zs, Xs, var, dG = _fused_inputs(8, M, N, D, cuda_device, 0.05)
+    G = fg._fwd_cuda(Linv, Zs, Xs, var, lower)
     before = fg._bwd_cuda.launches
-    first = fg._bwd_cuda(Linv, Zs, Xs, var, dG)
-    second = fg._bwd_cuda(Linv, Zs, Xs, var, dG)
-    plain = fg._fused_bwd_torch(Linv, Zs, Xs, var, dG)
+    first = fg._bwd_cuda(Linv, Zs, Xs, var, dG, G, lower)
+    second = fg._bwd_cuda(Linv, Zs, Xs, var, dG, G, lower)
+    plain = fg._fused_bwd_torch(Linv, Zs, Xs, var, dG, lower)
     torch.cuda.synchronize()
     assert fg._bwd_cuda.launches == before + 2 * fg.BWD_LAUNCHES
     for a, b, p in zip(first, second, plain):
@@ -256,17 +263,21 @@ def test_cuda_fused_backward_matches_plain_and_is_deterministic(
         assert a.shape == p.shape
         assert float((a - p).abs().max()) <= \
             2e-3 * max(float(p.abs().max()), 1e-30)
+    if lower:
+        assert bool((torch.triu(first[0], 1) == 0).all())
 
 
 @pytest.mark.cuda
-def test_cuda_fused_function_runs_both_kernels(cuda_device):
-    Linv, Zs, Xs, var, dG = _fused_inputs(9, 64, 1000, 4, cuda_device)
+@pytest.mark.parametrize("lower", [False, True])
+def test_cuda_fused_function_runs_both_kernels(cuda_device, lower):
+    Linv, Zs, Xs, var, dG = _fused_inputs(9, 64, 1000, 4, cuda_device, 0.05)
     args = [t.requires_grad_(True) for t in (Linv, Zs, Xs, var)]
     f0, b0 = fg._fwd_cuda.launches, fg._bwd_cuda.launches
-    fg.fused_linv_rbf_gram(*args).backward(dG)
+    fg.fused_linv_rbf_gram(*args, lower=lower).backward(dG)
     assert fg._fwd_cuda.launches == f0 + 1
     assert fg._bwd_cuda.launches == b0 + fg.BWD_LAUNCHES
     assert args[3].grad.shape == var.shape
+    assert bool((torch.triu(args[0].grad, 1) == 0).all()) == lower
 
 
 @pytest.mark.cuda

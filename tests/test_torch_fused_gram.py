@@ -1,8 +1,11 @@
 """K2 and K3 (the fused L⁻¹·Kuf gram and its backward) on the CPU: the
 port's plain versions against the JAX package's Pallas kernels in
-interpret mode and its reference, the backward against autograd, and a
-pure-torch emulation of K3's partial buffers and fixed-order reduction
-(``csrc/fused_gram.cu``), which the CUDA kernel itself cannot show here."""
+interpret mode and its reference, the backward against autograd, the
+``lower`` flag against the function of ``tril(Linv)``, and pure-torch
+emulations of the CUDA kernels' algorithm (``csrc/fused_gram.cu``): the
+``cvt.rna.tf32.f32`` rounding, the gram's 3×TF32 cross term, K2's tiles,
+triangle skip and 3×TF32 product, K3's 1-pass TF32 products, partial
+slots and fixed-order reduction. The CUDA kernels themselves cannot run here."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -109,30 +112,85 @@ def test_plain_backward_is_autograd_of_the_reference(M, N, D):
                                    rtol=1e-10, atol=1e-10)
 
 
-def _emulate_bwd(Linv, Zs, Xs, var, dG):
-    """K3 as the CUDA kernels order it: per (k-tile × n-tile) block the
-    partials of dZs, dXs and skv (K3a), per (slice of N) the partial of
-    dU (K3b), then every output summed over its partials in slot order
-    (K3c)."""
+def _tf32_rna(x):
+    """``cvt.rna.tf32.f32`` on a float32 tensor: round to nearest with
+    ties away from zero, to 10 mantissa bits (the low 13 bits cleared);
+    infinities and NaNs pass through."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    sign = bits & 0x80000000
+    mag = bits & 0x7FFFFFFF
+    rounded = torch.where(mag >= 0x7F800000, mag,
+                          (mag + 0x1000) & 0x7FFFE000)
+    out = sign | rounded
+    out = torch.where(out >= 2 ** 31, out - 2 ** 32, out)
+    return out.to(torch.int32).view(torch.float32)
+
+
+def _tiles(n, size):
+    return [slice(i, min(n, i + size)) for i in range(0, n, size)]
+
+
+def _3xtf32(A, B):
+    """A·Bᵀ as the kernels' 3×TF32 products: hi = rna(a), lo =
+    rna(a − hi), A_lo·B_hiᵀ + A_hi·B_loᵀ + A_hi·B_hiᵀ in float32."""
+    Ah, Bh = _tf32_rna(A), _tf32_rna(B)
+    Al, Bl = _tf32_rna(A - Ah), _tf32_rna(B - Bh)
+    return Al @ Bh.T + Ah @ Bl.T + Ah @ Bh.T
+
+
+def _emulate_gram(Zs, Xs, var):
+    """The gram as all three kernels build it: the cross term Zs·Xsᵀ at
+    3×TF32 on the tensor cores, the half norms in float32, the exponent
+    clamped at 0."""
+    zn = 0.5 * torch.sum(Zs * Zs, dim=1)[:, None]
+    xn = 0.5 * torch.sum(Xs * Xs, dim=1)[None, :]
+    return var * torch.exp(torch.clamp(_3xtf32(Zs, Xs) - zn - xn, max=0.0))
+
+
+def _emulate_fwd(Linv, Zs, Xs, var, lower):
+    """K2 as the CUDA kernel computes it, in float32: the kernels' gram,
+    U and K split into tf32 hi and lo, per 128-row tile of G the products
+    U_lo·K_hi + U_hi·K_lo + U_hi·K_hi over the k-tiles the tile needs
+    (under ``lower``, none above the diagonal, and tril(U) inside)."""
+    M = Linv.shape[0]
+    U = torch.tril(Linv) if lower else Linv
+    K = _emulate_gram(Zs, Xs, var)
+    Uh, Kh = _tf32_rna(U), _tf32_rna(K)
+    Ul, Kl = _tf32_rna(U - Uh), _tf32_rna(K - Kh)
+    G = torch.empty((M, Xs.shape[0]), dtype=torch.float32)
+    for rows in _tiles(M, fg.TILE_ROWS):
+        ks = slice(0, rows.stop if lower else M)
+        G[rows] = Ul[rows, ks] @ Kh[ks] + Uh[rows, ks] @ Kl[ks] \
+            + Uh[rows, ks] @ Kh[ks]
+    return G
+
+
+def _emulate_bwd(Linv, Zs, Xs, var, dG, G, lower=False, tf32=True):
+    """K3 as the CUDA kernels order it: dK = Uᵀ·dG (K3a's main loop,
+    under ``lower`` over m ≥ k of tril(U)), de = K∘dK, per (k-tile ×
+    n-tile) block the partials of dZs and dXs, per n-tile the partial of
+    skv = Σ dG∘G from the forward's G (K3a), per slice of N the partial
+    of dU (K3b), then every output summed over its partials in slot
+    order, with the upper triangle of dU 0 under ``lower`` (K3c).
+    ``tf32`` rounds the operands of the products and builds the gram as
+    the kernels do."""
+    r = _tf32_rna if tf32 else (lambda t: t)
     M, N = dG.shape
-    R, C = fg.TILE_ROWS, fg.TILE_COLS
-    n_tiles, k_tiles = -(-N // C), -(-M // R)
-    slices, slice_len = fg.du_slices(N)
-    K = fg._gram_torch(Zs, Xs, var)
-    de = K * (Linv.T @ dG)
-    pdZs = torch.zeros((n_tiles, M, Zs.shape[1]), dtype=dG.dtype)
-    pdXs = torch.zeros((k_tiles, N, Zs.shape[1]), dtype=dG.dtype)
-    pskv = torch.zeros((k_tiles * n_tiles,), dtype=dG.dtype)
-    for kt in range(k_tiles):
-        ks = slice(kt * R, min(M, (kt + 1) * R))
-        for nt in range(n_tiles):
-            ns = slice(nt * C, min(N, (nt + 1) * C))
+    K = _emulate_gram(Zs, Xs, var) if tf32 else fg._gram_torch(Zs, Xs, var)
+    U = torch.tril(Linv) if lower else Linv
+    de = K * (r(U).T @ r(dG))
+    k_tiles, n_tiles = _tiles(M, fg.TILE_ROWS), _tiles(N, fg.TILE_COLS)
+    pdZs = torch.zeros((len(n_tiles), M, Zs.shape[1]), dtype=dG.dtype)
+    pdXs = torch.zeros((len(k_tiles), N, Zs.shape[1]), dtype=dG.dtype)
+    pskv = torch.stack([torch.sum(dG[:, ns] * G[:, ns]) for ns in n_tiles])
+    for kt, ks in enumerate(k_tiles):
+        for nt, ns in enumerate(n_tiles):
             t = de[ks, ns]
-            pdZs[nt, ks] = t @ Xs[ns] - t.sum(1)[:, None] * Zs[ks]
-            pdXs[kt, ns] = t.T @ Zs[ks] - t.sum(0)[:, None] * Xs[ns]
-            pskv[kt * n_tiles + nt] = t.sum()
-    pdU = torch.stack([dG[:, s * slice_len:(s + 1) * slice_len]
-                       @ K[:, s * slice_len:(s + 1) * slice_len].T
+            pdZs[nt, ks] = r(t) @ r(Xs[ns]) - t.sum(1)[:, None] * Zs[ks]
+            pdXs[kt, ns] = r(t).T @ r(Zs[ks]) - t.sum(0)[:, None] * Xs[ns]
+    slices, slice_len = fg.du_slices(N)
+    pdU = torch.stack([r(dG[:, s * slice_len:(s + 1) * slice_len])
+                       @ r(K[:, s * slice_len:(s + 1) * slice_len]).T
                        for s in range(slices)])
 
     def in_order(parts):
@@ -141,24 +199,110 @@ def _emulate_bwd(Linv, Zs, Xs, var, dG):
             out = out + p
         return out
 
-    return in_order(pdU), in_order(pdZs), in_order(pdXs), in_order(pskv)
+    dU = in_order(pdU)
+    return (torch.tril(dU) if lower else dU, in_order(pdZs),
+            in_order(pdXs), in_order(pskv))
 
 
-def test_k3_reduction_order_emulation():
+def _ragged(seed, M=200, N=5037, D=7, dtype=np.float64):
+    """The ragged shape the gate admits, inputs scaled as on the card;
+    ``Linv`` is NOT triangular, so ``lower`` has something to drop."""
+    rng = np.random.default_rng(seed)
+    ls = np.sqrt(D)
+    Linv = rng.standard_normal((M, M)) * 0.05 + np.eye(M)
+    return [torch.as_tensor(a.astype(dtype)) for a in (
+        Linv, rng.uniform(0, 4, (M, D)) / ls, rng.uniform(0, 4, (N, D)) / ls,
+        np.asarray(1.4), rng.standard_normal((M, N)) * 0.01)]
+
+
+def test_tf32_rna_on_bit_patterns():
+    """Ties go away from zero (where round-to-even would differ), a carry
+    runs into the exponent, and inf and NaN pass through."""
+    cases = {0x3F801000: 0x3F802000, 0xBF801000: 0xBF802000,
+             0x3F800FFF: 0x3F800000, 0x3F801001: 0x3F802000,
+             0x3F803000: 0x3F804000, 0x3F800000: 0x3F800000,
+             0x3FFFF000: 0x40000000, 0x00001000: 0x00002000,
+             0x80000FFF: 0x80000000, 0x7F800000: 0x7F800000,
+             0xFF800000: 0xFF800000}
+    src = np.array(list(cases), dtype=np.uint32).view(np.float32)
+    got = _tf32_rna(torch.as_tensor(src)).numpy().view(np.uint32)
+    assert [hex(v) for v in got] == [hex(v) for v in cases.values()]
+    nan = _tf32_rna(torch.tensor([float("nan")], dtype=torch.float32))
+    assert bool(torch.isnan(nan).all())
+
+
+@pytest.mark.parametrize("lower", [False, True])
+def test_k2_emulation_matches_float64_plain(lower):
+    """K2's tiles, triangle skip and 3×TF32 product in float32 against
+    the float64 plain version at the card's tolerances (rtol 2e-4, atol
+    2e-5), and the same bits over two calls."""
+    Linv, Zs, Xs, var, _ = _ragged(20)
+    f32 = [t.float() for t in (Linv, Zs, Xs, var)]
+    first = _emulate_fwd(*f32, lower)
+    assert torch.equal(first, _emulate_fwd(*f32, lower))
+    want = fg._fused_fwd_torch(Linv, Zs, Xs, var, lower)
+    np.testing.assert_allclose(first.double().numpy(), want.numpy(),
+                               rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("lower", [False, True])
+def test_k3_emulation_matches_float64_plain(lower):
+    """K3's 1-pass TF32 products, partial slots and reduction order in
+    float32 against the float64 plain version: within 2e-3 of each
+    output's largest entry (the card's tolerance), the same bits over two
+    calls."""
+    Linv, Zs, Xs, var, dG = _ragged(21)
+    f32 = [t.float() for t in (Linv, Zs, Xs, var, dG)]
+    assert fg.du_slices(5037)[0] > 1
+    G = _emulate_fwd(*f32[:4], lower)
+    first = _emulate_bwd(*f32, G, lower)
+    second = _emulate_bwd(*f32, G, lower)
+    plain = fg._fused_bwd_torch(Linv, Zs, Xs, var, dG, lower)
+    for a, b, p in zip(first, second, plain):
+        assert torch.equal(a, b)
+        assert float((a.double() - p).abs().max()) <= \
+            2e-3 * float(p.abs().max())
+
+
+@pytest.mark.parametrize("lower", [False, True])
+def test_k3_reduction_order_emulation(lower):
     """The partial-buffer layout and second pass of K3, emulated in
-    float64 on a ragged shape with several tiles and dU slices, equal
-    the plain backward to 1e-12 and are bitwise stable across calls."""
+    float64 without TF32 rounding on a ragged shape with several tiles
+    and dU slices, equal the plain backward to 1e-12 and are bitwise
+    stable across calls."""
     M, N, D = 150, 4500, 3
     assert fg.du_slices(N)[0] > 1
-    Linv, Zs, Xs, var = _t(*_case(4, M, N, D, np.float64))
-    dG = torch.as_tensor(np.random.default_rng(5).standard_normal((M, N)))
-    first = _emulate_bwd(Linv, Zs, Xs, var, dG)
-    second = _emulate_bwd(Linv, Zs, Xs, var, dG)
-    plain = fg._fused_bwd_torch(Linv, Zs, Xs, var, dG)
+    Linv, Zs, Xs, var, dG = _ragged(4, M, N, D)
+    G = fg._fused_fwd_torch(Linv, Zs, Xs, var, lower)
+    first = _emulate_bwd(Linv, Zs, Xs, var, dG, G, lower, tf32=False)
+    second = _emulate_bwd(Linv, Zs, Xs, var, dG, G, lower, tf32=False)
+    plain = fg._fused_bwd_torch(Linv, Zs, Xs, var, dG, lower)
     for a, b, p in zip(first, second, plain):
         assert torch.equal(a, b)
         np.testing.assert_allclose(a.numpy(), p.numpy(), rtol=1e-12,
                                    atol=1e-12)
+
+
+def test_lower_is_the_function_of_tril():
+    """float64: ``lower=True`` is the dense function of ``tril(Linv)``,
+    forward and backward, through the autograd Function; its gradient in
+    Linv is lower triangular, and ``lower=False`` keeps the upper
+    triangle's contribution."""
+    Linv, Zs, Xs, var, dG = _ragged(22, 70, 400, 5)
+    args = [t.clone().requires_grad_(True) for t in (Linv, Zs, Xs, var)]
+    G = fg.fused_linv_rbf_gram(*args, lower=True)
+    G.backward(dG)
+    refs = [t.clone().requires_grad_(True) for t in (Linv, Zs, Xs, var)]
+    R = fg.reference_linv_rbf_gram(torch.tril(refs[0]), *refs[1:])
+    R.backward(dG)
+    np.testing.assert_allclose(G.detach().numpy(), R.detach().numpy(),
+                               rtol=1e-12, atol=1e-12)
+    for a, b in zip(args, refs):
+        np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(),
+                                   rtol=1e-10, atol=1e-10)
+    assert bool((torch.triu(args[0].grad, 1) == 0).all())
+    dense = fg._fused_fwd_torch(Linv, Zs, Xs, var)
+    assert float((dense - G.detach()).abs().max()) > 1e-3
 
 
 def test_gate_and_switches():
@@ -177,7 +321,7 @@ def test_gate_and_switches():
         assert not fg.enabled()
     finally:
         fg.set_enabled(True)
-    assert fg.du_slices(65536) == (32, 2048)
+    assert fg.du_slices(65536) == (64, 1024)
     assert fg.du_slices(100) == (1, 100)
     s, length = fg.du_slices(4500)
     assert s * length >= 4500 > (s - 1) * length

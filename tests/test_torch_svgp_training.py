@@ -108,8 +108,9 @@ def test_bound_and_gradients_match_jax(monkeypatch, whitened, arm):
     """N < 4M takes the triangular solves, N >= 4M the materialized
     L⁻¹, and "fused" forces the fused arm on the CPU: the gate is
     flipped, so the port runs the plain versions of K2 and K3 through
-    the fused autograd.Function. Loss 1e-9 relative, gradients rtol 1e-6
-    and atol 1e-8: float64, where a wrong branch shows as O(1)."""
+    the fused autograd.Function with ``lower=True``. Loss 1e-9 relative,
+    gradients rtol 1e-6 and atol 1e-8: float64, where a wrong branch
+    shows as O(1)."""
     M = 32
     N = 100 if arm == "narrow" else 256
     X, Y, Z0 = _data(5, N, 2, M)
@@ -119,7 +120,7 @@ def test_bound_and_gradients_match_jax(monkeypatch, whitened, arm):
         monkeypatch.setattr(fused_gram, "supported", lambda *a: True)
         real = fused_gram._FusedLinvRbfGram.apply
         monkeypatch.setattr(fused_gram._FusedLinvRbfGram, "apply",
-                            lambda *a: calls.append(1) or real(*a))
+                            lambda *a: calls.append(a[-1]) or real(*a))
 
     jex = jcreate_executor(jinf.inference_algorithm, jinf.params)
     jfixed = dict(jinf.params.fixed_params())
@@ -138,6 +139,7 @@ def test_bound_and_gradients_match_jax(monkeypatch, whitened, arm):
               torch.Generator().manual_seed(0))[1]
     loss.backward()
     assert bool(calls) == (arm == "fused")
+    assert all(lower is True for lower in calls)  # L⁻¹ is declared lower
     assert abs(float(loss.detach()) - jl) <= 1e-9 * abs(jl)
     jpaths = name_paths(jinf.graphs)
     tuuid = {p: u for u, p in name_paths(tinf.graphs).items()}
