@@ -19,9 +19,11 @@ print one line:
    card: K1 at the serving shapes (Kzx, Kuu) and one ragged ARD shape,
    max |diff| <= 1e-5 at variance 1; K2 (rtol 2e-4, atol 2e-5) and K3
    (2e-3 of each output's largest entry, and the same bits on a second
-   call) at the training shape (M = 512, N = 65536, D = 32) and a
-   ragged shape the gate admits, each with ``lower`` True and False on
-   an L⁻¹ stand-in whose upper triangle is not 0; checks that the
+   call) at the training shape (M = 512, N = 65536, D = 32), a ragged
+   shape the gate admits and two shapes (N = 4104 and 100000, N % 4 = 0)
+   whose dU slices start inside a 16-byte group unless they are aligned,
+   each with ``lower`` True and False on an L⁻¹ stand-in whose upper
+   triangle is not 0; checks that the
    HIGHEST-tier einsum stays IEEE fp32, forward and gradient, with TF32
    switched on;
 4. serve: loads a seeded state through ``util.carryover``, answers three
@@ -40,8 +42,10 @@ print one line:
    K3 three times, K1 once for Kuu on the fused run), finite losses,
    fused vs materialized losses within 1e-3 relative, the first loss
    against a float64 evaluation of the bound within 1e-3 relative, and
-   serves 8192 rows from the trained store; prints the step wall time
-   of both arms; then evaluates the bound and its gradient at a Kuu that
+   serves 8192 rows from the trained store; prints the median and
+   quartiles of the step wall time of both arms over STEP_WALL_ROUNDS
+   rounds of (materialized, fused, fused, materialized) epochs; then
+   evaluates the bound and its gradient at a Kuu that
    is not positive definite (jitter 0, a lengthscale far beyond the
    box): the loss is NaN, as in JAX, and nothing raises;
 7. timing (information): K2 and K3 against their plain versions at the
@@ -95,6 +99,10 @@ BOX = 4.0              # inputs and inducing points uniform in [0, BOX]^D
 KERNEL_ATOL = 1e-5     # tests/ops/test_pallas.py tolerance, variance 1
 # the training slice: bench.py's headline step shape
 TRAIN_N, TRAIN_B, TRAIN_STEPS = 262144, 65536, 4
+# the step wall is a host-clock reading of a step that idles the card
+# half the time: 24 steps per arm, the arms alternated, so that the
+# quartiles show the spread
+STEP_WALL_ROUNDS = 3
 FWD_RTOL, FWD_ATOL = 2e-4, 2e-5   # tests/ops/test_pallas_fused_gram.py
 BWD_RTOL = 2e-3                   # of each cotangent's largest entry
 # fused vs materialized Kuf: the two arms round the 512 x 65536 gram and
@@ -388,9 +396,10 @@ def check_cholesky(bc, A, label):
     ``torch.linalg.cholesky``'s. Returns {kernel: max |kernel − plain|}
     and a printable summary."""
     import torch
+    from mxfusion_tpu_torch.ops import linalg
     B, n, _ = A.shape
-    ref = bc._cholesky_torch(A.double())
-    plain = bc._cholesky_torch(A)
+    ref = linalg.cholesky(A.double())
+    plain = linalg.cholesky(A)
     scale = float(ref.abs().max())
     errs, notes = {}, []
     for name, wrapper in (("K4", bc._k4_cuda), ("K5", bc._k5_cuda)):
@@ -615,7 +624,8 @@ def main():
     from mxfusion_tpu_torch.inference import (
         BatchedPredictor, DeviceMinibatchLoop, GradBasedInference, MAP)
     from mxfusion_tpu_torch.ops import (batched_cholesky, cuda_build,
-                                        cuda_kernels, fused_gram, precision)
+                                        cuda_kernels, fused_gram, linalg,
+                                        precision)
     from mxfusion_tpu_torch.util.carryover import carryover_params
 
     dev = torch.device("cuda:0")
@@ -751,7 +761,9 @@ def main():
           "relative error vs float64 {:.3e}".format(grad_err), flush=True)
     fused_errs = []
     for label, shape in (("train_shape", (M, TRAIN_B, D)),
-                         ("ragged", (200, 5037, 7))):
+                         ("ragged", (200, 5037, 7)),
+                         ("dU_slice_boundaries", (128, 4104, 8)),
+                         ("wide_N", (M, 100000, D))):
         inputs = fused_inputs(grng, *shape, dev, upper=0.05)
         fused_errs += [check_fused(fused_gram, inputs, label, lower)
                        for lower in (True, False)]
@@ -926,9 +938,14 @@ def main():
           and np.isfinite(var).all(), "serving the trained store gave "
           "{} {}".format(mu.shape, var.shape))
     step_s = {"fused": [], "plain": []}
-    for which in ("plain", "fused", "fused", "plain"):
-        loop, _ = train(which == "fused")
-        step_s[which].append(float(np.median(loop.wall_s)))
+    for _round in range(STEP_WALL_ROUNDS):
+        for which in ("plain", "fused", "fused", "plain"):
+            loop, _ = train(which == "fused")
+            step_s[which] += loop.wall_s
+    step_ms = {k: "median {:.3f} (quartiles {:.3f}-{:.3f}) of {}".format(
+        *(float(q) for q in np.percentile(np.asarray(v) * 1e3,
+                                          [50, 25, 75])), len(v))
+               for k, v in step_s.items()}
     nan_loss, nan_launches = bound_at_singular_kuu(trng, Xtr, Ytr, dev,
                                                    read_counts)
     check(math.isnan(nan_loss) and nan_launches["K2"] == 1
@@ -939,13 +956,13 @@ def main():
           "step launches fused {} materialized {} | losses fused {} "
           "materialized {} (max rel {:.3e}, tol {:.0e}) | first loss vs "
           "float64 {:.6f}: rel {:.3e} | served {} rows from the trained "
-          "store | step wall s ({}): fused {} materialized {} | Kuu not "
+          "store | step wall ms ({}): fused {} materialized {} | Kuu not "
           "positive definite: fused loss {} (NaN as in JAX), gradient "
           "taken, nothing raised".format(
               TRAIN_N, TRAIN_B, M, D, TRAIN_STEPS, fused_loop.counts[0],
               plain_loop.counts[0], fused_losses, plain_losses, loss_rel,
               TRAIN_LOSS_RTOL, f64_loss, f64_rel, CHUNK, card,
-              step_s["fused"], step_s["plain"], nan_loss), flush=True)
+              step_ms["fused"], step_ms["plain"], nan_loss), flush=True)
 
     # ---- 7. timing of K2 and K3, for information: lower=True is the
     # bound's call and the PERF.md yardstick
@@ -994,7 +1011,7 @@ def main():
     bad = spd_stack(crng, 6, 20, dev)
     bad[2] = -bad[2]
     bad[4, 0, 1] = bad[4, 1, 0] = 10.0 * bad[4, 0, 0]
-    nan_plain = torch.isnan(batched_cholesky._cholesky_torch(bad))
+    nan_plain = torch.isnan(linalg.cholesky(bad))
     for name, wrapper in (("K4", batched_cholesky._k4_cuda),
                           ("K5", batched_cholesky._k5_cuda)):
         L = wrapper(bad)
@@ -1103,7 +1120,7 @@ def main():
             A = spd_stack(crng, B, n, dev)
             t = {"plain": [], "K4": [], "K5": []}
             for which in ("plain", "K4", "K5", "K5", "K4", "plain"):
-                fn = {"plain": batched_cholesky._cholesky_torch,
+                fn = {"plain": linalg.cholesky,
                       "K4": batched_cholesky._k4_cuda,
                       "K5": batched_cholesky._k5_cuda}[which]
                 t[which].append(cuda_ms(lambda: fn(A), 20))

@@ -153,15 +153,15 @@ __device__ __forceinline__ bool vec16(const float* src, size_t ld_src) {
 
 // Queue the copy of a ROWS x COLS tile of a row-major matrix (row pitch
 // ld_src): dst[r][c] = src[r0 + r][c0 + c] where r0 + r < r_end and
-// c0 + c < c_end, else 0. c0 and ld are multiples of 4 and dst is 16-byte
-// aligned; 16-byte copies where the rows are aligned (one copy per four
-// elements: the copies' issue cost is what bounds a 4-byte stream), 4-byte
-// copies otherwise.
+// c0 + c < c_end, else 0. ld is a multiple of 4 and dst is 16-byte
+// aligned; 16-byte copies where the source rows from column c0 on are
+// aligned (one copy per four elements: the copies' issue cost is what
+// bounds a 4-byte stream), 4-byte copies otherwise.
 template <int ROWS, int COLS>
 __device__ void stage_tile(const float* __restrict__ src, size_t ld_src,
                            int r_end, int c_end, int r0, int c0, float* dst,
                            int ld) {
-  if (vec16(src, ld_src)) {
+  if (c0 % 4 == 0 && vec16(src, ld_src)) {
     for (int idx = threadIdx.x; idx < ROWS * COLS / 4; idx += kThreads) {
       const int r = idx / (COLS / 4);
       const int c = idx % (COLS / 4) * 4;

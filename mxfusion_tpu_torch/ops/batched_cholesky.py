@@ -17,12 +17,11 @@ the matrix in shared memory:
   left-looking column order. :func:`batched_cholesky_r3` reaches it;
   nothing in the library does, as in the JAX package.
 
-The plain version of both is :func:`_cholesky_torch`, which is the GP
-path's :func:`.linalg.cholesky`: ``torch.linalg.cholesky_ex`` with the
-JAX convention for a matrix that is not positive definite: its lower
-triangle is NaN (``jnp.linalg.
-cholesky`` returns NaN, ``torch.linalg.cholesky`` raises). The kernels
-give the same pattern. All of them factor ½(A + Aᵀ), as
+The plain version of both is the GP path's :func:`.linalg.cholesky`:
+``torch.linalg.cholesky_ex`` with the JAX convention for a matrix that
+is not positive definite: its lower triangle is NaN
+(``jnp.linalg.cholesky`` returns NaN, ``torch.linalg.cholesky``
+raises). The kernels give the same pattern. All of them factor ½(A + Aᵀ), as
 ``jnp.linalg.cholesky`` does (LAPACK's ``potrf`` and
 ``torch.linalg.cholesky`` read the lower triangle alone), so that the
 symmetric gradient of the custom backward is the derivative of the
@@ -45,8 +44,8 @@ import math
 import torch
 
 from . import cuda_build
+from . import linalg
 from .linalg import _nan_lower, _sym
-from .linalg import cholesky as _cholesky_torch
 from .precision import einsum as p_einsum
 
 MAX_N = 128  # the largest n whose working matrix csrc/batched_cholesky.cu holds
@@ -194,7 +193,7 @@ class _BatchedCholesky(torch.autograd.Function):
         if supported(tuple(A.shape), A.dtype, A.device):
             L = _k4_cuda(A.contiguous())
         else:
-            L = _cholesky_torch(A)
+            L = linalg.cholesky(A)
         ctx.save_for_backward(L)
         return L
 
@@ -226,11 +225,11 @@ def cholesky(A):
     ``reshape`` copies a broadcast (stride-0) view into a dense stack.
     Elsewhere, and for ``ndim < 3``, the plain version."""
     if A.ndim < 3:
-        return _cholesky_torch(A)
+        return linalg.cholesky(A)
     n = A.shape[-1]
     B = math.prod(A.shape[:-2])
     if not supported((B, A.shape[-2], n), A.dtype, A.device):
-        return _cholesky_torch(A)
+        return linalg.cholesky(A)
     return batched_cholesky(A.reshape(B, A.shape[-2], n)).reshape(A.shape)
 
 
@@ -239,7 +238,7 @@ def batched_cholesky_r3(A):
     on a CUDA tensor, or it raises on what K5 does not take; the plain
     version on a CPU tensor. Not differentiable, as in JAX."""
     if A.device.type == "cpu":
-        return _cholesky_torch(A)
+        return linalg.cholesky(A)
     if A.device.type != "cuda":
         raise ValueError("batched_cholesky_r3 takes CPU or CUDA tensors, "
                          "got {}.".format(A.device))

@@ -46,6 +46,9 @@ MAX_D = 128
 # the backward splits dU = dG·Kᵀ over at most this many slices of N
 MAX_DU_SLICES = 64
 DU_SLICE_TARGET = 1024
+# a slice starts on a whole k-chunk of K3b's ring (kChunk in the source), so
+# every slice's dG rows stay 16-byte aligned where row 0 is
+DU_SLICE_ALIGN = 32
 BWD_LAUNCHES = 3  # K3a, K3b, K3c per backward call
 
 _ENABLED = True
@@ -86,9 +89,12 @@ def supported(M, N, D, dtype, device):
 
 def du_slices(N):
     """``(slices, slice_len)``: how K3 splits N for the dU product. A
-    function of N alone, so the reduction order is fixed per shape."""
+    function of N alone, so the reduction order is fixed per shape;
+    ``slice_len`` is a multiple of ``DU_SLICE_ALIGN`` and no slice is
+    empty."""
     slices = max(1, min(MAX_DU_SLICES, -(-N // DU_SLICE_TARGET)))
-    return slices, -(-N // slices)
+    slice_len = -(-N // (slices * DU_SLICE_ALIGN)) * DU_SLICE_ALIGN
+    return -(-N // slice_len), slice_len
 
 
 # ---------------------------------------------------------------------------

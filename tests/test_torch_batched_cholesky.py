@@ -21,6 +21,7 @@ from mxfusion_tpu.ops.pallas_batched_cholesky import (
     _pallas_batched_cholesky, _pallas_batched_cholesky_v2)
 
 from mxfusion_tpu_torch.ops import batched_cholesky as bc
+from mxfusion_tpu_torch.ops import linalg
 
 SHAPES = [(32, 64, 16), (24, 128, 16), (40, 32, 16)]  # (B, n, JAX chunk)
 
@@ -50,7 +51,7 @@ def test_port_matches_the_jax_kernel(variant, B, n, c):
     LJ = np.asarray(jax_kernel(jnp.asarray(A), c, interpret=True))
     emulate = bc._k4_emulate if variant == "K4" else bc._k5_emulate
     At = torch.as_tensor(A)
-    for L in (emulate(At), bc._cholesky_torch(At)):
+    for L in (emulate(At), linalg.cholesky(At)):
         L = L.numpy()
         assert L.dtype == np.float32
         assert _rel(L, LJ) < 5e-6
@@ -64,7 +65,7 @@ def test_emulations_match_the_plain_version_in_float64(n):
     """Any n up to the kernels' 128, ragged included: the two column
     orders give the same factor to 1e-12 in float64."""
     A = torch.as_tensor(_spd((3, n, n), n, seed=n))
-    ref = bc._cholesky_torch(A)
+    ref = linalg.cholesky(A)
     for emulate in (bc._k4_emulate, bc._k5_emulate):
         torch.testing.assert_close(emulate(A), ref, rtol=1e-12, atol=1e-12)
 
@@ -135,7 +136,7 @@ def test_not_positive_definite_gives_jax_nan_pattern():
     A[3] = -A[3]
     LJ = np.asarray(jnp.linalg.cholesky(jnp.asarray(A)))
     assert np.isnan(LJ[1]).sum() == np.isnan(LJ[3]).sum() == 10
-    for fn in (bc._cholesky_torch, bc._k4_emulate, bc._k5_emulate,
+    for fn in (linalg.cholesky, bc._k4_emulate, bc._k5_emulate,
                bc.cholesky, bc.batched_cholesky, bc.batched_cholesky_r3):
         L = fn(torch.as_tensor(A)).numpy()
         np.testing.assert_array_equal(np.isnan(L), np.isnan(LJ),
@@ -167,7 +168,7 @@ def test_cpu_tensors_take_the_plain_version():
     a CPU tensor, and another device type is refused up front."""
     A = torch.as_tensor(_spd((2, 3, 5, 5), 5, seed=11), dtype=torch.float32)
     k4, k5 = bc._k4_cuda.launches, bc._k5_cuda.launches
-    ref = bc._cholesky_torch(A)
+    ref = linalg.cholesky(A)
     assert torch.equal(bc.cholesky(A), ref)
     assert torch.equal(bc.cholesky(A[0, 0]), ref[0, 0])
     assert torch.equal(bc.batched_cholesky(A[0]), ref[0])

@@ -18,6 +18,7 @@ import torch
 from mxfusion_tpu_torch.ops import batched_cholesky as bc
 from mxfusion_tpu_torch.ops import cuda_build, cuda_kernels as ck
 from mxfusion_tpu_torch.ops import fused_gram as fg
+from mxfusion_tpu_torch.ops import linalg
 from mxfusion_tpu_torch.ops import precision
 
 # (s, N, M, D, ARD): X2 = None for M None; ragged N, M and D throughout
@@ -210,8 +211,10 @@ def test_cuda_kernel_gradient_matches_plain(cuda_device, X2_none):
         assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
 
 
+# (128, 4104, 8) and (512, 100000, 32): N % 4 = 0 with dU slices of a
+# length that is not a multiple of 4 before du_slices aligned them
 FUSED = [(128, 2048, 8), (200, 5037, 7), (1, 1, 1), (130, 300, 128),
-         (512, 65536, 32)]
+         (512, 65536, 32), (128, 4104, 8), (512, 100000, 32)]
 
 
 def _fused_inputs(seed, M, N, D, device, upper=0.0):
@@ -355,8 +358,8 @@ def test_cuda_cholesky_matches_plain(cuda_device, variant, B, n):
     before = wrapper.launches
     L1 = wrapper(A)
     L2 = wrapper(A)
-    ref = bc._cholesky_torch(A.double())
-    plain = bc._cholesky_torch(A)
+    ref = linalg.cholesky(A.double())
+    plain = linalg.cholesky(A)
     torch.cuda.synchronize()
     assert wrapper.launches == before + 2
     assert torch.equal(L1, L2)
@@ -397,7 +400,7 @@ def test_cuda_cholesky_not_positive_definite(cuda_device, variant):
     A[4, 0, 1] = A[4, 1, 0] = 10 * A[4, 0, 0]
     wrapper = bc._k4_cuda if variant == "K4" else bc._k5_cuda
     L = wrapper(A)
-    P = bc._cholesky_torch(A)
+    P = linalg.cholesky(A)
     torch.cuda.synchronize()
     assert torch.equal(torch.isnan(L), torch.isnan(P))
     assert int(torch.isnan(L).sum()) == 2 * 15

@@ -322,9 +322,20 @@ def test_gate_and_switches():
     finally:
         fg.set_enabled(True)
     assert fg.du_slices(65536) == (64, 1024)
-    assert fg.du_slices(100) == (1, 100)
-    s, length = fg.du_slices(4500)
-    assert s * length >= 4500 > (s - 1) * length
+    assert fg.du_slices(100) == (1, 128)
+
+
+@pytest.mark.parametrize("N", [1, 100, 1025, 4104, 4500, 5037, 65536,
+                               100000, 262144, 10 ** 6])
+def test_du_slices_start_on_aligned_columns(N):
+    """K3b stages dG from column slice·slice_len on with 16-byte copies
+    where a row is aligned; a slice length that is not a multiple of the
+    ring's chunk (N = 4104 once gave 5 slices of 821) would misalign every
+    slice after the first. Every slice is also non-empty."""
+    slices, length = fg.du_slices(N)
+    assert length % fg.DU_SLICE_ALIGN == 0 and fg.DU_SLICE_ALIGN % 4 == 0
+    assert 1 <= slices <= fg.MAX_DU_SLICES
+    assert slices * length >= N > (slices - 1) * length
 
 
 def test_wrapper_rejects_other_devices():
