@@ -16,8 +16,9 @@ print one line:
    ``rbf_gram.cu`` (K1), ``fused_gram.cu`` (K2, K3) and
    ``batched_cholesky.cu`` (K4, K5);
 3. kernel: holds each kernel against its plain PyTorch version on the
-   card: K1 at the serving shapes (Kzx, Kuu) and one ragged ARD shape,
-   max |diff| <= 1e-5 at variance 1; K2 (rtol 2e-4, atol 2e-5) and K3
+   card: K1 at the serving shapes (Kzx, Kuu), one ragged ARD shape and
+   three whose M % 4 != 0 takes its 4-byte stores (M = 8191; two samples
+   at M = 130 and at M = 1), max |diff| <= 1e-5 at variance 1; K2 (rtol 2e-4, atol 2e-5) and K3
    (2e-3 of each output's largest entry, and the same bits on a second
    call) at the training shape (M = 512, N = 65536, D = 32), a ragged
    shape the gate admits and two shapes (N = 4104 and 100000, N % 4 = 0)
@@ -32,9 +33,10 @@ print one line:
    variances >= -1e-6, that they agree with the plain path (means 1e-4
    relative, variances 1e-4 absolute) and, on 256 rows, with a float64
    numpy evaluation of the predictive formulas (1e-3 relative);
-5. timing (information): the kernel's and the plain version's device
-   time at the Kzx shape, and serving rows/s with and without the
-   kernel;
+5. timing (information): K1's and its plain version's device time at
+   serving's Kzx (512 x 8192) and Kuu and the materialized arm's Kuf
+   (512 x 65536), beside its bound, and serving rows/s with and without
+   the kernel;
 6. train: MAP with Adam (lr 3e-3) for one epoch of 4 steps on 262144
    seeded rows, once through the fused arm and once with
    ``fused_gram.disabled()`` (materialized Kuf) from the same start and
@@ -54,11 +56,12 @@ print one line:
    kernel's precision);
 8. cholesky: K4 and K5 (``batched_cholesky.cu``) against the plain
    version at 512×32², 512×64², 2048×64², 512×128², 8192×64², a ragged
-   B (777×60²) and n = 20: error within 5e-6 of max |L| of the float64
-   factor, upper triangle exactly 0, the same bits over two calls, K4's
-   custom gradient within 1e-4 of ``torch.linalg.cholesky``'s; and the
-   plain version's NaN pattern on matrices that are not positive
-   definite;
+   B (777×60²), n = 20 and K4's tier edges (n = 32, 33, 64, 65, 128 at
+   B = 1 and 3): error within 5e-6 of max |L| of the float64 factor,
+   upper triangle exactly 0, the same bits over two calls, K4's custom
+   gradient within 1e-4 of ``torch.linalg.cholesky``'s; and the plain
+   version's NaN pattern on matrices that are not positive definite, at
+   n = 20, 40 and 70;
 9. ppca: the MVN slice's main path at full width, structured PPCA
    (N = 2048, Q = 64, D = 128, a full-covariance posterior per point)
    by ``GradBasedInference(StochasticVariationalInference)`` with S = 4
@@ -71,11 +74,18 @@ print one line:
    have mean 0 and covariance I within 8/sqrt(16·N);
 11. r3 entry: ``batched_cholesky_r3`` (K5, which no library path calls,
    as in JAX) on the trained posterior's covariance stack, against K4;
-12. timing (information): K4, K5 and the plain version at five stacks.
+12. timing (information): K4, K5, the plain version and
+   ``torch.linalg.cholesky_ex`` alone (the library call) at five stacks,
+   beside the bound;
+13. profile (information): ten structured-PPCA SVI steps under
+   ``torch.profiler``: wall, device busy time and idle share, and the
+   device time by kernel (the Chrome trace goes to ``build/``).
 
 Any failed check raises and the script exits nonzero. The last three
-lines are the card (nvidia-smi), the kernels' JSON record and
-``{"ok": true, "device": {...}}``.
+lines are the card (nvidia-smi), the kernels' JSON record (each with
+its time, its plain version's, its bound from this run's shapes and
+the card's published peaks, and the library call's where one PyTorch
+call computes the same function) and ``{"ok": true, "device": {...}}``.
 
 Run from the repository root:  python3 chip_smoke.py [--seed N]
 """
@@ -123,13 +133,23 @@ BULK_ROWS = 32 * CHUNK
 # log-pdf stack (S·N = 8192), a ragged B and an n that is not a
 # multiple of 8
 CHOL_SHAPES = ((512, 32), (512, 64), (2048, 64), (512, 128), (8192, 64),
-               (777, 60), (512, 20))
+               (777, 60), (512, 20),
+               # K4's tier edges (a warp per matrix up to n = 32 and 64, a
+               # block above) at B that are not multiples of its matrices
+               # per block
+               (1, 33), (3, 65), (1, 128), (3, 64), (3, 32))
 CHOL_TIMED = ((512, 32), (512, 64), (2048, 64), (512, 128), (8192, 64))
 CHOL_MAIN = (8192, 64)  # the PPCA step's log-pdf stacks: the JSON's times
 CHOL_RTOL = 5e-6       # of max |L|: tests/ops/test_cholesky_variants.py
 CHOL_GRAD_RTOL = 1e-4  # fp32 custom backward vs torch's, of the max entry
+# the NaN pattern at each of K4's tiers
+CHOL_NAN_N = (20, 40, 70)
+# the card's published peaks (H100 SXM, 700 W): HBM bytes/s, fp32 FLOP/s
+# on the CUDA cores, TF32 FLOP/s on the tensor cores (dense)
+HBM_BYTES_S, FP32_FLOP_S, TF32_FLOP_S = 3.35e12, 67e12, 495e12
 PPCA_N, PPCA_Q, PPCA_D, PPCA_S = 2048, 64, 128, 4
 PPCA_STEPS, PPCA_LR, PPCA_FS, PPCA_JITTER = 20, 0.02, 16, 1e-3
+PROFILE_STEPS = 10
 # float32 (K4, IEEE products) vs float64 (plain) at the same state and
 # draws: a sum of 2048·128 likelihood and 2048·64 latent terms
 PPCA_F64_RTOL = 1e-4
@@ -180,12 +200,58 @@ def ptxas_summary(lib_path):
     log = lib_path.with_suffix(".log")
     out = []
     for ln in log.read_text().splitlines() if log.exists() else []:
-        name = re.search(r"([a-z_]*[a-z]_kernel)E", ln)
+        name = re.search(r"([a-z_]*[a-z]_kernel)(?:ILi(\d+)EE|E)", ln)
         if "Compiling entry function" in ln and name:
-            out.append(name.group(1) + ":")
+            out.append(name.group(1) + ("<{}>".format(name.group(2))
+                                        if name.group(2) else "") + ":")
         elif "registers" in ln or "spill" in ln:
             out.append(ln.split(":", 1)[-1].strip())
     return " ".join(out)
+
+
+def bound_ms(n_bytes, ops, flop_s):
+    """The least time the card could take for a function: the larger of
+    its bytes (each input read once, each output written once) over the
+    HBM rate and its operations over their peak rate; in ms, with which
+    of the two sets it."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, ops / flop_s
+    return 1e3 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rbf_bound(S, N, M, D, L):
+    """K1: X, X2, the lengthscale and the variance read once and K (S, N,
+    M) written once; fp32 operations on the CUDA cores: 2NMD for the
+    cross term, 3(N + M)D for the scaling and the norms, 6NM for the
+    epilogue."""
+    n_bytes = 4 * S * (N * D + M * D + L + 1 + N * M)
+    ops = S * (2 * N * M * D + 3 * (N + M) * D + 6 * N * M)
+    return bound_ms(n_bytes, ops, FP32_FLOP_S)
+
+
+def fused_bounds(n_rows, n_cols, n_feat):
+    """K2 and K3 at ``lower=True`` (the bound's call), whose L⁻¹ input is
+    its lower triangle. K2 reads it, Zs, Xs and the variance and writes
+    G (M, N); its products run as 3-pass TF32 on the tensor cores: the
+    G-product (M(M + 1)N) and the gram's cross term (2MND). K3 reads the
+    same, dG and G, and writes dU (M, M), dZs, dXs and skv; its products
+    are 1-pass TF32 (Uᵀ·dG and tril(dG·Kᵀ), M(M + 1)N each; de·Xs and
+    deᵀ·Zs, 2MND each) beside the gram's 3-pass cross term."""
+    Mr, N, Df = n_rows, n_cols, n_feat
+    tri = Mr * (Mr + 1) // 2
+    ins = tri + Mr * Df + N * Df + 1
+    k2 = bound_ms(4 * (ins + Mr * N),
+                  3 * (Mr * (Mr + 1) * N + 2 * Mr * N * Df), TF32_FLOP_S)
+    k3 = bound_ms(4 * (ins + 2 * Mr * N + Mr * Mr + Mr * Df + N * Df + 1),
+                  2 * Mr * (Mr + 1) * N + 4 * Mr * N * Df
+                  + 3 * 2 * Mr * N * Df, TF32_FLOP_S)
+    return k2, k3
+
+
+def chol_bound(B, n):
+    """K4 and K5: A read and L written once (8·B·n² bytes); B·n³/3 fp32
+    operations."""
+    return bound_ms(8 * B * n * n, B * n ** 3 / 3, FP32_FLOP_S)
 
 
 def rbf_f64(A, B, ls, var):
@@ -583,6 +649,64 @@ def train_ppca(dev, seed, n, q_dim, d, steps, read_counts, sync):
     return inf, x, W0, start, loop
 
 
+def profile_ppca(dev, seed, steps, trace_path):
+    """Structured-PPCA SVI under ``torch.profiler`` (CPU and CUDA
+    activities): two steps to warm up, then ``steps`` recorded, with no
+    synchronization added. From the Chrome trace: the recorded window's
+    wall, the device's busy time in it (the union of kernel, copy and set
+    intervals) and the device time by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from mxfusion_tpu_torch.inference import (
+        BatchInferenceLoop, GradBasedInference, StochasticVariationalInference)
+    x, W0 = ppca_data(np.random.default_rng(seed), PPCA_N, PPCA_Q, PPCA_D)
+    m, q = build_ppca(PPCA_N, PPCA_Q, PPCA_D, W0)
+    prof = None
+
+    class SteppingLoop(BatchInferenceLoop):
+        def _step(self, *args, **kwargs):
+            out = BatchInferenceLoop._step(*args, **kwargs)
+            prof.step()
+            return out
+
+    inf = GradBasedInference(StochasticVariationalInference(
+        num_samples=PPCA_S, model=m, posterior=q, observed=[m.x]),
+        grad_loop=SteppingLoop(), dtype="float32", device=dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=steps),
+                 on_trace_ready=lambda p: p.export_chrome_trace(
+                     str(trace_path))) as prof:
+        inf.run(x=x, max_iter=steps + 2, learning_rate=PPCA_LR,
+                generator=torch.Generator(dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    events = [e for e in json.loads(Path(trace_path).read_text())[
+        "traceEvents"] if e.get("ph") == "X"]
+    marks = [e for e in events
+             if str(e.get("name", "")).startswith("ProfilerStep#")]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not device:
+        return None
+    span = marks or device
+    t0 = min(e["ts"] for e in span)
+    t1 = max(e["ts"] + e["dur"] for e in span)
+    busy, end = 0.0, t0
+    by_name = {}
+    for e in sorted(device, key=lambda e: e["ts"]):
+        a, b = max(e["ts"], end), min(e["ts"] + e["dur"], t1)
+        if b > a:
+            busy += b - a
+            end = b
+        # "void ns::(anonymous namespace)::kernel<...>(...)" -> "kernel"
+        name = re.sub(r"^void |\(anonymous namespace\)::", "",
+                      str(e["name"]))
+        name = re.split(r"[(<]", name)[0].split("::")[-1][:40].strip() \
+            or "(unnamed)"
+        by_name[name] = by_name.get(name, 0.0) + e["dur"]
+    return (t1 - t0) / 1e3, busy / 1e3, sorted(
+        by_name.items(), key=lambda kv: -kv[1])
+
+
 def sample_ppca(inf, seed):
     """``VariationalPosteriorForwardSampling`` of the trained posterior
     and ``ForwardSampling`` of the prior, PPCA_FS draws of (z, x) each."""
@@ -689,9 +813,12 @@ def main():
             lib_path.name, was_cached, ptxas_summary(lib_path)),
             flush=True)
     print("phase 2 build: {} sources in {:.3f} s | dynamic shared memory "
-          "at D={}: {} | K4/K5 at n=32, 64, 128: {} B".format(
+          "at D={}: {} | K4 at n=32, 64, 128: {} B per block of {} "
+          "matrices | K5: {} B per matrix".format(
               len(sources), build_s, D, fused_gram.shared_memory_bytes(D),
-              [batched_cholesky.shared_memory_bytes(n)
+              [batched_cholesky.shared_memory_bytes(n) for n in (32, 64, 128)],
+              [batched_cholesky.matrices_per_block(n) for n in (32, 64, 128)],
+              [batched_cholesky.shared_memory_bytes(n, 5)
                for n in (32, 64, 128)]), flush=True)
 
     # ---- 3. kernel against the plain version, on the card
@@ -706,8 +833,20 @@ def main():
     Xr = torch.as_tensor(rng.standard_normal((300, 7)), **f32)[None]
     X2r = torch.as_tensor(rng.standard_normal((1000, 7)), **f32)[None]
     ls_ard = torch.as_tensor(rng.uniform(0.5, 2.0, (1, 7)), **f32)
+    # M % 4 != 0 takes 4-byte stores: M = 8191, and two samples whose
+    # second K starts off a 16-byte boundary (N * M odd, or M = 130 with N
+    # odd); M = 1
+    Xm = torch.as_tensor(rng.standard_normal((2, 33, 8)), **f32)
+    X2m = torch.as_tensor(rng.standard_normal((2, 130, 8)), **f32)
+    X1 = torch.as_tensor(rng.standard_normal((2, 37, 4)), **f32)
+    X21 = torch.as_tensor(rng.standard_normal((2, 1, 4)), **f32)
+    ls_m = torch.as_tensor(rng.uniform(0.5, 2.0, (2, 8)), **f32)
+    var2 = torch.ones((2, 1), **f32)
     cases = {"Kzx": (Z, Xk, ls_iso, var1), "Kuu": (Z, None, ls_iso, var1),
-             "ragged_ard": (Xr, X2r, ls_ard, var1)}
+             "ragged_ard": (Xr, X2r, ls_ard, var1),
+             "M8191": (Z, Xk[:, :8191], ls_iso, var1),
+             "S2_M130": (Xm, X2m, ls_m, var2),
+             "S2_M1": (X1, X21, ls_m[:, :4].contiguous(), var2)}
     max_err = 0.0
     with torch.no_grad():
         for name, (A, B, ls, var) in cases.items():
@@ -836,13 +975,21 @@ def main():
                           var_err, F64_ROWS, cond, f64_mean, f64_var),
           flush=True)
 
-    # ---- 5. timing, for information
+    # ---- 5. timing, for information: K1 at serving's Kzx and Kuu and at
+    # the materialized training arm's Kuf
+    Xuf = torch.as_tensor(rng.uniform(0.0, BOX, (TRAIN_B, D)), **f32)[None]
+    rbf_ms = {}
     with torch.no_grad():
-        ms = {"plain": [], "kernel": []}
-        for which in ("plain", "kernel", "kernel", "plain"):
-            fn = cuda_kernels._rbf_torch if which == "plain" \
-                else cuda_kernels.rbf_kernel_matrix
-            ms[which].append(cuda_ms(lambda: fn(Z, Xk, ls_iso, var1)))
+        for label, X2t in (("Kzx", Xk), ("Kuu", None), ("Kuf", Xuf)):
+            t = {"plain": [], "kernel": []}
+            for which in ("plain", "kernel", "kernel", "plain"):
+                fn = cuda_kernels._rbf_torch if which == "plain" \
+                    else cuda_kernels.rbf_kernel_matrix
+                t[which].append(cuda_ms(lambda: fn(Z, X2t, ls_iso, var1)))
+            cols = M if X2t is None else X2t.shape[1]
+            t["bound"] = rbf_bound(1, M, cols, D, 1)
+            rbf_ms[label] = t
+    ms = rbf_ms["Kzx"]
     bulk = rng.uniform(0.0, BOX, (BULK_ROWS, D)).astype(np.float32)
     rows_s = {"plain": [], "kernel": []}
     for which in ("plain", "kernel", "kernel", "plain"):
@@ -858,11 +1005,18 @@ def main():
             rows_s[which].append(BULK_ROWS / (time.perf_counter() - t0))
         finally:
             cuda_kernels.set_use_kernel(True)
-    print("phase 5 timing ({}): rbf gram at Kzx ({} x {}, D={}): kernel {} "
-          "ms, plain {} ms | serving {} rows at chunk {}: kernel {} rows/s, "
-          "plain {} rows/s".format(
-              card, M, CHUNK, D, ms["kernel"], ms["plain"], BULK_ROWS, CHUNK,
-              rows_s["kernel"], rows_s["plain"]), flush=True)
+    print("phase 5 timing ({}): rbf gram, D={}: {} | serving {} rows at "
+          "chunk {}: kernel {} rows/s, plain {} rows/s".format(
+              card, D, " | ".join(
+                  "{} ({} x {}): kernel {} ms, plain {} ms, bound {:.5f} ms "
+                  "({}), best kernel at {:.1%} of the bound".format(
+                      label, M, M if label == "Kuu" else
+                      (CHUNK if label == "Kzx" else TRAIN_B), t["kernel"],
+                      t["plain"], t["bound"][0], t["bound"][1],
+                      t["bound"][0] / min(t["kernel"]))
+                  for label, t in rbf_ms.items()),
+              BULK_ROWS, CHUNK, rows_s["kernel"], rows_s["plain"]),
+          flush=True)
 
     # ---- 6. the training path: MAP + DeviceMinibatchLoop, fused and not
     trng = np.random.default_rng(args.seed + 2)
@@ -993,10 +1147,12 @@ def main():
                     Linv, Zs, Xs, var, False), 20))
                 fms["K3 dense"].append(cuda_ms(lambda: fused_gram._bwd_cuda(
                     Linv, Zs, Xs, var, dG, G, False), 20))
-    print("phase 7 timing ({}): M={} N={} D={}: {}".format(
-        card, M, TRAIN_B, D, " | ".join("{} {} ms".format(k, v)
-                                        for k, v in fms.items())),
-        flush=True)
+    k2_bound, k3_bound = fused_bounds(M, TRAIN_B, D)
+    print("phase 7 timing ({}): M={} N={} D={}: {} | bound at lower=True "
+          "(TF32 tensor cores): K2 {:.5f} ms ({}), K3 {:.5f} ms ({})".format(
+              card, M, TRAIN_B, D, " | ".join("{} {} ms".format(k, v)
+                                              for k, v in fms.items()),
+              *k2_bound, *k3_bound), flush=True)
 
     # ---- 8. K4 and K5 against the plain version, on the card
     crng = np.random.default_rng(args.seed + 3)
@@ -1008,20 +1164,22 @@ def main():
             chol_errs[k] = max(chol_errs[k], errs[k])
         print("phase 8 cholesky: {} | max |kernel - plain| K4 {:.3e} K5 "
               "{:.3e}".format(note, errs["K4"], errs["K5"]), flush=True)
-    bad = spd_stack(crng, 6, 20, dev)
-    bad[2] = -bad[2]
-    bad[4, 0, 1] = bad[4, 1, 0] = 10.0 * bad[4, 0, 0]
-    nan_plain = torch.isnan(linalg.cholesky(bad))
-    for name, wrapper in (("K4", batched_cholesky._k4_cuda),
-                          ("K5", batched_cholesky._k5_cuda)):
-        L = wrapper(bad)
-        check(torch.equal(torch.isnan(L), nan_plain)
-              and int(nan_plain.sum()) == 2 * 210
-              and bool((torch.triu(L, 1) == 0).all()),
-              "{}: NaN pattern on matrices that are not positive definite "
-              "differs from the plain version's".format(name))
-    print("phase 8 cholesky: not positive definite (2 of 6 matrices): K4 "
-          "and K5 give the plain version's NaN lower triangles", flush=True)
+    for n in CHOL_NAN_N:
+        bad = spd_stack(crng, 6, n, dev)
+        bad[2] = -bad[2]
+        bad[4, 0, 1] = bad[4, 1, 0] = 10.0 * bad[4, 0, 0]
+        nan_plain = torch.isnan(linalg.cholesky(bad))
+        for name, wrapper in (("K4", batched_cholesky._k4_cuda),
+                              ("K5", batched_cholesky._k5_cuda)):
+            L = wrapper(bad)
+            check(torch.equal(torch.isnan(L), nan_plain)
+                  and int(nan_plain.sum()) == n * (n + 1)
+                  and bool((torch.triu(L, 1) == 0).all()),
+                  "{} at n={}: NaN pattern on matrices that are not positive "
+                  "definite differs from the plain version's".format(name, n))
+    print("phase 8 cholesky: not positive definite (2 of 6 matrices) at n = "
+          "{}: K4 and K5 give the plain version's NaN lower triangles".format(
+              list(CHOL_NAN_N)), flush=True)
 
     # ---- 9. the MVN slice: structured-PPCA SVI at full width
     def sync():
@@ -1118,17 +1276,41 @@ def main():
     with torch.no_grad():
         for B, n in CHOL_TIMED:
             A = spd_stack(crng, B, n, dev)
-            t = {"plain": [], "K4": [], "K5": []}
-            for which in ("plain", "K4", "K5", "K5", "K4", "plain"):
+            t = {"plain": [], "K4": [], "K5": [], "cholesky_ex": []}
+            for which in ("plain", "K4", "K5", "cholesky_ex", "cholesky_ex",
+                          "K5", "K4", "plain"):
                 fn = {"plain": linalg.cholesky,
                       "K4": batched_cholesky._k4_cuda,
-                      "K5": batched_cholesky._k5_cuda}[which]
+                      "K5": batched_cholesky._k5_cuda,
+                      "cholesky_ex": torch.linalg.cholesky_ex}[which]
                 t[which].append(cuda_ms(lambda: fn(A), 20))
+            t["bound"] = chol_bound(B, n)
             chol_ms[(B, n)] = t
     print("phase 12 timing ({}): {}".format(card, " | ".join(
-        "{}x{}^2: K4 {} K5 {} plain {} ms".format(B, n, *(
-            [round(v, 5) for v in t[k]] for k in ("K4", "K5", "plain")))
+        "{}x{}^2: K4 {} K5 {} plain {} cholesky_ex {} ms, bound {:.5f} ms "
+        "({}), best K4 at {:.1%} of it".format(B, n, *(
+            [round(v, 5) for v in t[k]]
+            for k in ("K4", "K5", "plain", "cholesky_ex")),
+            t["bound"][0], t["bound"][1], t["bound"][0] / min(t["K4"]))
         for (B, n), t in chol_ms.items())), flush=True)
+
+    # ---- 13. profile (information): where the PPCA SVI step's time goes
+    trace = ROOT / "build" / "chip_smoke_ppca_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof = profile_ppca(dev, args.seed + 7, PROFILE_STEPS, trace)
+    if prof is None:
+        print("phase 13 profile: the trace holds no device events: device "
+              "time not measured", flush=True)
+    else:
+        wall_ms, busy_ms, by_name = prof
+        print("phase 13 profile ({}): structured PPCA, {} SVI steps under "
+              "torch.profiler: window {:.3f} ms ({:.3f} per step), device "
+              "busy {:.3f} ms ({:.3f} per step), idle share {:.1%} | device "
+              "time by kernel: {}".format(
+                  card, PROFILE_STEPS, wall_ms, wall_ms / PROFILE_STEPS,
+                  busy_ms, busy_ms / PROFILE_STEPS, 1 - busy_ms / wall_ms,
+                  " | ".join("{} {:.3f} ms".format(k, v / 1e3)
+                             for k, v in by_name[:8])), flush=True)
 
     check(not any(k == "jax" or k.startswith(("jax.", "mxfusion_tpu."))
                   or k == "mxfusion_tpu" for k in sys.modules),
@@ -1136,30 +1318,38 @@ def main():
     print(card)
     fused_src = "mxfusion_tpu_torch/csrc/fused_gram.cu"
     chol_src = "mxfusion_tpu_torch/csrc/batched_cholesky.cu"
+    chol_main = chol_ms[CHOL_MAIN]
+
+    def row(name, source, replaces, launches, err, t_ms, plain, bound,
+            library):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": t_ms, "plain_ms": plain,
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": library}
+
     print(json.dumps({"kernels": [
-        {"name": "rbf_gram", "route": "cuda",
-         "source": "mxfusion_tpu_torch/csrc/rbf_gram.cu",
-         "replaces": "mxfusion_tpu/ops/pallas_kernels.py:89",
-         "launches": launches + train_launches["K1"], "max_abs_err": max_err,
-         "ms": min(ms["kernel"]), "plain_ms": min(ms["plain"])},
-        {"name": "fused_gram_fwd", "route": "cuda", "source": fused_src,
-         "replaces": "mxfusion_tpu/ops/pallas_fused_gram.py:93",
-         "launches": train_launches["K2"], "max_abs_err": fwd_err,
-         "ms": min(fms["K2"]), "plain_ms": min(fms["K2 plain"])},
-        {"name": "fused_gram_bwd", "route": "cuda", "source": fused_src,
-         "replaces": "mxfusion_tpu/ops/pallas_fused_gram.py:109",
-         "launches": train_launches["K3"], "max_abs_err": bwd_err,
-         "ms": min(fms["K3"]), "plain_ms": min(fms["K3 plain"])},
-        {"name": "batched_cholesky", "route": "cuda", "source": chol_src,
-         "replaces": "mxfusion_tpu/ops/pallas_batched_cholesky.py:111",
-         "launches": ppca_launches["K4"], "max_abs_err": chol_errs["K4"],
-         "ms": min(chol_ms[CHOL_MAIN]["K4"]),
-         "plain_ms": min(chol_ms[CHOL_MAIN]["plain"])},
-        {"name": "batched_cholesky_r3", "route": "cuda", "source": chol_src,
-         "replaces": "mxfusion_tpu/ops/pallas_batched_cholesky.py:56",
-         "launches": r3_launches["K5"], "max_abs_err": chol_errs["K5"],
-         "ms": min(chol_ms[CHOL_MAIN]["K5"]),
-         "plain_ms": min(chol_ms[CHOL_MAIN]["plain"])}]}))
+        # no single PyTorch call computes K1, K2 or K3
+        row("rbf_gram", "mxfusion_tpu_torch/csrc/rbf_gram.cu",
+            "mxfusion_tpu/ops/pallas_kernels.py:89",
+            launches + train_launches["K1"], max_err, min(ms["kernel"]),
+            min(ms["plain"]), ms["bound"], None),
+        row("fused_gram_fwd", fused_src,
+            "mxfusion_tpu/ops/pallas_fused_gram.py:93", train_launches["K2"],
+            fwd_err, min(fms["K2"]), min(fms["K2 plain"]), k2_bound, None),
+        row("fused_gram_bwd", fused_src,
+            "mxfusion_tpu/ops/pallas_fused_gram.py:109", train_launches["K3"],
+            bwd_err, min(fms["K3"]), min(fms["K3 plain"]), k3_bound, None),
+        row("batched_cholesky", chol_src,
+            "mxfusion_tpu/ops/pallas_batched_cholesky.py:111",
+            ppca_launches["K4"], chol_errs["K4"], min(chol_main["K4"]),
+            min(chol_main["plain"]), chol_main["bound"],
+            min(chol_main["cholesky_ex"])),
+        row("batched_cholesky_r3", chol_src,
+            "mxfusion_tpu/ops/pallas_batched_cholesky.py:56",
+            r3_launches["K5"], chol_errs["K5"], min(chol_main["K5"]),
+            min(chol_main["plain"]), chol_main["bound"],
+            min(chol_main["cholesky_ex"]))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -2,14 +2,16 @@
 
 Counterpart of ``mxfusion_tpu/common/config.py``. JAX places arrays on
 its default backend; PyTorch needs a device wherever a tensor is
-created, so the port adds a default device. It is CUDA when a card is
-present and the CPU otherwise. A device that was asked for is never
-swapped silently: asking for CUDA without a card raises.
+created, so the port adds a default device. It is the card: the port
+runs on CUDA unless the caller asks for the CPU, with
+``set_default_device("cpu")`` or a ``device="cpu"`` argument. Nothing
+is swapped silently: with no card, the default raises until the CPU is
+asked for, and asking for CUDA raises.
 """
 import torch
 
 _DEFAULT_DTYPE = "float32"
-_DEFAULT_DEVICE = None  # None: CUDA when available, else the CPU
+_DEFAULT_DEVICE = None  # None: CUDA, which must be present
 
 
 def get_default_dtype():
@@ -34,11 +36,19 @@ def as_torch_dtype(dtype=None):
 def resolve_device(device=None):
     """Resolve ``device`` (or the default) to a ``torch.device``.
 
-    Raises when CUDA is asked for and no CUDA device is present.
+    Raises when CUDA is asked for, or neither a device nor a default was
+    given, and no CUDA device is present.
     """
     d = device if device is not None else _DEFAULT_DEVICE
     if d is None:
-        d = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no device was given, no default was set, and "
+                "torch.cuda.is_available() is False: the port runs on the "
+                "card unless the CPU is asked for. Pass device='cpu' or "
+                "call mxfusion_tpu_torch.common.config."
+                "set_default_device(\"cpu\").")
+        d = "cuda"
     d = torch.device(d)
     if d.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -54,8 +64,10 @@ def get_default_device():
 
 def set_default_device(device):
     """Set the default device ('cuda', 'cuda:1', 'cpu'); None restores
-    the automatic choice."""
+    the card as the default. Returns the setting it replaced, so that a
+    caller can put it back."""
     global _DEFAULT_DEVICE
     if device is not None:
         resolve_device(device)
-    _DEFAULT_DEVICE = device
+    old, _DEFAULT_DEVICE = _DEFAULT_DEVICE, device
+    return old

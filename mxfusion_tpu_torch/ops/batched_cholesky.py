@@ -3,18 +3,21 @@
 Counterpart of ``mxfusion_tpu/ops/pallas_batched_cholesky.py``. The
 multivariate normals factor one small covariance (or precision) per data
 point, so the factorization runs over a stack ``(B, n, n)`` with B in
-the thousands and n at most 128. Two hand-written CUDA kernels
-(``csrc/batched_cholesky.cu``) do it, one thread block per matrix with
-the matrix in shared memory:
+the thousands and n at most 128. Hand-written CUDA kernels
+(``csrc/batched_cholesky.cu``) do it:
 
 - K4, :func:`_k4_cuda`, the counterpart of ``_kernel_v2`` (launched by
-  ``_pallas_batched_cholesky_v2``): the right-looking factorization,
-  one rank-1 update of the trailing block per column. It carries
+  ``_pallas_batched_cholesky_v2``): the right-looking factorization in
+  the TPU kernel's scaled column order. For n ≤ 64 one warp owns a
+  matrix in registers, several matrices to a block; for 64 < n ≤ 128
+  one block owns it in shared memory. Both do the same operations on
+  the same values, so they give the same bits. It carries
   :func:`batched_cholesky` and :func:`cholesky`, which the MVN family
   calls.
 - K5, :func:`_k5_cuda`, the counterpart of the r3 ``_kernel`` (launched
   by ``_pallas_batched_cholesky``): the same factorization in the
-  left-looking column order. :func:`batched_cholesky_r3` reaches it;
+  left-looking column order, one block per matrix in shared memory.
+  :func:`batched_cholesky_r3` reaches it;
   nothing in the library does, as in the JAX package.
 
 The plain version of both is the GP path's :func:`.linalg.cholesky`:
@@ -73,21 +76,26 @@ def _phi(X):
 # ---------------------------------------------------------------------------
 
 def _k4_emulate(A):
-    """K4's arithmetic in plain PyTorch, in its order: at column j the
-    pivot p = W[j, j], then W[i, k] −= (W[i, j]·(1/p))·W[k, j] for
-    j < k ≤ i; at the end L[i, j] = W[i, j]/√W[j, j]. A pivot that is
-    not positive marks the matrix as failed (NaN lower triangle)."""
-    W = torch.tril(_sym(A))
+    """K4's arithmetic in plain PyTorch, in its order (the TPU kernel's
+    scaled right-looking column, with √ and a division where JAX takes
+    ``rsqrt``): at column j, d = √W[j, j], inv = 1/d, c_i = W[i, j]·inv
+    for i > j, L[j, j] = d and L[i, j] = c_i, then W[i, k] −= c_i·c_k
+    over the symmetric trailing block i, k > j (the warp kernel updates
+    both halves of it, the block kernel the lower one, on the same
+    values). A pivot that is not positive marks the matrix as failed
+    (NaN lower triangle)."""
+    W = _sym(A).clone()
     n = A.shape[-1]
+    L = torch.zeros_like(W)
     failed = torch.zeros(A.shape[:-2], dtype=torch.bool, device=A.device)
     for j in range(n):
         p = W[..., j, j]
         failed = failed | ~(p > 0)
-        c = W[..., j + 1:, j]
-        W[..., j + 1:, j + 1:] -= torch.tril(
-            (c * (1.0 / p)[..., None])[..., :, None] * c[..., None, :])
-    d = torch.sqrt(torch.diagonal(W, dim1=-2, dim2=-1))
-    L = torch.tril(W / d[..., None, :], -1) + torch.diag_embed(d)
+        d = torch.sqrt(p)
+        c = W[..., j + 1:, j] * (1.0 / d)[..., None]
+        L[..., j, j] = d
+        L[..., j + 1:, j] = c
+        W[..., j + 1:, j + 1:] -= c[..., :, None] * c[..., None, :]
     return _nan_lower(L, failed)
 
 
@@ -126,8 +134,10 @@ def _lib():
             fn.restype = cint
         lib.mxf_batched_cholesky_max_n.argtypes = []
         lib.mxf_batched_cholesky_max_n.restype = cint
-        lib.mxf_batched_cholesky_smem_bytes.argtypes = [cint]
+        lib.mxf_batched_cholesky_smem_bytes.argtypes = [cint, cint]
         lib.mxf_batched_cholesky_smem_bytes.restype = ctypes.c_longlong
+        lib.mxf_batched_cholesky_per_block.argtypes = [cint]
+        lib.mxf_batched_cholesky_per_block.restype = cint
         lib.mxf_batched_cholesky_error_string.argtypes = [cint]
         lib.mxf_batched_cholesky_error_string.restype = ctypes.c_char_p
         if lib.mxf_batched_cholesky_max_n() != MAX_N:
@@ -138,9 +148,16 @@ def _lib():
     return _LIB
 
 
-def shared_memory_bytes(n):
-    """Dynamic shared memory a block of K4 or K5 takes at this n."""
-    return int(_lib().mxf_batched_cholesky_smem_bytes(n))
+def shared_memory_bytes(n, variant=4):
+    """Dynamic shared memory a block of K4 (``variant`` 4) or K5 (5)
+    takes at this n."""
+    return int(_lib().mxf_batched_cholesky_smem_bytes(n, variant))
+
+
+def matrices_per_block(n):
+    """Matrices one block of K4 factors at this n (a warp each for
+    n ≤ 64)."""
+    return int(_lib().mxf_batched_cholesky_per_block(n))
 
 
 def _launch(symbol, what, A):

@@ -31,7 +31,7 @@ from .precision import einsum as p_einsum
 
 _USE_KERNEL = True
 _MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z
-_TILE = 64            # output tile edge of csrc/rbf_gram.cu
+_TILE = 64            # rows of K per block of csrc/rbf_gram.cu (grid y)
 
 _LIB = None
 

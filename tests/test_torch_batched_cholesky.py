@@ -60,14 +60,31 @@ def test_port_matches_the_jax_kernel(variant, B, n, c):
     assert _rel(LJ, np.linalg.cholesky(A.astype(np.float64))) < 5e-6
 
 
-@pytest.mark.parametrize("n", [1, 2, 7, 33, 128])
+@pytest.mark.parametrize("n", [1, 2, 7, 33, 64, 65, 128])
 def test_emulations_match_the_plain_version_in_float64(n):
-    """Any n up to the kernels' 128, ragged included: the two column
-    orders give the same factor to 1e-12 in float64."""
+    """Any n up to the kernels' 128, ragged included, on both sides of
+    K4's tiers (the warp kernel up to 32 and 64, the block kernel above):
+    the two column orders give the same factor to 1e-12 in float64."""
     A = torch.as_tensor(_spd((3, n, n), n, seed=n))
     ref = linalg.cholesky(A)
     for emulate in (bc._k4_emulate, bc._k5_emulate):
         torch.testing.assert_close(emulate(A), ref, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("n,N", [(1, 32), (20, 32), (33, 64), (60, 64)])
+def test_identity_padding_leaves_the_factor_unchanged(n, N):
+    """K4's warp kernel factors an n x n matrix inside an N x N tile
+    padded by the identity: in K4's column order the leading n x n block
+    of the padded factor is the factor itself, bit for bit in float32,
+    and the padding's factor is the identity."""
+    A = torch.as_tensor(_spd((5, n, n), n, seed=n, dtype=np.float32))
+    P = torch.eye(N, dtype=A.dtype).repeat(5, 1, 1)
+    P[:, :n, :n] = A
+    LP = bc._k4_emulate(P)
+    assert torch.equal(LP[:, :n, :n], bc._k4_emulate(A))
+    assert torch.equal(LP[:, n:, n:],
+                       torch.eye(N - n, dtype=A.dtype).expand(5, -1, -1))
+    assert bool((LP[:, n:, :n] == 0).all())
 
 
 def test_custom_gradient_matches_jax_and_torch():

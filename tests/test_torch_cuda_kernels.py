@@ -109,10 +109,17 @@ def test_library_path_is_keyed_by_source(monkeypatch, tmp_path):
 # on the card
 # ---------------------------------------------------------------------
 
+# 16-byte loads and stores where D % 4 == 0 and M % 4 == 0; elsewhere
+# 4-byte ones: M = 8191, 130 and 1 with S = 2 and an odd N put the second
+# sample's K off a 16-byte boundary
+WIDE = [(1, 512, 8192, 32, False), (1, 300, 1000, 7, True),
+        (1, 65, 130, 70, True), (2, 33, 8191, 32, False),
+        (2, 65, 130, 8, True), (2, 37, 1, 4, True), (2, 64, 256, 32, True),
+        (2, 30, 128, 7, True), (2, 70, None, 12, True)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,N,M,D,ard", CASES + [(1, 512, 8192, 32, False),
-                                                 (1, 300, 1000, 7, True),
-                                                 (1, 65, 130, 70, True)])
+@pytest.mark.parametrize("s,N,M,D,ard", CASES + WIDE)
 def test_cuda_kernel_matches_plain(cuda_device, s, N, M, D, ard):
     X, X2, ls, var = _inputs(4, s, N, M, D, ard, dtype=np.float32)
     var = np.ones_like(var)
@@ -161,18 +168,48 @@ def test_cuda_highest_einsum_ignores_tf32(cuda_device):
     assert float((C.double() - ref).abs().max() / ref.abs().max()) <= 1e-5
 
 
-def test_asking_for_cuda_never_yields_the_cpu():
+@pytest.fixture
+def no_default_device():
+    """No default device set, whatever the other tests set; restored
+    afterwards."""
     from mxfusion_tpu_torch.common import config
+    old = config.set_default_device(None)
+    yield config
+    config.set_default_device(old)
+
+
+def test_asking_for_cuda_never_yields_the_cpu(no_default_device):
+    """The default is the card: with none, the default device raises
+    (naming ``set_default_device("cpu")``) instead of carrying on on the
+    CPU; asking for the CPU works."""
+    config = no_default_device
     if torch.cuda.is_available():
         assert config.resolve_device("cuda").type == "cuda"
+        assert config.get_default_device().type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="cuda"):
             config.resolve_device("cuda")
         with pytest.raises(RuntimeError, match="cuda"):
             config.set_default_device("cuda")
+        with pytest.raises(RuntimeError,
+                           match=r'set_default_device\("cpu"\)'):
+            config.get_default_device()
+        with pytest.raises(RuntimeError, match="no device was given"):
+            config.resolve_device(None)
     assert config.resolve_device("cpu").type == "cpu"
-    assert config.get_default_device().type == \
-        ("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def test_asking_for_the_cpu_sets_the_default(no_default_device):
+    """``set_default_device("cpu")`` makes the CPU the default; None
+    restores the card as the default."""
+    config = no_default_device
+    config.set_default_device("cpu")
+    assert config.get_default_device() == torch.device("cpu")
+    assert config.resolve_device(None) == torch.device("cpu")
+    config.set_default_device(None)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no device was given"):
+            config.get_default_device()
 
 
 def test_highest_einsum_restores_matmul_precision():
@@ -336,7 +373,11 @@ def test_cuda_tiers_set_their_precision_in_both_directions(cuda_device):
 # (B, n): the MVN slice's stacks, the JAX benchmark's shapes, a ragged B
 # and n that are not multiples of 8
 CHOL = [(512, 32), (512, 64), (2048, 64), (512, 128), (8192, 64), (37, 24),
-        (100, 20), (3, 1), (5, 127)]
+        (100, 20), (3, 1), (5, 127),
+        # K4's tier edges (a warp per matrix up to 32 and 64, a block above)
+        # at B that are not multiples of the matrices per block
+        (1, 32), (3, 33), (777, 64), (1, 65), (3, 128), (777, 33), (3, 2),
+        (1, 1)]
 
 
 def _spd32(B, n, seed, device):
@@ -391,11 +432,13 @@ def test_cuda_cholesky_gradient_matches_torch(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 40, 70])
 @pytest.mark.parametrize("variant", ["K4", "K5"])
-def test_cuda_cholesky_not_positive_definite(cuda_device, variant):
+def test_cuda_cholesky_not_positive_definite(cuda_device, variant, n):
     """The kernels give the plain version's (and JAX's) NaN pattern: the
-    whole lower triangle of a failed matrix, 0 above it."""
-    A = _spd32(6, 5, 14, cuda_device)
+    whole lower triangle of a failed matrix, 0 above it (at each of K4's
+    tiers)."""
+    A = _spd32(6, n, 14, cuda_device)
     A[2] = -A[2]
     A[4, 0, 1] = A[4, 1, 0] = 10 * A[4, 0, 0]
     wrapper = bc._k4_cuda if variant == "K4" else bc._k5_cuda
@@ -403,8 +446,23 @@ def test_cuda_cholesky_not_positive_definite(cuda_device, variant):
     P = linalg.cholesky(A)
     torch.cuda.synchronize()
     assert torch.equal(torch.isnan(L), torch.isnan(P))
-    assert int(torch.isnan(L).sum()) == 2 * 15
+    assert int(torch.isnan(L).sum()) == 2 * n * (n + 1) // 2
     assert bool((torch.triu(L, 1) == 0).all())
+    ok = [0, 1, 3, 5]
+    assert torch.equal(L[ok], wrapper(A[ok].contiguous()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [20, 64, 100])
+def test_cuda_cholesky_unaligned_stack(cuda_device, n):
+    """A stack that starts 4 bytes past a 16-byte boundary takes K4's
+    4-byte copies and gives the bits of the aligned stack."""
+    A = _spd32(5, n, 16, cuda_device)
+    buf = torch.empty(A.numel() + 1, device=cuda_device)
+    shifted = buf[1:].view(A.shape)
+    shifted.copy_(A)
+    assert shifted.data_ptr() % 16 != 0
+    assert torch.equal(bc._k4_cuda(shifted), bc._k4_cuda(A))
 
 
 @pytest.mark.cuda

@@ -14,6 +14,7 @@ import contextlib
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import mxfusion_tpu as mj
@@ -34,6 +35,7 @@ from mxfusion_tpu.inference import (
 from mxfusion_tpu.models import Posterior as JPosterior
 
 import mxfusion_tpu_torch as mt
+from mxfusion_tpu_torch.common import config as tconfig
 from mxfusion_tpu_torch.components import distributions as tdist
 from mxfusion_tpu_torch.components.distributions.random_gen import \
     FixedRandomGenerator
@@ -46,6 +48,16 @@ from mxfusion_tpu_torch.inference import (
 from mxfusion_tpu_torch.models import Posterior
 from mxfusion_tpu_torch.ops import batched_cholesky
 from mxfusion_tpu_torch.util.carryover import load_state, name_paths
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _on_the_cpu():
+    """The port runs on the card unless the CPU is asked for: these tests
+    ask for it, and put the previous default back afterwards."""
+    old = tconfig.set_default_device("cpu")
+    yield
+    tconfig.set_default_device(old)
+
 
 N, Q, D, S = 16, 8, 12, 4   # points, latent dims, observed dims, samples
 FS = 16                      # forward-sampling draws

@@ -28,6 +28,7 @@ from mxfusion_tpu.modules import SVGPRegression as JSVGP
 from mxfusion_tpu.modules.gp_modules import svgp_regression as jsvgp
 
 import mxfusion_tpu_torch as mt
+from mxfusion_tpu_torch.common import config as tconfig
 from mxfusion_tpu_torch.components.distributions import GaussianProcess
 from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
 from mxfusion_tpu_torch.components.variables import PositiveTransformation
@@ -38,6 +39,15 @@ from mxfusion_tpu_torch.modules import SVGPRegression
 from mxfusion_tpu_torch.modules.gp_modules import svgp_regression as tsvgp
 from mxfusion_tpu_torch.ops import linalg
 from mxfusion_tpu_torch.util.carryover import load_state
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _on_the_cpu():
+    """The port runs on the card unless the CPU is asked for: these tests
+    ask for it, and put the previous default back afterwards."""
+    old = tconfig.set_default_device("cpu")
+    yield
+    tconfig.set_default_device(old)
 
 
 def _f64(fn):

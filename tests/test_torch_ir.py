@@ -17,12 +17,23 @@ from mxfusion_tpu.components.variables import \
 from mxfusion_tpu.inference import VariableEnv as JEnv
 
 import mxfusion_tpu_torch as mt
+from mxfusion_tpu_torch.common import config as tconfig
 from mxfusion_tpu_torch.components.distributions import (
     Normal, FixedRandomGenerator, GaussianProcess, ConditionalGaussianProcess)
 from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
 from mxfusion_tpu_torch.components.functions.operators import broadcast_to
 from mxfusion_tpu_torch.components.variables import PositiveTransformation
 from mxfusion_tpu_torch.inference import VariableEnv
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _on_the_cpu():
+    """The port runs on the card unless the CPU is asked for: these tests
+    ask for it, and put the previous default back afterwards."""
+    old = tconfig.set_default_device("cpu")
+    yield
+    tconfig.set_default_device(old)
+
 
 TOL = dict(rtol=1e-12, atol=1e-12)
 

@@ -21,11 +21,22 @@ from mxfusion_tpu.components.distributions.random_gen import \
 from mxfusion_tpu.components.variables.variable import Variable as JVariable
 from mxfusion_tpu.util.testutils import make_spd_matrix
 
+from mxfusion_tpu_torch.common import config as tconfig
 from mxfusion_tpu_torch.components import distributions as tdist
 from mxfusion_tpu_torch.components.distributions.random_gen import \
     FixedRandomGenerator
 from mxfusion_tpu_torch.components.variables.variable import Variable
 from mxfusion_tpu_torch.ops import precision
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _on_the_cpu():
+    """The port runs on the card unless the CPU is asked for: these tests
+    ask for it, and put the previous default back afterwards."""
+    old = tconfig.set_default_device("cpu")
+    yield
+    tconfig.set_default_device(old)
+
 
 RTOL = 1e-10
 

@@ -19,6 +19,7 @@ from mxfusion_tpu.modules.gp_modules.svgp_regression import \
 from mxfusion_tpu.ops import pallas_kernels as pk
 
 import mxfusion_tpu_torch as mt
+from mxfusion_tpu_torch.common import config as tconfig
 from mxfusion_tpu_torch.components.variables import PositiveTransformation
 from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
 from mxfusion_tpu_torch.inference import BatchedPredictor
@@ -26,6 +27,16 @@ from mxfusion_tpu_torch.modules import SVGPRegression
 from mxfusion_tpu_torch.modules.gp_modules.svgp_regression import \
     SVGPRegressionMeanVariancePrediction as MeanVar
 from mxfusion_tpu_torch.util.carryover import carryover_params, name_paths
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _on_the_cpu():
+    """The port runs on the card unless the CPU is asked for: these tests
+    ask for it, and put the previous default back afterwards."""
+    old = tconfig.set_default_device("cpu")
+    yield
+    tconfig.set_default_device(old)
+
 
 N, M, D = 512, 128, 4
 N_TEST, CHUNK = 300, 128   # 2 full chunks and a padded tail of 44 rows

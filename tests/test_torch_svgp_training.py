@@ -25,6 +25,7 @@ from mxfusion_tpu.inference import (MAP as JMAP,
 from mxfusion_tpu.modules import SVGPRegression as JSVGP
 
 import mxfusion_tpu_torch as mt
+from mxfusion_tpu_torch.common import config as tconfig
 from mxfusion_tpu_torch.components.variables import PositiveTransformation
 from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
 from mxfusion_tpu_torch.inference import (
@@ -33,6 +34,16 @@ from mxfusion_tpu_torch.inference import (
 from mxfusion_tpu_torch.modules import SVGPRegression
 from mxfusion_tpu_torch.ops import fused_gram
 from mxfusion_tpu_torch.util.carryover import load_state, name_paths
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _on_the_cpu():
+    """The port runs on the card unless the CPU is asked for: these tests
+    ask for it, and put the previous default back afterwards."""
+    old = tconfig.set_default_device("cpu")
+    yield
+    tconfig.set_default_device(old)
+
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "goldens", "golden_svgp_minibatch.npz")
