@@ -16,7 +16,8 @@ print one line:
    ``rbf_gram.cu`` (K1), ``fused_gram.cu`` (K2, K3) and
    ``batched_cholesky.cu`` (K4, K5);
 3. kernel: holds each kernel against its plain PyTorch version on the
-   card: K1 at the serving shapes (Kzx, Kuu), one ragged ARD shape and
+   card: K1 at the serving shapes (Kzx, Kuu), the materialized training
+   arm's Kuf (512 x 65536), one ragged ARD shape and
    three whose M % 4 != 0 takes its 4-byte stores (M = 8191; two samples
    at M = 130 and at M = 1), max |diff| <= 1e-5 at variance 1; K2 (rtol 2e-4, atol 2e-5) and K3
    (2e-3 of each output's largest entry, and the same bits on a second
@@ -200,10 +201,15 @@ def ptxas_summary(lib_path):
     log = lib_path.with_suffix(".log")
     out = []
     for ln in log.read_text().splitlines() if log.exists() else []:
-        name = re.search(r"([a-z_]*[a-z]_kernel)(?:ILi(\d+)EE|E)", ln)
+        # a kernel's name, and its int or bool template argument if it
+        # has one (ILi64EE: <64>, ILb1EE: <true>)
+        name = re.search(r"([a-z_]*[a-z]_kernel)(?:IL([ib])(\d+)EE|E)", ln)
         if "Compiling entry function" in ln and name:
-            out.append(name.group(1) + ("<{}>".format(name.group(2))
-                                        if name.group(2) else "") + ":")
+            kind, value = name.group(2), name.group(3)
+            if kind == "b":
+                value = "true" if value == "1" else "false"
+            out.append(name.group(1) + ("<{}>".format(value)
+                                        if value else "") + ":")
         elif "registers" in ln or "spill" in ln:
             out.append(ln.split(":", 1)[-1].strip())
     return " ".join(out)
@@ -842,7 +848,11 @@ def main():
     X21 = torch.as_tensor(rng.standard_normal((2, 1, 4)), **f32)
     ls_m = torch.as_tensor(rng.uniform(0.5, 2.0, (2, 8)), **f32)
     var2 = torch.ones((2, 1), **f32)
+    # the materialized training arm's Kuf: each block walks about 16
+    # column tiles through the prefetch
+    Xuf = torch.as_tensor(rng.uniform(0.0, BOX, (TRAIN_B, D)), **f32)[None]
     cases = {"Kzx": (Z, Xk, ls_iso, var1), "Kuu": (Z, None, ls_iso, var1),
+             "Kuf": (Z, Xuf, ls_iso, var1),
              "ragged_ard": (Xr, X2r, ls_ard, var1),
              "M8191": (Z, Xk[:, :8191], ls_iso, var1),
              "S2_M130": (Xm, X2m, ls_m, var2),
@@ -977,7 +987,6 @@ def main():
 
     # ---- 5. timing, for information: K1 at serving's Kzx and Kuu and at
     # the materialized training arm's Kuf
-    Xuf = torch.as_tensor(rng.uniform(0.0, BOX, (TRAIN_B, D)), **f32)[None]
     rbf_ms = {}
     with torch.no_grad():
         for label, X2t in (("Kzx", Xk), ("Kuu", None), ("Kuf", Xuf)):

@@ -76,14 +76,18 @@ def _phi(X):
 # ---------------------------------------------------------------------------
 
 def _k4_emulate(A):
-    """K4's arithmetic in plain PyTorch, in its order (the TPU kernel's
-    scaled right-looking column, with √ and a division where JAX takes
+    """K4's column order in plain PyTorch (the TPU kernel's scaled
+    right-looking column, with √ and a division where JAX takes
     ``rsqrt``): at column j, d = √W[j, j], inv = 1/d, c_i = W[i, j]·inv
     for i > j, L[j, j] = d and L[i, j] = c_i, then W[i, k] −= c_i·c_k
     over the symmetric trailing block i, k > j (the warp kernel updates
     both halves of it, the block kernel the lower one, on the same
     values). A pivot that is not positive marks the matrix as failed
-    (NaN lower triangle)."""
+    (NaN lower triangle). It follows K4's order but not its rounding:
+    the kernels update by ``fmaf(-c_i, c_k, W[i, k])``, one rounding,
+    where this multiplies and then subtracts, two; so its float32 bits
+    are not the kernel's (``tests/test_torch_cuda_kernels.py`` holds
+    the kernel's own bits on the card)."""
     W = _sym(A).clone()
     n = A.shape[-1]
     L = torch.zeros_like(W)

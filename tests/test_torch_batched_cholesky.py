@@ -76,7 +76,10 @@ def test_identity_padding_leaves_the_factor_unchanged(n, N):
     """K4's warp kernel factors an n x n matrix inside an N x N tile
     padded by the identity: in K4's column order the leading n x n block
     of the padded factor is the factor itself, bit for bit in float32,
-    and the padding's factor is the identity."""
+    and the padding's factor is the identity. (The emulation rounds its
+    update twice where the kernel's ``fmaf`` rounds once; the padding
+    adds exact zeros either way. The kernel's own bits are held on the
+    card in ``test_cuda_identity_padding_gives_the_same_bits``.)"""
     A = torch.as_tensor(_spd((5, n, n), n, seed=n, dtype=np.float32))
     P = torch.eye(N, dtype=A.dtype).repeat(5, 1, 1)
     P[:, :n, :n] = A

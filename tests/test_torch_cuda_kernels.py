@@ -111,8 +111,10 @@ def test_library_path_is_keyed_by_source(monkeypatch, tmp_path):
 
 # 16-byte loads and stores where D % 4 == 0 and M % 4 == 0; elsewhere
 # 4-byte ones: M = 8191, 130 and 1 with S = 2 and an odd N put the second
-# sample's K off a 16-byte boundary
-WIDE = [(1, 512, 8192, 32, False), (1, 300, 1000, 7, True),
+# sample's K off a 16-byte boundary. Kzx (512 x 8192) and the materialized
+# training arm's Kuf (512 x 65536), where a block walks many column tiles
+WIDE = [(1, 512, 8192, 32, False), (1, 512, 65536, 32, False),
+        (1, 300, 1000, 7, True),
         (1, 65, 130, 70, True), (2, 33, 8191, 32, False),
         (2, 65, 130, 8, True), (2, 37, 1, 4, True), (2, 64, 256, 32, True),
         (2, 30, 128, 7, True), (2, 70, None, 12, True)]
@@ -463,6 +465,26 @@ def test_cuda_cholesky_unaligned_stack(cuda_device, n):
     shifted.copy_(A)
     assert shifted.data_ptr() % 16 != 0
     assert torch.equal(bc._k4_cuda(shifted), bc._k4_cuda(A))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,N", [(1, 32), (20, 32), (20, 64), (33, 64),
+                                 (60, 128), (64, 65)])
+def test_cuda_identity_padding_gives_the_same_bits(cuda_device, n, N):
+    """K4 on an n x n stack and on the same stack padded by the identity
+    to N x N, within a tier and across tiers (the warp kernel at 32 and
+    64, the block kernel above): the leading n x n block of the padded
+    factor has the bits of the unpadded one (the same fused operations
+    on the same values), and the padding's factor is the identity."""
+    A = _spd32(7, n, 17, cuda_device)
+    P = torch.eye(N, device=cuda_device).repeat(7, 1, 1)
+    P[:, :n, :n] = A
+    LP = bc._k4_cuda(P)
+    torch.cuda.synchronize()
+    assert torch.equal(LP[:, :n, :n], bc._k4_cuda(A))
+    assert torch.equal(LP[:, n:, n:], torch.eye(N - n, device=cuda_device)
+                       .expand(7, -1, -1))
+    assert bool((LP[:, n:, :n] == 0).all())
 
 
 @pytest.mark.cuda
