@@ -27,7 +27,10 @@ print one line:
    each with ``lower`` True and False on an L⁻¹ stand-in whose upper
    triangle is not 0; checks that the
    HIGHEST-tier einsum stays IEEE fp32, forward and gradient, with TF32
-   switched on;
+   switched on; and K1's route on inputs broadcast over s = 3 samples (a
+   GP log-pdf of three samples of f, an SVGP bound with three sampled
+   noise variances): K1 launches once and twice, and float32 agrees
+   with float64 (the plain branch) within 1e-4 relative;
 4. serve: loads a seeded state through ``util.carryover``, answers three
    requests (8192, 20000 and 128 rows), checks that the kernel ran
    exactly twice per chunk (Kuu and Kzx), that outputs are finite with
@@ -57,8 +60,9 @@ print one line:
    kernel's precision);
 8. cholesky: K4 and K5 (``batched_cholesky.cu``) against the plain
    version at 512×32², 512×64², 2048×64², 512×128², 8192×64², a ragged
-   B (777×60²), n = 20 and K4's tier edges (n = 32, 33, 64, 65, 128 at
-   B = 1 and 3): error within 5e-6 of max |L| of the float64 factor,
+   B (777×60²), n = 20, the tier edges (n = 32, 33, 64, 65, 128 at
+   B = 1 and 3) and the block tier at 2048×128², 512×96² and 33×100²
+   (n % 4 != 0): error within 5e-6 of max |L| of the float64 factor,
    upper triangle exactly 0, the same bits over two calls, K4's custom
    gradient within 1e-4 of ``torch.linalg.cholesky``'s; and the plain
    version's NaN pattern on matrices that are not positive definite, at
@@ -68,7 +72,8 @@ print one line:
    by ``GradBasedInference(StochasticVariationalInference)`` with S = 4
    and 20 Adam steps: K4 three times per step, the loss falls, the
    first loss on fixed draws float32 vs float64 within 1e-4; prints the
-   step wall time;
+   step wall time; 9b. the same at Q = 128, N = 512 (log-pdf stacks
+   2048×128², K4's block tier), 5 Adam steps;
 10. sampling: ``VariationalPosteriorForwardSampling`` and
    ``ForwardSampling`` (16 draws each; K4 once each); the draws of z,
    whitened by the float64 factor of q's (or the prior's) covariance,
@@ -76,8 +81,8 @@ print one line:
 11. r3 entry: ``batched_cholesky_r3`` (K5, which no library path calls,
    as in JAX) on the trained posterior's covariance stack, against K4;
 12. timing (information): K4, K5, the plain version and
-   ``torch.linalg.cholesky_ex`` alone (the library call) at five stacks,
-   beside the bound;
+   ``torch.linalg.cholesky_ex`` alone (the library call) at six stacks,
+   beside the bound, with each kernel's share of it;
 13. profile (information): ten structured-PPCA SVI steps under
    ``torch.profiler``: wall, device busy time and idle share, and the
    device time by kernel (the Chrome trace goes to ``build/``).
@@ -124,6 +129,9 @@ TRAIN_LOSS_RTOL = 1e-3
 # float32 vs float64 at the same start: the data tier runs the bound's
 # L⁻¹Kuf·L⁻¹Ls product in TF32 (a 10-bit mantissa) on the card
 F64_LOSS_RTOL = 1e-3
+# float32 through K1 vs float64 (plain) on 40 points: the gram's fp32
+# rounding amplified by its Cholesky at jitter 1e-2
+BROADCAST_RTOL = 1e-4
 PLAIN_MEAN_RTOL = 1e-4
 PLAIN_VAR_ATOL = 1e-4
 F64_RTOL = 1e-3
@@ -135,11 +143,15 @@ BULK_ROWS = 32 * CHUNK
 # multiple of 8
 CHOL_SHAPES = ((512, 32), (512, 64), (2048, 64), (512, 128), (8192, 64),
                (777, 60), (512, 20),
-               # K4's tier edges (a warp per matrix up to n = 32 and 64, a
-               # block above) at B that are not multiples of its matrices
+               # the tier edges (a warp per matrix up to n = 32 and 64, a
+               # block above) at B that are not multiples of the matrices
                # per block
-               (1, 33), (3, 65), (1, 128), (3, 64), (3, 32))
-CHOL_TIMED = ((512, 32), (512, 64), (2048, 64), (512, 128), (8192, 64))
+               (1, 33), (3, 65), (1, 128), (3, 64), (3, 32),
+               # the block tier: the Q = 128 PPCA step's stack, n = 96, and
+               # n % 4 != 0 (4-byte copies) at a ragged B
+               (2048, 128), (512, 96), (33, 100))
+CHOL_TIMED = ((512, 32), (512, 64), (2048, 64), (512, 128), (8192, 64),
+              (2048, 128))
 CHOL_MAIN = (8192, 64)  # the PPCA step's log-pdf stacks: the JSON's times
 CHOL_RTOL = 5e-6       # of max |L|: tests/ops/test_cholesky_variants.py
 CHOL_GRAD_RTOL = 1e-4  # fp32 custom backward vs torch's, of the max entry
@@ -150,6 +162,9 @@ CHOL_NAN_N = (20, 40, 70)
 HBM_BYTES_S, FP32_FLOP_S, TF32_FLOP_S = 3.35e12, 67e12, 495e12
 PPCA_N, PPCA_Q, PPCA_D, PPCA_S = 2048, 64, 128, 4
 PPCA_STEPS, PPCA_LR, PPCA_FS, PPCA_JITTER = 20, 0.02, 16, 1e-3
+# the MVN path through K4's block tier (64 < Q <= 128): log-pdf stacks of
+# S·N = 2048 matrices of 128²
+PPCA128_N, PPCA128_Q, PPCA128_STEPS = 512, 128, 5
 PROFILE_STEPS = 10
 # float32 (K4, IEEE products) vs float64 (plain) at the same state and
 # draws: a sum of 2048·128 likelihood and 2048·64 latent terms
@@ -404,6 +419,78 @@ def bound_at_singular_kuu(rng, X, Y, dev, read_counts):
     torch.cuda.synchronize()
     after = read_counts()
     return float(loss.detach()), {k: after[k] - before[k] for k in after}
+
+
+def broadcast_cases(dev, dtype, seed):
+    """K1's route on inputs broadcast over s = 3 samples (stride-0 views,
+    copied dense before the kernel): ``GaussianProcess.log_pdf`` of three
+    samples of f at one X (40 x 3, ARD, jitter 1e-2), and an SVGP bound
+    (N = 40, M = 8, D = 3) with three sampled noise variances in place of
+    the stored one. Returns each value (float64 numpy) with the K1
+    launches it made."""
+    import torch
+    from mxfusion_tpu_torch import Model, Variable
+    from mxfusion_tpu_torch.components.distributions import GaussianProcess
+    from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
+    from mxfusion_tpu_torch.components.variables import \
+        PositiveTransformation
+    from mxfusion_tpu_torch.inference import (
+        GradBasedInference, MAP, RuntimeContext, VariableEnv, create_executor)
+    from mxfusion_tpu_torch.modules import SVGPRegression
+    from mxfusion_tpu_torch.ops import cuda_kernels
+    from mxfusion_tpu_torch.util.carryover import load_state
+    rng = np.random.default_rng(seed)
+    out = []
+    kern = RBF(input_dim=3, ARD=True)
+    gp = GaussianProcess(X=0.0, kernel=kern, jitter=1e-2)
+    gp._generate_outputs(shape=(40, 2))
+    env = {gp.X.uuid: rng.random((1, 40, 3)) * 4,
+           gp.random_variable.uuid: rng.standard_normal((3, 40, 2)),
+           kern.lengthscale.uuid: rng.random((1, 3)) + 0.7,
+           kern.variance.uuid: np.full((1, 1), 0.8)}
+    before = cuda_kernels.rbf_kernel_matrix.launches
+    with torch.no_grad():
+        value = gp.log_pdf(VariableEnv({
+            k: torch.as_tensor(v, dtype=getattr(torch, dtype), device=dev)
+            for k, v in env.items()}))
+    torch.cuda.synchronize()
+    out.append((value.double().cpu().numpy(),
+                cuda_kernels.rbf_kernel_matrix.launches - before))
+    X = rng.random((40, 3)) * 4
+    Y = np.sin(2 * X[:, :1]) + 0.1 * rng.standard_normal((40, 1))
+    Z0 = rng.random((8, 3)) * 4
+    m = Model()
+    m.n = Variable()
+    m.X = Variable(shape=(m.n, 3))
+    m.noise_var = Variable(transformation=PositiveTransformation(),
+                           initial_value=0.1)
+    m.Y = SVGPRegression.define_variable(
+        X=m.X, kernel=RBF(input_dim=3, variance=1.0, lengthscale=0.8,
+                          dtype=dtype),
+        noise_var=m.noise_var, shape=(m.n, 1), dtype=dtype,
+        inducing_inputs=Variable(shape=Z0.shape, initial_value=Z0))
+    inf = GradBasedInference(MAP(model=m, observed=[m.X, m.Y]), dtype=dtype,
+                             device=dev)
+    inf.initialize(X=X, Y=Y)
+    load_state(inf.params, {  # every entry: the same store in both dtypes
+        "inducing_inputs": Z0, "noise_var": np.full(1, -2.0),
+        "Y.rbf_lengthscale": np.full(1, 0.5),
+        "Y.rbf_variance": np.full(1, 0.3),
+        "Y.qU_mean": rng.standard_normal((8, 1)),
+        "Y.qU_cov_W": 0.1 * rng.standard_normal((8, 8)),
+        "Y.qU_cov_diag": np.full(8, -3.0)}, inf.graphs)
+    p = inf.params
+    ex = create_executor(inf.inference_algorithm, p)
+    env = ex.build_env(p.trainable_params(), p.fixed_params(), [X, Y])
+    env[m.noise_var.uuid] = p.as_tensor([[0.05], [0.1], [0.3]])
+    before = cuda_kernels.rbf_kernel_matrix.launches
+    with torch.no_grad():
+        value = inf.inference_algorithm.compute(
+            env, RuntimeContext(torch.Generator(dev)))[0]
+    torch.cuda.synchronize()
+    out.append((float(value),
+                cuda_kernels.rbf_kernel_matrix.launches - before))
+    return out
 
 
 def make_training_data(rng):
@@ -819,13 +906,14 @@ def main():
             lib_path.name, was_cached, ptxas_summary(lib_path)),
             flush=True)
     print("phase 2 build: {} sources in {:.3f} s | dynamic shared memory "
-          "at D={}: {} | K4 at n=32, 64, 128: {} B per block of {} "
-          "matrices | K5: {} B per matrix".format(
+          "at D={}: {} | at n=32, 64, 128: K4 {} B and K5 {} B per block "
+          "of {} matrices".format(
               len(sources), build_s, D, fused_gram.shared_memory_bytes(D),
               [batched_cholesky.shared_memory_bytes(n) for n in (32, 64, 128)],
-              [batched_cholesky.matrices_per_block(n) for n in (32, 64, 128)],
               [batched_cholesky.shared_memory_bytes(n, 5)
-               for n in (32, 64, 128)]), flush=True)
+               for n in (32, 64, 128)],
+              [batched_cholesky.matrices_per_block(n) for n in (32, 64, 128)]),
+          flush=True)
 
     # ---- 3. kernel against the plain version, on the card
     softplus_inv = PositiveTransformation().inverse_transform
@@ -918,6 +1006,29 @@ def main():
                        for lower in (True, False)]
     fwd_err = max(e[0] for e in fused_errs)
     bwd_err = max(e[1] for e in fused_errs)
+
+    # the route on inputs broadcast over s = 3 samples: K1 on the dense
+    # copies in float32, the plain branch in float64
+    (gp32, gp_k1), (svgp32, svgp_k1) = broadcast_cases(dev, "float32",
+                                                       args.seed + 9)
+    (gp64, gp_k1_64), (svgp64, svgp_k1_64) = broadcast_cases(
+        dev, "float64", args.seed + 9)
+    gp_rel = rel_err(gp32, gp64)
+    svgp_rel = abs(svgp32 - svgp64) / abs(svgp64)
+    check(gp_k1 == 1 and svgp_k1 == 2 and gp_k1_64 == svgp_k1_64 == 0,
+          "sample-broadcast inputs launched K1 {} (GP log-pdf) and {} (SVGP "
+          "bound) times in float32, {} and {} in float64; expected 1 (K), 2 "
+          "(Kuu, Kuf), 0 and 0".format(gp_k1, svgp_k1, gp_k1_64, svgp_k1_64))
+    check(gp32.shape == (3,) and gp_rel <= BROADCAST_RTOL
+          and svgp_rel <= BROADCAST_RTOL,
+          "sample-broadcast inputs: float32 (K1) vs float64: GP log-pdf {} "
+          "rel {}, SVGP bound {} rel {} (tol {})".format(
+              gp32, gp_rel, svgp32, svgp_rel, BROADCAST_RTOL))
+    print("phase 3 kernel: inputs broadcast over s = 3 samples: GP log-pdf "
+          "(K1 launches {}) and SVGP bound with sampled noise (K1 launches "
+          "{}), float32 vs float64: rel {:.3e} and {:.3e} (tol {:.0e})"
+          .format(gp_k1, svgp_k1, gp_rel, svgp_rel, BROADCAST_RTOL),
+          flush=True)
 
     # ---- 4. the main path: BatchedPredictor on a carried-over state
     m = Model()
@@ -1231,6 +1342,43 @@ def main():
                   [round(1e3 * w, 3) for w in ploop.wall_s],
                   1e3 * ploop.wall_s[0]), flush=True)
 
+    # ---- 9b. the MVN path through K4's block tier: structured PPCA at
+    # Q = 128 (log-pdf stacks 2048 x 128^2)
+    zero_counts()
+    _, x128, W128, start128, loop128 = train_ppca(
+        dev, args.seed + 8, PPCA128_N, PPCA128_Q, PPCA_D, PPCA128_STEPS,
+        read_counts, sync)
+    launches128 = read_counts()
+    for i, counts in enumerate(loop128.counts):
+        check(counts == per_step, "PPCA Q={} step {} launched {}; expected "
+              "{}".format(PPCA128_Q, i, counts, per_step))
+    check(launches128["K4"] == 3 * PPCA128_STEPS, "PPCA Q={} launched K4 {} "
+          "times; expected {}".format(PPCA128_Q, launches128["K4"],
+                                      3 * PPCA128_STEPS))
+    losses128 = loop128.losses
+    check(len(losses128) == PPCA128_STEPS
+          and all(math.isfinite(v) for v in losses128)
+          and losses128[-1] < losses128[0],
+          "PPCA Q={} losses do not fall: {}".format(PPCA128_Q, losses128))
+    noise128 = np.random.default_rng(args.seed + 10).standard_normal(
+        PPCA_S * PPCA128_N * PPCA128_Q)
+    l32_128 = ppca_loss_at(start128, x128, noise128, W128, "float32", dev)
+    l64_128 = ppca_loss_at(start128, x128, noise128, W128, "float64", dev)
+    rel128 = abs(l32_128 - l64_128) / abs(l64_128)
+    check(rel128 <= PPCA_F64_RTOL, "PPCA Q={} first loss float32 {} vs "
+          "float64 {}: relative {}".format(PPCA128_Q, l32_128, l64_128,
+                                           rel128))
+    print("phase 9b ppca: N={} Q={} D={} S={}, {} Adam steps | K4 (block "
+          "tier, {}x{}^2 log-pdf stacks) launches per step {} | losses "
+          "{:.6g} -> {:.6g} | first loss on fixed draws float32 {:.8g} vs "
+          "float64 {:.8g}: rel {:.3e} (tol {:.0e}) | step wall ms ({}): "
+          "median {:.3f} of {}".format(
+              PPCA128_N, PPCA128_Q, PPCA_D, PPCA_S, PPCA128_STEPS,
+              PPCA_S * PPCA128_N, PPCA128_Q, loop128.counts[0]["K4"],
+              losses128[0], losses128[-1], l32_128, l64_128, rel128,
+              PPCA_F64_RTOL, card, 1e3 * float(np.median(loop128.wall_s[1:])),
+              [round(1e3 * w, 3) for w in loop128.wall_s]), flush=True)
+
     # ---- 10. forward sampling from the trained posterior and the prior
     q = ppca.inference_algorithm.posterior
     mu = ppca.params[q.q_mu].double()
@@ -1297,10 +1445,11 @@ def main():
             chol_ms[(B, n)] = t
     print("phase 12 timing ({}): {}".format(card, " | ".join(
         "{}x{}^2: K4 {} K5 {} plain {} cholesky_ex {} ms, bound {:.5f} ms "
-        "({}), best K4 at {:.1%} of it".format(B, n, *(
-            [round(v, 5) for v in t[k]]
-            for k in ("K4", "K5", "plain", "cholesky_ex")),
-            t["bound"][0], t["bound"][1], t["bound"][0] / min(t["K4"]))
+        "({}), best K4 at {:.1%} and best K5 at {:.1%} of it".format(
+            B, n, *([round(v, 5) for v in t[k]]
+                    for k in ("K4", "K5", "plain", "cholesky_ex")),
+            t["bound"][0], t["bound"][1], t["bound"][0] / min(t["K4"]),
+            t["bound"][0] / min(t["K5"]))
         for (B, n), t in chol_ms.items())), flush=True)
 
     # ---- 13. profile (information): where the PPCA SVI step's time goes

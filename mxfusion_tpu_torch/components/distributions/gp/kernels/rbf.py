@@ -2,9 +2,11 @@
 
 Counterpart of ``mxfusion_tpu/components/distributions/gp/kernels/
 rbf.py``. ``K = variance * exp(-R²/2)``. Where
-``mxfusion_tpu_torch.ops.cuda_kernels.kernel_eligible`` holds, K comes
-from ``rbf_kernel_matrix``: on the card, the hand-written CUDA gram
-kernel in one pass (scaling, cross term, clamp and exp fused).
+``mxfusion_tpu_torch.ops.cuda_kernels.kernel_eligible`` holds (float32
+inputs of the shapes the kernel takes), K comes from
+``rbf_kernel_matrix``: on the card, the hand-written CUDA gram kernel in
+one pass (scaling, cross term, clamp and exp fused). Other inputs take
+the plain branch, as JAX's gate sends them to ``_rbf_jnp``.
 """
 import torch
 
@@ -20,7 +22,12 @@ class RBF(StationaryKernel):
 
     def _compute_K(self, X, X2=None, lengthscale=None, variance=None):
         from .....ops.cuda_kernels import rbf_kernel_matrix, kernel_eligible
-        if kernel_eligible(X, X2):
-            return rbf_kernel_matrix(X, X2, lengthscale, variance)
+        if kernel_eligible(X, X2, lengthscale, variance):
+            # the sample axis arrives broadcast as a stride-0 view
+            # (as_samples); the kernel reads dense rows, so copy it: s·N·D
+            # floats, small beside the s·N·M gram
+            return rbf_kernel_matrix(
+                X.contiguous(), None if X2 is None else X2.contiguous(),
+                lengthscale, variance)
         R2 = self._compute_R2(X, X2, lengthscale)
         return torch.unsqueeze(variance, -1) * torch.exp(-0.5 * R2)

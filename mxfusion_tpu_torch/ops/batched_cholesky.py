@@ -10,13 +10,16 @@ the thousands and n at most 128. Hand-written CUDA kernels
   ``_pallas_batched_cholesky_v2``): the right-looking factorization in
   the TPU kernel's scaled column order. For n ≤ 64 one warp owns a
   matrix in registers, several matrices to a block; for 64 < n ≤ 128
-  one block owns it in shared memory. Both do the same operations on
-  the same values, so they give the same bits. It carries
+  one block owns it, each thread an 8 × 8 register tile of its lower
+  triangle. Both do the same operations on the same values, so they
+  give the same bits. It carries
   :func:`batched_cholesky` and :func:`cholesky`, which the MVN family
   calls.
 - K5, :func:`_k5_cuda`, the counterpart of the r3 ``_kernel`` (launched
   by ``_pallas_batched_cholesky``): the same factorization in the
-  left-looking column order, one block per matrix in shared memory.
+  left-looking column order, rows in registers dotted with row j of a
+  shared tile: a warp per matrix for n ≤ 64, four warps (a row per lane)
+  above.
   :func:`batched_cholesky_r3` reaches it;
   nothing in the library does, as in the JAX package.
 
@@ -105,16 +108,21 @@ def _k4_emulate(A):
 
 def _k5_emulate(A):
     """K5's arithmetic in plain PyTorch, in its order (left-looking): at
-    column j, s_i = A[i, j] − Σ_{k<j} L[i, k]·L[j, k] for i ≥ j,
-    d = √s_j, L[i, j] = s_i/d. A pivot s_j that is not positive marks
-    the matrix as failed."""
+    column j, s_i = A[i, j] − Σ_{k<j} L[i, k]·L[j, k] for i ≥ j, the
+    products subtracted from A[i, j] in k order, as the kernel's dot of
+    row i with row j of its tile T (−L below the diagonal); d = √s_j,
+    L[i, j] = s_i/d. A pivot s_j that is not positive marks the matrix as
+    failed. It follows K5's order but not its rounding: the kernel takes
+    each product and its subtraction in one ``fmaf``, this multiplies and
+    then subtracts."""
     A = _sym(A)
     n = A.shape[-1]
     L = torch.zeros_like(A)
     failed = torch.zeros(A.shape[:-2], dtype=torch.bool, device=A.device)
     for j in range(n):
-        s = A[..., j:, j] - torch.sum(
-            L[..., j:, :j] * L[..., j, None, :j], dim=-1)
+        s = A[..., j:, j]
+        for k in range(j):
+            s = s - L[..., j:, k] * L[..., j, None, k]
         failed = failed | ~(s[..., 0] > 0)
         d = torch.sqrt(s[..., 0])
         L[..., j, j] = d
@@ -159,7 +167,7 @@ def shared_memory_bytes(n, variant=4):
 
 
 def matrices_per_block(n):
-    """Matrices one block of K4 factors at this n (a warp each for
+    """Matrices one block of K4 or K5 factors at this n (a warp each for
     n ≤ 64)."""
     return int(_lib().mxf_batched_cholesky_per_block(n))
 

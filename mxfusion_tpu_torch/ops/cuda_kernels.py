@@ -6,12 +6,13 @@ pass: scaling by the lengthscale, the fp32 cross term, the clamp and
 the exponential, then one store of K.
 
 The gate is explicit. ``RBF._compute_K`` calls :func:`rbf_kernel_matrix`
-when :func:`kernel_eligible` holds (the flag is on and the inputs are
-float32). The wrapper then decides by device alone: a CUDA tensor
-launches the kernel, or the wrapper raises on what the kernel does not
-take; a CPU tensor takes the plain version :func:`_rbf_torch`, the
-counterpart of ``_rbf_jnp``. Nothing falls back from the kernel to the
-plain version.
+when :func:`kernel_eligible` holds (the flag is on, the inputs are
+float32 and of the shapes the kernel takes), after copying a stride-0
+sample broadcast dense; other inputs take the plain branch. The wrapper
+then decides by device alone: a CUDA tensor launches the kernel, or the
+wrapper raises on what the kernel does not take; a CPU tensor takes the
+plain version :func:`_rbf_torch`, the counterpart of ``_rbf_jnp``.
+Nothing falls back from the kernel to the plain version.
 
 The gradient is a :class:`torch.autograd.Function` on both devices:
 its backward recomputes K through :func:`_rbf_torch` and differentiates
@@ -46,11 +47,72 @@ def use_kernel():
     return _USE_KERNEL
 
 
-def kernel_eligible(X, X2):
+def kernel_eligible(X, X2, lengthscale=None, variance=None):
     """Whether ``RBF._compute_K`` routes through :func:`rbf_kernel_matrix`:
-    the flag is on and the inputs are float32."""
-    return _USE_KERNEL and X.dtype == torch.float32 and \
-        (X2 is None or X2.dtype == torch.float32)
+    the flag is on, the inputs are float32, and their shapes are what the
+    kernel takes (:func:`_shape_error`). Inputs of any other rank or
+    layout take the plain branch, as JAX's ``pallas_eligible`` sends
+    them to ``_rbf_jnp``. Contiguity is not asked for: the caller copies
+    a stride-0 sample broadcast dense."""
+    if not _USE_KERNEL:
+        return False
+    operands = (X, X2, lengthscale, variance)
+    if any(t is not None and t.dtype != torch.float32 for t in operands):
+        return False
+    return _shape_error(*operands) is None
+
+
+def _shape_error(X, X2, lengthscale, variance):
+    """Why the kernel does not take these shapes, or None: X (s, N, D)
+    and X2 (s, M, D) or None, none of them empty, s and ceil(N / 64)
+    within CUDA's grid limit, the lengthscale reshaping to (s, 1) or
+    (s, D) and the variance to (s,)."""
+    X2_ = X if X2 is None else X2
+    if X.ndim != 3 or X2_.ndim != 3 or X2_.shape[0] != X.shape[0] or \
+            X2_.shape[2] != X.shape[2]:
+        return "X {} and X2 {} must be (s, N, D) and (s, M, D).".format(
+            tuple(X.shape), tuple(X2_.shape))
+    S, N, D = X.shape
+    M = X2_.shape[1]
+    if min(S, N, M, D) == 0:
+        return "empty input {} x {}.".format(tuple(X.shape),
+                                             tuple(X2_.shape))
+    if S > _MAX_GRID_YZ or -(-N // _TILE) > _MAX_GRID_YZ:
+        return "s = {} and ceil(N / {}) = {} must not exceed {} (CUDA " \
+            "grid limit).".format(S, _TILE, -(-N // _TILE), _MAX_GRID_YZ)
+    # a leading axis of s, so that a (1, D) lengthscale with D = s is not
+    # read as s isotropic ones
+    if lengthscale is not None and (
+            lengthscale.ndim == 0 or lengthscale.shape[0] != S
+            or lengthscale.numel() not in (S, S * D)):
+        return "lengthscale {} must be (s, 1) or (s, {}).".format(
+            tuple(lengthscale.shape), D)
+    if variance is not None and (variance.ndim == 0 or variance.shape[0] != S
+                                 or variance.numel() != S):
+        return "variance {} must be (s, 1).".format(tuple(variance.shape))
+    return None
+
+
+def check_kernel_args(X, X2, lengthscale, variance):
+    """Raise ``ValueError`` on what the CUDA kernel does not take: one
+    device, float32, the shapes of :func:`_shape_error`, contiguous X and
+    X2. :func:`_rbf_cuda` runs it before its launch."""
+    operands = {"X": X, "X2": X2, "lengthscale": lengthscale,
+                "variance": variance}
+    for name, t in operands.items():
+        if t is None:
+            continue
+        if t.device != X.device or t.dtype != torch.float32:
+            raise ValueError(
+                "rbf_kernel_matrix: {} is {} on {}; the CUDA kernel takes "
+                "float32 tensors on one device ({}).".format(
+                    name, t.dtype, t.device, X.device))
+    error = _shape_error(X, X2, lengthscale, variance)
+    if error is not None:
+        raise ValueError("rbf_kernel_matrix: " + error)
+    if not X.is_contiguous() or (X2 is not None and
+                                 not X2.is_contiguous()):
+        raise ValueError("rbf_kernel_matrix: X and X2 must be contiguous.")
 
 
 def _rbf_torch(X, X2, lengthscale, variance):
@@ -125,42 +187,11 @@ class _RbfGram(torch.autograd.Function):
 
 
 def _rbf_cuda(X, X2, lengthscale, variance):
-    operands = {"X": X, "X2": X2, "lengthscale": lengthscale,
-                "variance": variance}
-    for name, t in operands.items():
-        if t is None:
-            continue
-        if t.device != X.device or t.dtype != torch.float32:
-            raise ValueError(
-                "rbf_kernel_matrix: {} is {} on {}; the CUDA kernel takes "
-                "float32 tensors on one device ({}).".format(
-                    name, t.dtype, t.device, X.device))
+    check_kernel_args(X, X2, lengthscale, variance)
     X2_ = X if X2 is None else X2
-    if X.ndim != 3 or X2_.ndim != 3 or X2_.shape[0] != X.shape[0] or \
-            X2_.shape[2] != X.shape[2]:
-        raise ValueError(
-            "rbf_kernel_matrix: X {} and X2 {} must be (s, N, D) and "
-            "(s, M, D).".format(tuple(X.shape), tuple(X2_.shape)))
     S, N, D = X.shape
     M = X2_.shape[1]
-    if min(S, N, M, D) == 0:
-        raise ValueError("rbf_kernel_matrix: empty input {} x {}.".format(
-            tuple(X.shape), tuple(X2_.shape)))
-    if S > _MAX_GRID_YZ or -(-N // _TILE) > _MAX_GRID_YZ:
-        raise ValueError(
-            "rbf_kernel_matrix: s = {} and ceil(N / {}) = {} must not "
-            "exceed {} (CUDA grid limit).".format(
-                S, _TILE, -(-N // _TILE), _MAX_GRID_YZ))
-    if not X.is_contiguous() or not X2_.is_contiguous():
-        raise ValueError("rbf_kernel_matrix: X and X2 must be contiguous.")
     ls = lengthscale.reshape(S, -1).contiguous()
-    if ls.shape[1] not in (1, D):
-        raise ValueError(
-            "rbf_kernel_matrix: lengthscale {} must be (s, 1) or (s, {})."
-            .format(tuple(lengthscale.shape), D))
-    if variance.numel() != S:
-        raise ValueError("rbf_kernel_matrix: variance {} must be (s, 1)."
-                         .format(tuple(variance.shape)))
     var = variance.reshape(S).contiguous()
     K = torch.empty((S, N, M), dtype=torch.float32, device=X.device)
     lib = _rbf_lib()

@@ -23,7 +23,9 @@ from mxfusion_tpu.ops.pallas_batched_cholesky import (
 from mxfusion_tpu_torch.ops import batched_cholesky as bc
 from mxfusion_tpu_torch.ops import linalg
 
-SHAPES = [(32, 64, 16), (24, 128, 16), (40, 32, 16)]  # (B, n, JAX chunk)
+# (B, n, JAX chunk): K4's block tier at n = 96 and at n = 100 (n % 4 != 0)
+SHAPES = [(32, 64, 16), (24, 128, 16), (40, 32, 16), (16, 96, 8),
+          (12, 100, 8)]
 
 
 def _spd(shape, scale, seed=0, dtype=np.float64):
@@ -41,10 +43,10 @@ def _rel(L, ref):
 @pytest.mark.parametrize("variant", ["K4", "K5"])
 def test_port_matches_the_jax_kernel(variant, B, n, c):
     """K4 against ``_kernel_v2``, K5 against the r3 ``_kernel``, both in
-    the Pallas interpreter (24 = a ragged last chunk of 16): the port's
-    emulation of the kernel and its plain version are within 5e-6 of
-    max |L| of the JAX kernel, whose upper triangle is exactly 0, as
-    theirs is."""
+    the Pallas interpreter (24 = a ragged last chunk of 16, 12 of 8):
+    the port's emulation of the kernel and its plain version are within
+    5e-6 of max |L| of the JAX kernel, whose upper triangle is exactly 0,
+    as theirs is."""
     A = _spd((B, n, n), n, seed=5, dtype=np.float32)
     jax_kernel = _pallas_batched_cholesky_v2 if variant == "K4" else \
         _pallas_batched_cholesky
@@ -60,10 +62,10 @@ def test_port_matches_the_jax_kernel(variant, B, n, c):
     assert _rel(LJ, np.linalg.cholesky(A.astype(np.float64))) < 5e-6
 
 
-@pytest.mark.parametrize("n", [1, 2, 7, 33, 64, 65, 128])
+@pytest.mark.parametrize("n", [1, 2, 7, 33, 64, 65, 96, 100, 128])
 def test_emulations_match_the_plain_version_in_float64(n):
     """Any n up to the kernels' 128, ragged included, on both sides of
-    K4's tiers (the warp kernel up to 32 and 64, the block kernel above):
+    K4's tiers (the warp kernel up to 32 and 64, the tile kernel above):
     the two column orders give the same factor to 1e-12 in float64."""
     A = torch.as_tensor(_spd((3, n, n), n, seed=n))
     ref = linalg.cholesky(A)
@@ -71,7 +73,8 @@ def test_emulations_match_the_plain_version_in_float64(n):
         torch.testing.assert_close(emulate(A), ref, rtol=1e-12, atol=1e-12)
 
 
-@pytest.mark.parametrize("n,N", [(1, 32), (20, 32), (33, 64), (60, 64)])
+@pytest.mark.parametrize("n,N", [(1, 32), (20, 32), (33, 64), (60, 64),
+                                 (96, 128), (100, 128)])
 def test_identity_padding_leaves_the_factor_unchanged(n, N):
     """K4's warp kernel factors an n x n matrix inside an N x N tile
     padded by the identity: in K4's column order the leading n x n block

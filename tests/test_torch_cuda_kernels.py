@@ -39,6 +39,102 @@ def _t(a):
     return None if a is None else torch.as_tensor(a)
 
 
+# ---------------------------------------------------------------------
+# K1's route on inputs broadcast over the sample axis (s = 3): the port's
+# side of the two cases, on any device (the JAX side is in
+# tests/test_torch_rbf_route.py)
+# ---------------------------------------------------------------------
+
+def _gp_inputs(seed=21, s=3, N=40, D=3):
+    """GaussianProcess inputs: X (1, N, D) shared by the s samples of f,
+    f (s, N, 2), an ARD lengthscale (1, D) and a variance (1, 1)."""
+    rng = np.random.default_rng(seed)
+    return (rng.random((1, N, D)) * 4, rng.standard_normal((s, N, 2)),
+            rng.random((1, D)) + 0.7, np.full((1, 1), 0.8))
+
+
+def _gp_log_pdf(X, F, ls, var, dtype, device, jitter=1e-2):
+    """``GaussianProcess.log_pdf`` (RBF, ARD) of s samples of f at one X:
+    its ``log_pdf`` broadcasts X and the parameters to the s samples as
+    stride-0 views before ``kern.K``."""
+    from mxfusion_tpu_torch.components.distributions import GaussianProcess
+    from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
+    from mxfusion_tpu_torch.inference import VariableEnv
+    kern = RBF(input_dim=X.shape[-1], ARD=True)
+    gp = GaussianProcess(X=0.0, kernel=kern, jitter=jitter)
+    gp._generate_outputs(shape=F.shape[1:])
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+    return gp.log_pdf(VariableEnv({
+        gp.X.uuid: t(X), gp.random_variable.uuid: t(F),
+        kern.lengthscale.uuid: t(ls), kern.variance.uuid: t(var)}))
+
+
+def _svgp_data(seed=22, N=40, D=3, M=8):
+    rng = np.random.default_rng(seed)
+    X = rng.random((N, D)) * 4
+    Y = np.sin(2 * X[:, :1]) + rng.standard_normal((N, 1)) * 0.1
+    return X, Y, rng.random((M, D)) * 4
+
+
+def _svgp_state(Z0, seed=23):
+    """An SVGP MAP store by name path (unconstrained values)."""
+    rng = np.random.default_rng(seed)
+    M = Z0.shape[0]
+    return {"inducing_inputs": Z0, "noise_var": np.full(1, -2.0),
+            "Y.rbf_lengthscale": np.full(1, 0.5),
+            "Y.rbf_variance": np.full(1, 0.3),
+            "Y.qU_mean": rng.standard_normal((M, 1)),
+            "Y.qU_cov_W": 0.1 * rng.standard_normal((M, M)),
+            "Y.qU_cov_diag": np.full(M, -3.0)}
+
+
+def _svgp_inference(X, Y, Z0, dtype, device, state=None):
+    """The port's SVGP regression under MAP, initialized on ``device``
+    and loaded with the name-path ``state`` if one is given."""
+    import mxfusion_tpu_torch as mt
+    from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
+    from mxfusion_tpu_torch.components.variables import \
+        PositiveTransformation
+    from mxfusion_tpu_torch.inference import MAP, GradBasedInference
+    from mxfusion_tpu_torch.modules import SVGPRegression
+    D = Z0.shape[1]
+    m = mt.Model()
+    m.n = mt.Variable()
+    m.X = mt.Variable(shape=(m.n, D))
+    m.noise_var = mt.Variable(transformation=PositiveTransformation(),
+                              initial_value=0.1)
+    m.Y = SVGPRegression.define_variable(
+        X=m.X, kernel=RBF(input_dim=D, variance=1.0, lengthscale=0.8,
+                          dtype=dtype),
+        noise_var=m.noise_var, shape=(m.n, 1),
+        inducing_inputs=mt.Variable(shape=Z0.shape, initial_value=Z0),
+        dtype=dtype)
+    inf = GradBasedInference(MAP(model=m, observed=[m.X, m.Y]),
+                             dtype=dtype, device=device)
+    inf.initialize(X=X, Y=Y)
+    if state is not None:
+        from mxfusion_tpu_torch.util.carryover import load_state
+        load_state(inf.params, state, inf.graphs)
+    return inf
+
+
+def _svgp_bound_sampled_noise(inf, X, Y, noise):
+    """The SVGP bound of ``inf``'s store with the noise variance replaced
+    by s sampled values ``noise`` (s, 1): ``SVGPRegressionLogPdf.compute``
+    broadcasts X, Z and the kernel parameters to s samples (stride-0
+    views) before ``kern.K``."""
+    from mxfusion_tpu_torch.inference import create_executor
+    from mxfusion_tpu_torch.inference.inference_alg import RuntimeContext
+    p = inf.params
+    ex = create_executor(inf.inference_algorithm, p)
+    env = ex.build_env(p.trainable_params(), p.fixed_params(), [X, Y])
+    env[inf.graphs[0].noise_var.uuid] = p.as_tensor(noise)
+    return inf.inference_algorithm.compute(
+        env, RuntimeContext(torch.Generator(p.device)))[0]
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -150,6 +246,39 @@ def test_cuda_kernel_rejects_what_it_does_not_take(cuda_device):
         ck.rbf_kernel_matrix(X.double(), None, one.double(), one.double())
     with pytest.raises(ValueError, match="CPU or CUDA"):
         ck.rbf_kernel_matrix(X.to("meta"), None, one, one)
+
+
+@pytest.mark.cuda
+def test_cuda_sample_broadcast_launches_the_kernel(cuda_device):
+    """K1's route on inputs broadcast over s = 3 samples (stride-0
+    views): ``GaussianProcess.log_pdf`` of three samples of f and an SVGP
+    bound with three sampled noise variances run on the card, launch K1
+    (the gram of the log-pdf; Kuu and Kuf of the bound), and match their
+    CPU values (float32; the kernel and the plain gram differ by fp32
+    summation order, which the Cholesky of a gram at jitter 1e-2
+    amplifies): 1e-4 relative per sample."""
+    before = ck.rbf_kernel_matrix.launches
+    args = _gp_inputs()
+    got = _gp_log_pdf(*args, torch.float32, cuda_device)
+    torch.cuda.synchronize()
+    assert ck.rbf_kernel_matrix.launches == before + 1
+    want = _gp_log_pdf(*args, torch.float32, "cpu")
+    assert got.shape == want.shape == (3,)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=0)
+
+    X, Y, Z0 = _svgp_data()
+    noise = np.array([[0.05], [0.1], [0.3]])
+    bounds = []
+    for device in (cuda_device, "cpu"):
+        inf = _svgp_inference(X, Y, Z0, "float32", device, _svgp_state(Z0))
+        before = ck.rbf_kernel_matrix.launches
+        with torch.no_grad():
+            bounds.append(_svgp_bound_sampled_noise(inf, X, Y, noise).cpu())
+        if device != "cpu":
+            torch.cuda.synchronize()
+            assert ck.rbf_kernel_matrix.launches == before + 2
+    assert bool(torch.isfinite(bounds[0]).all())
+    torch.testing.assert_close(bounds[0], bounds[1], rtol=1e-4, atol=0)
 
 
 @pytest.mark.cuda
@@ -376,10 +505,13 @@ def test_cuda_tiers_set_their_precision_in_both_directions(cuda_device):
 # and n that are not multiples of 8
 CHOL = [(512, 32), (512, 64), (2048, 64), (512, 128), (8192, 64), (37, 24),
         (100, 20), (3, 1), (5, 127),
-        # K4's tier edges (a warp per matrix up to 32 and 64, a block above)
+        # the tier edges (a warp per matrix up to 32 and 64, a block above)
         # at B that are not multiples of the matrices per block
         (1, 32), (3, 33), (777, 64), (1, 65), (3, 128), (777, 33), (3, 2),
-        (1, 1)]
+        (1, 1),
+        # the block tier: the Q = 128 PPCA step's stack, n = 96, and n % 4
+        # != 0 at a ragged B
+        (2048, 128), (512, 96), (33, 100)]
 
 
 def _spd32(B, n, seed, device):
@@ -456,24 +588,26 @@ def test_cuda_cholesky_not_positive_definite(cuda_device, variant, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [20, 64, 100])
-def test_cuda_cholesky_unaligned_stack(cuda_device, n):
-    """A stack that starts 4 bytes past a 16-byte boundary takes K4's
-    4-byte copies and gives the bits of the aligned stack."""
+@pytest.mark.parametrize("variant", ["K4", "K5"])
+def test_cuda_cholesky_unaligned_stack(cuda_device, variant, n):
+    """A stack that starts 4 bytes past a 16-byte boundary takes the
+    kernel's 4-byte copies and gives the bits of the aligned stack."""
     A = _spd32(5, n, 16, cuda_device)
     buf = torch.empty(A.numel() + 1, device=cuda_device)
     shifted = buf[1:].view(A.shape)
     shifted.copy_(A)
     assert shifted.data_ptr() % 16 != 0
-    assert torch.equal(bc._k4_cuda(shifted), bc._k4_cuda(A))
+    wrapper = bc._k4_cuda if variant == "K4" else bc._k5_cuda
+    assert torch.equal(wrapper(shifted), wrapper(A))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,N", [(1, 32), (20, 32), (20, 64), (33, 64),
-                                 (60, 128), (64, 65)])
+                                 (60, 128), (64, 65), (96, 128), (100, 128)])
 def test_cuda_identity_padding_gives_the_same_bits(cuda_device, n, N):
     """K4 on an n x n stack and on the same stack padded by the identity
     to N x N, within a tier and across tiers (the warp kernel at 32 and
-    64, the block kernel above): the leading n x n block of the padded
+    64, the tile kernel above): the leading n x n block of the padded
     factor has the bits of the unpadded one (the same fused operations
     on the same values), and the padding's factor is the identity."""
     A = _spd32(7, n, 17, cuda_device)
