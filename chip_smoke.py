@@ -5,9 +5,11 @@ Drives the port's main paths on the card: SVGP regression serving
 through ``BatchedPredictor`` (M = 512 inducing points, D = 32, RBF
 kernel, chunk 8192), SVGP training through ``GradBasedInference(MAP,
 DeviceMinibatchLoop)`` at the bench.py headline step shape (B = 65536),
-and the multivariate-normal slice: structured-PPCA SVI with a
-full-covariance posterior, then forward sampling. In phases that each
-print one line:
+the multivariate-normal slice (structured-PPCA SVI with a
+full-covariance posterior, then forward sampling), and the exact and
+collapsed GP modules (``GPRegression`` at the exact-GP bench's N = 1024,
+``SparseGPRegression`` at N = 65536, M = 512) with the GP kernel family.
+In phases that each print one line:
 
 1. device: needs CUDA (exits nonzero without it); prints the card's
    name and power limit (nvidia-smi) and the TF32 settings;
@@ -17,7 +19,9 @@ print one line:
    ``batched_cholesky.cu`` (K4, K5);
 3. kernel: holds each kernel against its plain PyTorch version on the
    card: K1 at the serving shapes (Kzx, Kuu), the materialized training
-   arm's Kuf (512 x 65536), one ragged ARD shape and
+   arm's Kuf (512 x 65536), the exact GP's (phases 14 and 16) Kxx
+   (1024², D = 4, X2 None), Kxt (1024 x 8192, D = 4) and Kxx on the
+   ``active_dims`` copy (D = 2), one ragged ARD shape and
    three whose M % 4 != 0 takes its 4-byte stores (M = 8191; two samples
    at M = 130 and at M = 1), max |diff| <= 1e-5 at variance 1; K2 (rtol 2e-4, atol 2e-5) and K3
    (2e-3 of each output's largest entry, and the same bits on a second
@@ -39,8 +43,9 @@ print one line:
    numpy evaluation of the predictive formulas (1e-3 relative);
 5. timing (information): K1's and its plain version's device time at
    serving's Kzx (512 x 8192) and Kuu and the materialized arm's Kuf
-   (512 x 65536), beside its bound, and serving rows/s with and without
-   the kernel;
+   (512 x 65536), D = 32, and at the exact GP's Kxx (1024²) and Kxt
+   (1024 x 8192), D = 4, each beside its bound, and serving rows/s with
+   and without the kernel;
 6. train: MAP with Adam (lr 3e-3) for one epoch of 4 steps on 262144
    seeded rows, once through the fused arm and once with
    ``fused_gram.disabled()`` (materialized Kuf) from the same start and
@@ -85,7 +90,27 @@ print one line:
    beside the bound, with each kernel's share of it;
 13. profile (information): ten structured-PPCA SVI steps under
    ``torch.profiler``: wall, device busy time and idle share, and the
-   device time by kernel (the Chrome trace goes to ``build/``).
+   device time by kernel (the Chrome trace goes to ``build/``);
+14. exact GP: ``GPRegression`` (RBF) at benchmarks/gp_exact_1k.py's
+   configuration (N = 1024, D = 4, noise 0.1), MAP with Adam (lr 3e-2)
+   for 25 steps: K1 once per step (Kxx), the losses fall, the first loss
+   float32 vs float64 within 1e-4; then an 8192-row request through
+   ``BatchedPredictor`` (K1 once, Kxt) against a float64 numpy closed
+   form on 256 rows (1e-3 relative) and four prior draws
+   (``ForwardSampling``); prints the median step wall over steps 2-25;
+15. collapsed GP: ``SparseGPRegression`` (RBF) on the first 65536 rows
+   of phase 6's data, M = 512, D = 32, full batch, MAP with Adam (lr
+   3e-3) for 4 steps: K1 twice per step (Kuu, Kuf), the first loss
+   float32 vs float64 within 1e-3, the loss and gradient with the data
+   tier at TF32 equal to those at HIGHEST within 1e-6 (the bound pins
+   HIGHEST in both directions); an 8192-row request (K1 once) against
+   float64 numpy on 256 rows (1e-3); prints the median step wall;
+16. kernel family: the exact GP's log-pdf and gradient at N = 1024,
+   D = 4 with ``RBF(active_dims=[0, 1]) + Matern52 + White`` and with
+   ``RBF * Linear``: K1 once (one RBF gram each), float32 vs float64
+   within 1e-4 (loss) and 1e-3 (gradients);
+17. profile (information): ten exact-GP and four collapsed-GP MAP steps
+   under ``torch.profiler``, as phase 13 (traces in ``build/``).
 
 Any failed check raises and the script exits nonzero. The last three
 lines are the card (nvidia-smi), the kernels' JSON record (each with
@@ -172,6 +197,30 @@ PPCA_F64_RTOL = 1e-4
 # draws whitened by the float64 factor, pooled over s·N = 32768 vectors:
 # the mean and the covariance's entries scatter by about 1/sqrt(32768)
 PPCA_MOMENT_TOL = 8.0 / math.sqrt(PPCA_FS * PPCA_N)
+# the exact GP: benchmarks/gp_exact_1k.py's configuration (N = 1024,
+# D = 4, RBF, noise 0.1, Adam at lr 3e-2), 25 MAP steps
+EXACT_N, EXACT_D, EXACT_STEPS, EXACT_LR = 1024, 4, 25, 3e-2
+# float32 (K1, the fp32 Cholesky of K + 0.1·I) vs float64 (plain): the
+# condition number of K + 0.1·I, about N·var/0.1 = 1e4, times fp32's eps
+# (6e-8) bounds the quadratic term's relative error by about 6e-4, and
+# random rounding stays far below that (an H100 gave 4.6e-6 here and up
+# to 1.6e-5 for phase 16's grams)
+EXACT_F64_RTOL = 1e-4
+# the gradients of phase 16, relative to each gradient's largest entry:
+# the same conditioning enters through K⁻¹ twice (an H100 gave 6.4e-5)
+FAMILY_GRAD_RTOL = 1e-3
+# the collapsed GP: N = 65536 rows of phase 6's data, M = 512, D = 32,
+# full batch, MAP with Adam at lr 3e-3, 4 steps
+SGP_N, SGP_STEPS, SGP_LR = 65536, 4, 3e-3
+# float32 vs float64: the bound's −D·ΣKff/(2σ²) and +D·Σ(L⁻¹Kuf)²/(2σ²)
+# are each about N·var/(2σ²) = 3.3e5 and nearly cancel; Σ(L⁻¹Kuf)²
+# carries about cond(Kuu)·eps = 2e3 · 6e-8 = 1.2e-4 of relative error,
+# some 40 in absolute terms against a loss of about 2e5, so 2e-4; the
+# tolerance keeps 5x room and is no looser than 1e-3
+SGP_F64_RTOL = 1e-3
+# the bound pins the data tier at HIGHEST in both directions, so the
+# TF32 data tier must leave its loss and gradient as they are
+SGP_TIER_RTOL = 1e-6
 
 
 def check(ok, message):
@@ -276,8 +325,7 @@ def chol_bound(B, n):
 
 
 def rbf_f64(A, B, ls, var):
-    d = A[:, None, :] / ls - B[None, :, :] / ls
-    return var * np.exp(-0.5 * np.sum(d * d, axis=-1))
+    return var * np.exp(-0.5 * sq_dist_f64(A, B, ls))
 
 
 def predict_f64(state, softplus, X, jitter):
@@ -493,6 +541,102 @@ def broadcast_cases(dev, dtype, seed):
     return out
 
 
+def loss_and_grad_at(alg, state, data, dtype, dev, grad=True,
+                     rv_scaling=None):
+    """The loss of ``alg`` on ``data`` in ``dtype`` on ``dev``, at the
+    trainable ``state`` ({uuid: unconstrained tensor}; None: the
+    initialized store), with ``rv_scaling`` as the executor takes it,
+    and with ``grad`` its gradient by uuid as float64 numpy. float64
+    takes the plain branch of every kernel."""
+    import torch
+    from mxfusion_tpu_torch.inference import (GradBasedInference,
+                                              create_executor)
+    tdtype = getattr(torch, dtype)
+    data = [torch.as_tensor(d, device=dev).to(tdtype) for d in data]
+    inf = GradBasedInference(alg, dtype=dtype, device=dev)
+    inf.initialize(**dict(zip(alg.observed_variable_names, data)))
+    if state is not None:
+        inf.params.update_params({k: v.to(tdtype) for k, v in
+                                  state.items()})
+    executor = create_executor(alg, inf.params, rv_scaling=rv_scaling)
+    train = {k: v.clone().requires_grad_(grad)
+             for k, v in inf.params.trainable_params().items()}
+    with torch.set_grad_enabled(grad):
+        loss = executor(train, inf.params.fixed_params(), data, None)[1]
+    if not grad:
+        return float(loss), None
+    loss.backward()
+    torch.cuda.synchronize()
+    return float(loss.detach()), {k: v.grad.double().cpu().numpy()
+                                  for k, v in train.items()}
+
+
+def refresh_posterior_cache(inf, data):
+    """One evaluation of the log-pdf at the trained parameters, with its
+    aux (the module's prediction cache) written into the store: the loop
+    writes the cache at each step's parameters before the update."""
+    import torch
+    from mxfusion_tpu_torch.inference import create_executor
+    executor = create_executor(inf.inference_algorithm, inf.params)
+    with torch.no_grad():
+        aux = executor(inf.params.trainable_params(),
+                       inf.params.fixed_params(), data, None)[2]
+    inf.params.update_params(aux)
+
+
+def sq_dist_f64(A, B, ls):
+    """Squared scaled distances in float64 numpy by the GEMM expansion
+    (exact enough in float64, and no (N, M, D) temporary)."""
+    A, B = A / ls, B / ls
+    d = np.sum(A * A, 1)[:, None] + np.sum(B * B, 1)[None] - 2.0 * A @ B.T
+    return np.maximum(d, 0.0)
+
+
+def exact_gp_predict_f64(X, Y, ls, var, noise, Xt):
+    """The exact GP's predictive mean and noise-free variance in float64
+    numpy: K = k(X, X) + σ²I, μ = Kxtᵀ K⁻¹ y, v = var − diag(Kxtᵀ K⁻¹
+    Kxt)."""
+    K = rbf_f64(X, X, ls, var) + noise * np.eye(len(X))
+    Kxt = rbf_f64(X, Xt, ls, var)
+    sol = np.linalg.solve(K, np.concatenate([Y, Kxt], axis=1))
+    return Kxt.T @ sol[:, :1], var - np.sum(Kxt * sol[:, 1:], axis=0)
+
+
+def sparse_gp_predict_f64(X, Y, Z, ls, var, noise, jitter, Xt):
+    """The collapsed GP's predictive mean and noise-free variance in
+    float64 numpy (Titsias): L = chol(Kuu + jitter·I), A = L⁻¹Kuf,
+    LA = chol(I + AAᵀ/σ²), w = L⁻ᵀLA⁻ᵀLA⁻¹AY/σ²; μ = Kxtᵀw and
+    v = var − Σ(L⁻¹Kxt)² + Σ(LA⁻¹L⁻¹Kxt)²."""
+    M = len(Z)
+    L = np.linalg.cholesky(rbf_f64(Z, Z, ls, var) + jitter * np.eye(M))
+    A = np.linalg.solve(L, rbf_f64(Z, X, ls, var))
+    LA = np.linalg.cholesky(np.eye(M) + A @ A.T / noise)
+    w = np.linalg.solve(L.T, np.linalg.solve(
+        LA.T, np.linalg.solve(LA, A @ Y))) / noise
+    Kxt = rbf_f64(Z, Xt, ls, var)
+    B = np.linalg.solve(L, Kxt)
+    C = np.linalg.solve(LA, B)
+    return Kxt.T @ w, var - np.sum(B * B, 0) + np.sum(C * C, 0)
+
+
+def gp_model(module, kernel, d, **kw):
+    """``module`` (GPRegression or SparseGPRegression) over d inputs with
+    ``kernel`` and a noise variance starting at 0.1; returns the model
+    and its MAP algorithm."""
+    from mxfusion_tpu_torch import Model, Variable
+    from mxfusion_tpu_torch.components.variables import \
+        PositiveTransformation
+    from mxfusion_tpu_torch.inference import MAP
+    m = Model()
+    m.n = Variable()
+    m.X = Variable(shape=(m.n, d))
+    m.noise_var = Variable(transformation=PositiveTransformation(),
+                           initial_value=0.1)
+    m.Y = module.define_variable(X=m.X, kernel=kernel,
+                                 noise_var=m.noise_var, shape=(m.n, 1), **kw)
+    return m, MAP(model=m, observed=[m.X, m.Y])
+
+
 def make_training_data(rng):
     """benchmarks/svgp_common.py's data at D = 32: X uniform on the box,
     y = sin(2 x0) + 0.3 cos(3 x1) + 0.1 noise, float32."""
@@ -500,25 +644,6 @@ def make_training_data(rng):
     f = np.sin(2.0 * X[:, :1]) + 0.3 * np.cos(3.0 * X[:, 1:2])
     Y = (f + 0.1 * rng.standard_normal((TRAIN_N, 1))).astype(np.float32)
     return X, Y
-
-
-def first_loss_f64(alg, start_state, batch):
-    """The bound at the start state on the first batch, in float64 on
-    the card (plain path: no kernel takes float64)."""
-    import torch
-    from mxfusion_tpu_torch.inference import (GradBasedInference,
-                                              create_executor)
-    Xb, Yb = (b.double() for b in batch)
-    inf = GradBasedInference(alg, dtype="float64", device=Xb.device)
-    inf.initialize(X=Xb, Y=Yb)
-    inf.params.update_params({k: v.double() for k, v in start_state.items()})
-    model_y = alg.model.Y.uuid
-    executor = create_executor(alg, inf.params,
-                               rv_scaling={model_y: TRAIN_N / TRAIN_B})
-    with torch.no_grad():
-        loss = executor(inf.params.trainable_params(),
-                        inf.params.fixed_params(), [Xb, Yb], None)[0]
-    return float(loss)
 
 
 def cuda_ms(fn, reps=50):
@@ -742,18 +867,17 @@ def train_ppca(dev, seed, n, q_dim, d, steps, read_counts, sync):
     return inf, x, W0, start, loop
 
 
-def profile_ppca(dev, seed, steps, trace_path):
-    """Structured-PPCA SVI under ``torch.profiler`` (CPU and CUDA
-    activities): two steps to warm up, then ``steps`` recorded, with no
-    synchronization added. From the Chrome trace: the recorded window's
-    wall, the device's busy time in it (the union of kernel, copy and set
-    intervals) and the device time by kernel name."""
+def profile_steps(make_inference, data, steps, lr, trace_path,
+                  generator=None):
+    """``steps`` training steps of ``make_inference(grad_loop)`` under
+    ``torch.profiler`` (CPU and CUDA activities), after two steps to warm
+    up, with no synchronization added. From the Chrome trace: the
+    recorded window's wall, the device's busy time in it (the union of
+    kernel, copy and set intervals) and the device time by kernel name;
+    None if the trace holds no device events."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
-    from mxfusion_tpu_torch.inference import (
-        BatchInferenceLoop, GradBasedInference, StochasticVariationalInference)
-    x, W0 = ppca_data(np.random.default_rng(seed), PPCA_N, PPCA_Q, PPCA_D)
-    m, q = build_ppca(PPCA_N, PPCA_Q, PPCA_D, W0)
+    from mxfusion_tpu_torch.inference import BatchInferenceLoop
     prof = None
 
     class SteppingLoop(BatchInferenceLoop):
@@ -762,15 +886,14 @@ def profile_ppca(dev, seed, steps, trace_path):
             prof.step()
             return out
 
-    inf = GradBasedInference(StochasticVariationalInference(
-        num_samples=PPCA_S, model=m, posterior=q, observed=[m.x]),
-        grad_loop=SteppingLoop(), dtype="float32", device=dev)
+    inf = make_inference(SteppingLoop())
+    Path(trace_path).parent.mkdir(parents=True, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=1, warmup=1, active=steps),
                  on_trace_ready=lambda p: p.export_chrome_trace(
                      str(trace_path))) as prof:
-        inf.run(x=x, max_iter=steps + 2, learning_rate=PPCA_LR,
-                generator=torch.Generator(dev).manual_seed(seed))
+        inf.run(max_iter=steps + 2, learning_rate=lr, generator=generator,
+                **data)
     torch.cuda.synchronize()
     events = [e for e in json.loads(Path(trace_path).read_text())[
         "traceEvents"] if e.get("ph") == "X"]
@@ -798,6 +921,36 @@ def profile_ppca(dev, seed, steps, trace_path):
         by_name[name] = by_name.get(name, 0.0) + e["dur"]
     return (t1 - t0) / 1e3, busy / 1e3, sorted(
         by_name.items(), key=lambda kv: -kv[1])
+
+
+def profile_ppca(dev, seed, steps, trace_path):
+    """Structured-PPCA SVI steps under ``torch.profiler``
+    (:func:`profile_steps`)."""
+    import torch
+    from mxfusion_tpu_torch.inference import (
+        GradBasedInference, StochasticVariationalInference)
+    x, W0 = ppca_data(np.random.default_rng(seed), PPCA_N, PPCA_Q, PPCA_D)
+    m, q = build_ppca(PPCA_N, PPCA_Q, PPCA_D, W0)
+    return profile_steps(
+        lambda loop: GradBasedInference(StochasticVariationalInference(
+            num_samples=PPCA_S, model=m, posterior=q, observed=[m.x]),
+            grad_loop=loop, dtype="float32", device=dev),
+        {"x": x}, steps, PPCA_LR, trace_path,
+        generator=torch.Generator(dev).manual_seed(seed))
+
+
+def profile_summary(prof, steps):
+    """The window, busy time, idle share and top kernels of a
+    :func:`profile_steps` result, as one line's text."""
+    if prof is None:
+        return "the trace holds no device events: device time not measured"
+    wall_ms, busy_ms, by_name = prof
+    return "window {:.3f} ms ({:.3f} per step), device busy {:.3f} ms " \
+        "({:.3f} per step), idle share {:.1%} | device time by kernel: " \
+        "{}".format(wall_ms, wall_ms / steps, busy_ms, busy_ms / steps,
+                    1 - busy_ms / wall_ms,
+                    " | ".join("{} {:.3f} ms".format(k, v / 1e3)
+                               for k, v in by_name[:8]))
 
 
 def sample_ppca(inf, seed):
@@ -939,8 +1092,22 @@ def main():
     # the materialized training arm's Kuf: each block walks about 16
     # column tiles through the prefetch
     Xuf = torch.as_tensor(rng.uniform(0.0, BOX, (TRAIN_B, D)), **f32)[None]
+    # the exact GP's data (phase 14) and request (benchmarks/
+    # gp_exact_1k.py:30-33): Kxx symmetric, Kxt, and Kxx on the copy
+    # that a kernel's active_dims = [0, 1] takes (phase 16)
+    erng = np.random.default_rng(args.seed + 11)
+    Xe = erng.random((EXACT_N, EXACT_D)).astype(np.float32) * BOX
+    Ye = (np.sin(Xe[:, :1] * 2.0) + erng.standard_normal(
+        (EXACT_N, 1)).astype(np.float32) * 0.1).astype(np.float32)
+    Xq = (erng.random((CHUNK, EXACT_D)) * BOX).astype(np.float32)
+    Xe_t = torch.as_tensor(Xe, device=dev)[None]
+    Xq_t = torch.as_tensor(Xq, device=dev)[None]
+    Xe_2 = torch.index_select(Xe_t, -1, torch.arange(2, device=dev))
     cases = {"Kzx": (Z, Xk, ls_iso, var1), "Kuu": (Z, None, ls_iso, var1),
              "Kuf": (Z, Xuf, ls_iso, var1),
+             "Kxx_gp": (Xe_t, None, var1, var1),
+             "Kxt_gp": (Xe_t, Xq_t, var1, var1),
+             "Kxx_gp_active_dims": (Xe_2, None, var1, var1),
              "ragged_ard": (Xr, X2r, ls_ard, var1),
              "M8191": (Z, Xk[:, :8191], ls_iso, var1),
              "S2_M130": (Xm, X2m, ls_m, var2),
@@ -1096,18 +1263,23 @@ def main():
                           var_err, F64_ROWS, cond, f64_mean, f64_var),
           flush=True)
 
-    # ---- 5. timing, for information: K1 at serving's Kzx and Kuu and at
-    # the materialized training arm's Kuf
+    # ---- 5. timing, for information: K1 at serving's Kzx and Kuu, at the
+    # materialized training arm's Kuf and at the exact GP's Kxx and Kxt
     rbf_ms = {}
     with torch.no_grad():
-        for label, X2t in (("Kzx", Xk), ("Kuu", None), ("Kuf", Xuf)):
+        for label, A, X2t, ls in (("Kzx", Z, Xk, ls_iso),
+                                  ("Kuu", Z, None, ls_iso),
+                                  ("Kuf", Z, Xuf, ls_iso),
+                                  ("Kxx", Xe_t, None, var1),
+                                  ("Kxt", Xe_t, Xq_t, var1)):
             t = {"plain": [], "kernel": []}
             for which in ("plain", "kernel", "kernel", "plain"):
                 fn = cuda_kernels._rbf_torch if which == "plain" \
                     else cuda_kernels.rbf_kernel_matrix
-                t[which].append(cuda_ms(lambda: fn(Z, X2t, ls_iso, var1)))
-            cols = M if X2t is None else X2t.shape[1]
-            t["bound"] = rbf_bound(1, M, cols, D, 1)
+                t[which].append(cuda_ms(lambda: fn(A, X2t, ls, var1)))
+            rows, dim = A.shape[1:]
+            t["shape"] = (rows, rows if X2t is None else X2t.shape[1], dim)
+            t["bound"] = rbf_bound(1, *t["shape"], 1)
             rbf_ms[label] = t
     ms = rbf_ms["Kzx"]
     bulk = rng.uniform(0.0, BOX, (BULK_ROWS, D)).astype(np.float32)
@@ -1125,14 +1297,13 @@ def main():
             rows_s[which].append(BULK_ROWS / (time.perf_counter() - t0))
         finally:
             cuda_kernels.set_use_kernel(True)
-    print("phase 5 timing ({}): rbf gram, D={}: {} | serving {} rows at "
+    print("phase 5 timing ({}): rbf gram: {} | serving {} rows at "
           "chunk {}: kernel {} rows/s, plain {} rows/s".format(
-              card, D, " | ".join(
-                  "{} ({} x {}): kernel {} ms, plain {} ms, bound {:.5f} ms "
-                  "({}), best kernel at {:.1%} of the bound".format(
-                      label, M, M if label == "Kuu" else
-                      (CHUNK if label == "Kzx" else TRAIN_B), t["kernel"],
-                      t["plain"], t["bound"][0], t["bound"][1],
+              card, " | ".join(
+                  "{} ({} x {}, D={}): kernel {} ms, plain {} ms, bound "
+                  "{:.5f} ms ({}), best kernel at {:.1%} of the bound".format(
+                      label, *t["shape"], t["kernel"], t["plain"],
+                      t["bound"][0], t["bound"][1],
                       t["bound"][0] / min(t["kernel"]))
                   for label, t in rbf_ms.items()),
               BULK_ROWS, CHUNK, rows_s["kernel"], rows_s["plain"]),
@@ -1200,7 +1371,10 @@ def main():
     check(loss_rel <= TRAIN_LOSS_RTOL, "fused vs materialized losses part "
           "by {} relative: {} vs {}".format(loss_rel, fused_losses,
                                             plain_losses))
-    f64_loss = first_loss_f64(alg, start_state, fused_loop.first_batch)
+    # the bound at the start state on the first batch, float64 (plain)
+    f64_loss = loss_and_grad_at(
+        alg, start_state, fused_loop.first_batch, "float64", dev,
+        grad=False, rv_scaling={tm.Y.uuid: TRAIN_N / TRAIN_B})[0]
     f64_rel = abs(fused_losses[0] - f64_loss) / abs(f64_loss)
     check(f64_rel <= F64_LOSS_RTOL, "first fused loss {} vs float64 {}: "
           "relative {}".format(fused_losses[0], f64_loss, f64_rel))
@@ -1457,18 +1631,226 @@ def main():
     trace.parent.mkdir(parents=True, exist_ok=True)
     prof = profile_ppca(dev, args.seed + 7, PROFILE_STEPS, trace)
     if prof is None:
-        print("phase 13 profile: the trace holds no device events: device "
-              "time not measured", flush=True)
+        print("phase 13 profile: " + profile_summary(None, PROFILE_STEPS),
+              flush=True)
     else:
-        wall_ms, busy_ms, by_name = prof
         print("phase 13 profile ({}): structured PPCA, {} SVI steps under "
-              "torch.profiler: window {:.3f} ms ({:.3f} per step), device "
-              "busy {:.3f} ms ({:.3f} per step), idle share {:.1%} | device "
-              "time by kernel: {}".format(
-                  card, PROFILE_STEPS, wall_ms, wall_ms / PROFILE_STEPS,
-                  busy_ms, busy_ms / PROFILE_STEPS, 1 - busy_ms / wall_ms,
-                  " | ".join("{} {:.3f} ms".format(k, v / 1e3)
-                             for k, v in by_name[:8])), flush=True)
+              "torch.profiler: {}".format(
+                  card, PROFILE_STEPS, profile_summary(prof, PROFILE_STEPS)),
+              flush=True)
+
+    # ---- 14. the exact GP: MAP at the exact-GP bench's configuration,
+    # then a request through BatchedPredictor and prior draws
+    from mxfusion_tpu_torch.components.distributions.gp.kernels import (
+        Linear, Matern52, White)
+    from mxfusion_tpu_torch.inference import ForwardSampling
+    from mxfusion_tpu_torch.modules import GPRegression, SparseGPRegression
+    em, ealg = gp_model(GPRegression, RBF(input_dim=EXACT_D, variance=1.0,
+                                          lengthscale=1.0), EXACT_D)
+    eloop = recording_batch_loop(read_counts, sync)
+    einf = GradBasedInference(ealg, grad_loop=eloop, dtype="float32",
+                              device=dev)
+    zero_counts()
+    einf.run(X=Xe, Y=Ye, max_iter=EXACT_STEPS, learning_rate=EXACT_LR)
+    sync()
+    exact_launches = read_counts()
+    one_k1 = {"K1": 1, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    for i, counts in enumerate(eloop.counts):
+        check(counts == one_k1, "exact GP step {} launched {}; expected {} "
+              "(Kxx)".format(i, counts, one_k1))
+    elosses = eloop.losses
+    check(len(elosses) == EXACT_STEPS
+          and all(math.isfinite(v) for v in elosses)
+          and elosses[-1] < elosses[0],
+          "exact GP losses do not fall: {}".format(elosses))
+    e64 = loss_and_grad_at(ealg, eloop.start_state, [Xe, Ye], "float64",
+                           dev, grad=False)[0]
+    e_rel = abs(elosses[0] - e64) / abs(e64)
+    check(e_rel <= EXACT_F64_RTOL, "exact GP first loss float32 {} vs "
+          "float64 {}: relative {}".format(elosses[0], e64, e_rel))
+    refresh_posterior_cache(einf, [torch.as_tensor(Xe, device=dev),
+                                   torch.as_tensor(Ye, device=dev)])
+    zero_counts()
+    epred = BatchedPredictor(model=em, infr_params=einf.params,
+                             observed=[em.X], target_variables=[em.Y.uuid],
+                             chunk_size=CHUNK)
+    emu, evar = epred.predict(X=Xq)[0]
+    (eprior,) = ForwardSampling(
+        num_samples=4, model=em, observed=[em.X], infr_params=einf.params,
+        target_variables=[em.Y]).run(
+            X=Xe, generator=torch.Generator(dev).manual_seed(args.seed))
+    sync()
+    exact_serve = read_counts()
+    check(exact_serve == {"K1": 2, "K2": 0, "K3": 0, "K4": 0, "K5": 0},
+          "exact GP request of one chunk and one draw launched {}; "
+          "expected K1 twice (Kxt, the draw's Kxx)".format(exact_serve))
+    check(emu.shape == (1, CHUNK, 1) and evar.shape == (1, CHUNK)
+          and np.isfinite(emu).all() and np.isfinite(evar).all(),
+          "exact GP prediction {} {} not finite or not (1, {}, 1), (1, {})"
+          .format(emu.shape, evar.shape, CHUNK, CHUNK))
+    check(tuple(eprior.shape) == (4, EXACT_N, 1)
+          and bool(torch.isfinite(eprior).all()),
+          "exact GP draws {} not finite or not (4, {}, 1)".format(
+              tuple(eprior.shape), EXACT_N))
+    ekern = em.Y.factor._module_graph.kernel
+    emu64, evar64 = exact_gp_predict_f64(
+        Xe.astype(np.float64), Ye.astype(np.float64),
+        float(einf.params[ekern.lengthscale]),
+        float(einf.params[ekern.variance]),
+        float(einf.params[em.noise_var]), Xq[:F64_ROWS].astype(np.float64))
+    e_mean = rel_err(emu[0, :F64_ROWS], emu64)
+    e_var = rel_err(evar[0, :F64_ROWS], evar64)
+    check(e_mean <= F64_RTOL and e_var <= F64_RTOL, "exact GP prediction "
+          "vs float64: mean rel {}, variance rel {} (tol {})".format(
+              e_mean, e_var, F64_RTOL))
+    print("phase 14 exact GP: N={} D={} RBF, MAP + Adam lr {}, {} steps | "
+          "K1 launches per step {} | losses {:.6g} -> {:.6g} | first loss "
+          "float32 {:.8g} vs float64 {:.8g}: rel {:.3e} (tol {:.0e}) | "
+          "request of {} rows: K1 {} (Kxt), vs float64 on {} rows mean rel "
+          "{:.3e} var rel {:.3e} (tol {:.0e}) | 4 prior draws {} finite (K1 "
+          "1) | step wall ms ({}): median {:.3f} over steps 2-{} (first "
+          "{:.3f})".format(
+              EXACT_N, EXACT_D, EXACT_LR, EXACT_STEPS, eloop.counts[0]["K1"],
+              elosses[0], elosses[-1], elosses[0], e64, e_rel,
+              EXACT_F64_RTOL, CHUNK, exact_serve["K1"] - 1, F64_ROWS,
+              e_mean, e_var, F64_RTOL, tuple(eprior.shape), card,
+              1e3 * float(np.median(eloop.wall_s[1:])), EXACT_STEPS,
+              1e3 * eloop.wall_s[0]), flush=True)
+
+    # ---- 15. the collapsed GP: full-batch MAP at N = 65536, M = 512,
+    # D = 32, then a request through BatchedPredictor
+    srng = np.random.default_rng(args.seed + 12)
+    Xs_, Ys_ = Xtr[:SGP_N], Ytr[:SGP_N]
+    Z0 = srng.uniform(0.0, BOX, (M, D))
+    sm, salg = gp_model(
+        SparseGPRegression, RBF(input_dim=D, variance=1.0,
+                                lengthscale=math.sqrt(D)), D,
+        inducing_inputs=Variable(shape=(M, D), initial_value=Z0))
+    sloop = recording_batch_loop(read_counts, sync)
+    sinf = GradBasedInference(salg, grad_loop=sloop, dtype="float32",
+                              device=dev)
+    zero_counts()
+    sinf.run(X=Xs_, Y=Ys_, max_iter=SGP_STEPS, learning_rate=SGP_LR)
+    sync()
+    sgp_launches = read_counts()
+    two_k1 = {"K1": 2, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    for i, counts in enumerate(sloop.counts):
+        check(counts == two_k1, "collapsed GP step {} launched {}; expected "
+              "{} (Kuu, Kuf)".format(i, counts, two_k1))
+    slosses = sloop.losses
+    check(len(slosses) == SGP_STEPS
+          and all(math.isfinite(v) for v in slosses),
+          "collapsed GP losses not finite: {}".format(slosses))
+    s64 = loss_and_grad_at(salg, sloop.start_state, [Xs_, Ys_], "float64",
+                           dev, grad=False)[0]
+    s_rel = abs(slosses[0] - s64) / abs(s64)
+    check(s_rel <= SGP_F64_RTOL, "collapsed GP first loss float32 {} vs "
+          "float64 {}: relative {}".format(slosses[0], s64, s_rel))
+    tiers = {}
+    try:
+        for tier in ("highest", "default"):
+            precision.set_data_precision(tier)
+            tiers[tier] = loss_and_grad_at(salg, sloop.start_state,
+                                           [Xs_, Ys_], "float32", dev)
+    finally:
+        precision.set_data_precision("default")
+    (lh, gh), (ld, gd) = tiers["highest"], tiers["default"]
+    tier_rel = max([abs(ld - lh) / abs(lh)] + [rel_err(gd[k], gh[k])
+                                                for k in gh])
+    check(tier_rel <= SGP_TIER_RTOL, "collapsed GP bound with the data tier "
+          "at TF32 vs HIGHEST: loss {} vs {}, largest relative difference "
+          "of the loss and the gradients {} > {}".format(
+              ld, lh, tier_rel, SGP_TIER_RTOL))
+    refresh_posterior_cache(sinf, [torch.as_tensor(Xs_, device=dev),
+                                   torch.as_tensor(Ys_, device=dev)])
+    Xsq = srng.uniform(0.0, BOX, (CHUNK, D)).astype(np.float32)
+    zero_counts()
+    spred = BatchedPredictor(model=sm, infr_params=sinf.params,
+                             observed=[sm.X], target_variables=[sm.Y.uuid],
+                             chunk_size=CHUNK)
+    smu, svar = spred.predict(X=Xsq)[0]
+    sync()
+    sgp_serve = read_counts()
+    check(sgp_serve == {"K1": 1, "K2": 0, "K3": 0, "K4": 0, "K5": 0},
+          "collapsed GP request of one chunk launched {}; expected K1 once "
+          "(Kxt)".format(sgp_serve))
+    check(smu.shape == (1, CHUNK, 1) and svar.shape == (1, CHUNK)
+          and np.isfinite(smu).all() and np.isfinite(svar).all(),
+          "collapsed GP prediction {} {} not finite".format(smu.shape,
+                                                            svar.shape))
+    skern = sm.Y.factor._module_graph.kernel
+    smu64, svar64 = sparse_gp_predict_f64(
+        Xs_.astype(np.float64), Ys_.astype(np.float64),
+        sinf.params[sm.Y.factor.inducing_inputs].double().cpu().numpy(),
+        float(sinf.params[skern.lengthscale]),
+        float(sinf.params[skern.variance]),
+        float(sinf.params[sm.noise_var]), sm.Y.factor.jitter,
+        Xsq[:F64_ROWS].astype(np.float64))
+    s_mean = rel_err(smu[0, :F64_ROWS], smu64)
+    s_var = rel_err(svar[0, :F64_ROWS], svar64)
+    check(s_mean <= F64_RTOL and s_var <= F64_RTOL, "collapsed GP "
+          "prediction vs float64: mean rel {}, variance rel {} (tol {})"
+          .format(s_mean, s_var, F64_RTOL))
+    print("phase 15 collapsed GP: N={} M={} D={} RBF, full batch, MAP + "
+          "Adam lr {}, {} steps | K1 launches per step {} | losses {} | "
+          "first loss float32 {:.8g} vs float64 {:.8g}: rel {:.3e} (tol "
+          "{:.0e}) | data tier TF32 vs HIGHEST: loss and gradients rel "
+          "{:.3e} (tol {:.0e}) | request of {} rows: K1 {} (Kxt), vs "
+          "float64 on {} rows mean rel {:.3e} var rel {:.3e} (tol {:.0e}) | "
+          "step wall ms ({}): median {:.3f} of {}".format(
+              SGP_N, M, D, SGP_LR, SGP_STEPS, sloop.counts[0]["K1"],
+              [round(v, 3) for v in slosses], slosses[0], s64, s_rel,
+              SGP_F64_RTOL, tier_rel, SGP_TIER_RTOL, CHUNK, sgp_serve["K1"],
+              F64_ROWS, s_mean, s_var, F64_RTOL, card,
+              1e3 * float(np.median(sloop.wall_s)),
+              [round(1e3 * w, 3) for w in sloop.wall_s]), flush=True)
+
+    # ---- 16. the kernel family: the exact GP's log-pdf and gradient on
+    # sum and product kernels, float32 (K1 for each RBF gram) vs float64
+    family = []
+    for label, make in (
+            ("RBF(active_dims=[0, 1]) + Matern52 + White",
+             lambda: RBF(2, active_dims=[0, 1]) + Matern52(EXACT_D)
+             + White(EXACT_D, variance=0.05)),
+            ("RBF * Linear", lambda: RBF(EXACT_D) * Linear(EXACT_D))):
+        _, falg = gp_model(GPRegression, make(), EXACT_D)
+        zero_counts()
+        l32, g32 = loss_and_grad_at(falg, None, [Xe, Ye], "float32", dev)
+        flaunch = read_counts()
+        l64, g64 = loss_and_grad_at(falg, None, [Xe, Ye], "float64", dev)
+        check(flaunch == one_k1, "{}: the log-pdf and its gradient launched "
+              "{}; expected K1 once (one RBF gram)".format(label, flaunch))
+        l_rel = abs(l32 - l64) / abs(l64)
+        g_rel = max(rel_err(g32[k], g64[k]) for k in g64)
+        check(l_rel <= EXACT_F64_RTOL and g_rel <= FAMILY_GRAD_RTOL,
+              "{}: float32 vs float64 loss rel {} (tol {}), gradient rel "
+              "{} (tol {})".format(label, l_rel, EXACT_F64_RTOL, g_rel,
+                                   FAMILY_GRAD_RTOL))
+        family.append("{}: K1 {}, loss {:.8g} rel {:.3e}, gradients ({}) "
+                      "rel {:.3e}".format(label, flaunch["K1"], l32, l_rel,
+                                          len(g64), g_rel))
+    print("phase 16 kernel family: exact GP log-pdf and gradient at N={} "
+          "D={}, float32 on the card vs float64 (tol loss {:.0e}, gradients "
+          "{:.0e}) | {}".format(EXACT_N, EXACT_D, EXACT_F64_RTOL,
+                                FAMILY_GRAD_RTOL, " | ".join(family)),
+          flush=True)
+
+    # ---- 17. profile (information): where the exact and collapsed GP
+    # steps' time goes
+    for label, alg, data, steps, lr in (
+            ("exact GP (N={}, D={})".format(EXACT_N, EXACT_D), ealg,
+             {"X": Xe, "Y": Ye}, PROFILE_STEPS, EXACT_LR),
+            ("collapsed GP (N={}, M={}, D={})".format(SGP_N, M, D), salg,
+             {"X": Xs_, "Y": Ys_}, SGP_STEPS, SGP_LR)):
+        trace_gp = ROOT / "build" / "chip_smoke_{}_trace.json".format(
+            label.split()[0])
+        gp_prof = profile_steps(
+            lambda loop, alg=alg: GradBasedInference(
+                alg, grad_loop=loop, dtype="float32", device=dev),
+            data, steps, lr, trace_gp)
+        print("phase 17 profile ({}): {}, {} MAP steps under torch.profiler: "
+              "{}".format(card, label, steps,
+                          profile_summary(gp_prof, steps)), flush=True)
 
     check(not any(k == "jax" or k.startswith(("jax.", "mxfusion_tpu."))
                   or k == "mxfusion_tpu" for k in sys.modules),
@@ -1490,7 +1872,9 @@ def main():
         # no single PyTorch call computes K1, K2 or K3
         row("rbf_gram", "mxfusion_tpu_torch/csrc/rbf_gram.cu",
             "mxfusion_tpu/ops/pallas_kernels.py:89",
-            launches + train_launches["K1"], max_err, min(ms["kernel"]),
+            launches + train_launches["K1"] + exact_launches["K1"]
+            + exact_serve["K1"] + sgp_launches["K1"] + sgp_serve["K1"],
+            max_err, min(ms["kernel"]),
             min(ms["plain"]), ms["bound"], None),
         row("fused_gram_fwd", fused_src,
             "mxfusion_tpu/ops/pallas_fused_gram.py:93", train_launches["K2"],

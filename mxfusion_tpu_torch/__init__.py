@@ -6,9 +6,13 @@ counterpart of the same path there. It imports ``torch`` and numpy and
 never ``jax``. Kernels written by hand for NVIDIA Hopper (sm_90a) live
 in ``csrc/`` and are built on first use (see ``ops/cuda_build.py``).
 
-Ported so far: the SVGP regression serving path (model IR, univariate
-``Normal``, GP distributions, the RBF kernel and its CUDA gram kernel,
-module dispatch, executors, parameter storage and ``BatchedPredictor``).
+Ported so far: the model IR, univariate ``Normal`` and the
+multivariate-normal family, the GP distributions and the GP kernel
+family, SVGP, exact and collapsed GP regression (training by MAP or
+SVI through the batch, minibatch and device loops; serving through
+``BatchedPredictor``), forward sampling, and the hand-written kernels
+of the paths they run (the RBF gram, the fused L⁻¹·Kuf gram and its
+backward, the batched Cholesky).
 """
 from .__version__ import __version__
 from .models import Model, Posterior, FactorGraph

@@ -1,0 +1,24 @@
+"""Sum of kernels.
+
+Counterpart of ``mxfusion_tpu/components/distributions/gp/kernels/
+add_kernel.py``: K and Kdiag are the sums of the sub-kernels'. An
+``RBF`` among them builds its gram through ``RBF._compute_K`` as it
+does alone (one K1 launch per gram on the card).
+"""
+from .kernel import CombinationKernel
+
+
+class AddKernel(CombinationKernel):
+    def _compute_K(self, X, X2=None, **kernel_params):
+        total = None
+        for k in self.sub_kernels:
+            Ki = k.K(X, X2=X2, **kernel_params)
+            total = Ki if total is None else total + Ki
+        return total
+
+    def _compute_Kdiag(self, X, **kernel_params):
+        total = None
+        for k in self.sub_kernels:
+            Ki = k.Kdiag(X, **kernel_params)
+            total = Ki if total is None else total + Ki
+        return total

@@ -3,13 +3,15 @@
 Counterpart of ``mxfusion_tpu/components/distributions/gp/kernels/
 kernel.py``. A kernel is a function object with parameter Variables
 living in a name-prefixed namespace (``{kernel_name}_{param}``); K and
-Kdiag strip one prefix level before dispatching. Covariances are batched
-tensor code with the leading sample axis riding along. The combination
-kernels (sum, product) come with their own slice.
+Kdiag strip one prefix level before dispatching, and combination
+kernels (``k1 + k2``, ``k1 * k2``) nest prefixes: ``add_rbf_lengthscale``.
+Covariances are batched tensor code with the leading sample axis riding
+along.
 """
 from ....variables.variable import Variable
 from ....variables.var_trans import PositiveTransformation
 from .....common.config import get_default_dtype
+from .....common.exceptions import ModelSpecificationError
 from .....util.util import slice_axis
 
 
@@ -79,6 +81,27 @@ class Kernel:
         return {name: env[v.uuid] for name, v in self.parameters.items()}
 
     # ------------------------------------------------------------------
+    def add(self, other, name="add"):
+        if not isinstance(other, Kernel):
+            raise ModelSpecificationError(
+                "Only a Kernel can be added to a Kernel.")
+        from .add_kernel import AddKernel
+        return AddKernel([self, other], name=name, dtype=self.dtype)
+
+    def __add__(self, other):
+        return self.add(other)
+
+    def multiply(self, other, name="mul"):
+        if not isinstance(other, Kernel):
+            raise ModelSpecificationError(
+                "Only a Kernel can be multiplied with a Kernel.")
+        from .multiply_kernel import MultiplyKernel
+        return MultiplyKernel([self, other], name=name, dtype=self.dtype)
+
+    def __mul__(self, other):
+        return self.multiply(other)
+
+    # ------------------------------------------------------------------
     def replicate_self(self, attribute_map=None):
         replica = type(self).__new__(type(self))
         object.__setattr__(replica, "_parameter_names",
@@ -104,3 +127,45 @@ class Kernel:
 
 class NativeKernel(Kernel):
     """Leaf kernels: covariance independent of other kernels."""
+
+
+class CombinationKernel(Kernel):
+    """Kernels combining sub-kernels: their parameters keep each
+    sub-kernel's prefix under the combination's own."""
+
+    def __init__(self, sub_kernels, name, dtype=None):
+        input_dim = max(k.input_dim for k in sub_kernels)
+        # rename duplicate sub-kernel names in place: rbf, rbf -> rbf_0, rbf_1
+        names = [k.name for k in sub_kernels]
+        counts = {}
+        for n in names:
+            counts[n] = counts.get(n, 0) + 1
+        seen = {}
+        for k in sub_kernels:
+            if counts[k.name] > 1:
+                idx = seen.get(k.name, 0)
+                seen[k.name] = idx + 1
+                k.name = k.name + "_" + str(idx)
+        super().__init__(input_dim=input_dim, name=name, dtype=dtype)
+        self.sub_kernels = list(sub_kernels)
+
+    @property
+    def parameters(self):
+        p = {}
+        for k in self.sub_kernels:
+            p.update(k.parameters)
+        return {self.name + "_" + k: v for k, v in p.items()}
+
+    @property
+    def parameter_names(self):
+        out = []
+        for k in self.sub_kernels:
+            out.extend(self.name + "_" + n for n in k.parameter_names)
+        return out
+
+    def replicate_self(self, attribute_map=None):
+        replica = super().replicate_self(attribute_map)
+        object.__setattr__(
+            replica, "sub_kernels",
+            [k.replicate_self(attribute_map) for k in self.sub_kernels])
+        return replica

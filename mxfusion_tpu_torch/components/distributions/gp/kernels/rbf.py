@@ -6,7 +6,11 @@ rbf.py``. ``K = variance * exp(-R²/2)``. Where
 inputs of the shapes the kernel takes), K comes from
 ``rbf_kernel_matrix``: on the card, the hand-written CUDA gram kernel in
 one pass (scaling, cross term, clamp and exp fused). Other inputs take
-the plain branch, as JAX's gate sends them to ``_rbf_jnp``.
+the plain branch, as JAX's gate sends them to ``_rbf_jnp``. Inside an
+``AddKernel`` or ``MultiplyKernel`` an RBF builds each of its grams the
+same way, one launch per gram; with ``active_dims`` it takes the dense
+copy that ``Kernel.K``'s ``index_select`` makes of the chosen columns.
+``Kdiag`` stays plain.
 """
 import torch
 

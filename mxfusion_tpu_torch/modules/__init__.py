@@ -1,2 +1,2 @@
 from .module import Module
-from .gp_modules import SVGPRegression
+from .gp_modules import GPRegression, SparseGPRegression, SVGPRegression

@@ -1,1 +1,3 @@
+from .gp_regression import GPRegression
+from .sparsegp_regression import SparseGPRegression
 from .svgp_regression import SVGPRegression

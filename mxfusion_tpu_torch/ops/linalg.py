@@ -13,12 +13,15 @@ def _sym(A):
 
 def _nan_lower(L, failed):
     """NaN in the lower triangle (diagonal included) of each matrix whose
-    ``failed`` flag is set; the upper triangle stays 0."""
+    ``failed`` flag is set; the upper triangle stays 0. The NaN is added
+    to L rather than put in its place, so that a gradient through a
+    failed factor is NaN too, as it is through ``jnp.linalg.cholesky``'s
+    (a substitution would hand the factorization a zero cotangent)."""
     n = L.shape[-1]
     lower = torch.ones((n, n), dtype=torch.bool, device=L.device).tril()
-    return torch.where(failed[..., None, None] & lower,
-                       torch.full((), math.nan, dtype=L.dtype,
-                                  device=L.device), L)
+    nan = torch.full((), math.nan, dtype=L.dtype, device=L.device)
+    return L + torch.where(failed[..., None, None] & lower, nan,
+                           torch.zeros((), dtype=L.dtype, device=L.device))
 
 
 def cholesky(A):

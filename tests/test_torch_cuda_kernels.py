@@ -641,3 +641,80 @@ def test_cuda_cholesky_dispatch(cuda_device):
             wrapper(A.double())
         with pytest.raises(ValueError, match="n <= 128"):
             wrapper(torch.zeros((2, 129, 129), device=cuda_device))
+
+
+# ---------------------------------------------------------------------
+# K1 on the exact and collapsed GP paths
+# ---------------------------------------------------------------------
+
+# (s, N, M, D): D = 1 (the golden; D % 4 != 0, so the 4-byte input path)
+# and D = 4 (the exact-GP bench), the symmetric Kxx (M None) at N = 1024
+# and 1000, and the prediction chunk's Kxt (1024 x 8192)
+GP_SHAPES = [(1, 1024, None, 1), (1, 1024, None, 4), (1, 1000, None, 1),
+             (1, 1024, 8192, 4), (1, 1024, 8192, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,N,M,D", GP_SHAPES)
+def test_cuda_kernel_matches_plain_at_gp_shapes(cuda_device, s, N, M, D):
+    rng = np.random.default_rng(31)
+
+    def dev(a):
+        return None if a is None else torch.as_tensor(
+            a, dtype=torch.float32, device=cuda_device)
+    X = dev(rng.random((s, N, D)) * 4)
+    X2 = None if M is None else dev(rng.random((s, M, D)) * 4)
+    ls, var = dev(np.ones((s, 1))), dev(np.ones((s, 1)))
+    before = ck.rbf_kernel_matrix.launches
+    with torch.no_grad():
+        K = ck.rbf_kernel_matrix(X, X2, ls, var)
+        P = ck._rbf_torch(X, X2, ls, var)
+    torch.cuda.synchronize()
+    assert ck.rbf_kernel_matrix.launches == before + 1
+    assert K.shape == P.shape == (s, N, N if M is None else M)
+    assert float((K - P).abs().max()) <= 1e-5
+
+
+def _combination(combo):
+    from mxfusion_tpu_torch.components.distributions.gp import kernels as k
+    if combo == "add":
+        return k.RBF(2, ARD=True, active_dims=[0, 2]) + k.Matern52(3) + \
+            k.White(3)
+    return k.RBF(3, active_dims=[2, 0, 1]) * k.Linear(3, ARD=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combo", ["add", "mul"])
+def test_cuda_kernel_in_sum_and_product_kernels(cuda_device, combo):
+    """An RBF inside an AddKernel (on the ``active_dims`` columns 0 and
+    2) or a MultiplyKernel (columns permuted) launches K1 once per gram,
+    on the dense copy that ``index_select`` makes; K, K(X) and Kdiag
+    match the plain route within 1e-5 of their largest entry (variances
+    of order 1; fp32 summation order)."""
+    kern = _combination(combo)
+    rng = np.random.default_rng(32)
+    params = {n: torch.as_tensor(rng.uniform(0.5, 1.5, (1,) + v.shape),
+                                 dtype=torch.float32, device=cuda_device)
+              for n, v in kern.parameters.items()}
+    X = torch.as_tensor(rng.random((1, 300, 3)) * 2, dtype=torch.float32,
+                        device=cuda_device)
+    X2 = torch.as_tensor(rng.random((1, 200, 3)) * 2, dtype=torch.float32,
+                         device=cuda_device)
+
+    def grams():
+        with torch.no_grad():
+            return (kern.K(X, X2, **params), kern.K(X, **params),
+                    kern.Kdiag(X, **params))
+    before = ck.rbf_kernel_matrix.launches
+    got = grams()
+    torch.cuda.synchronize()
+    assert ck.rbf_kernel_matrix.launches == before + 2
+    ck.set_use_kernel(False)
+    try:
+        want = grams()
+    finally:
+        ck.set_use_kernel(True)
+    assert ck.rbf_kernel_matrix.launches == before + 2
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())

@@ -1,7 +1,8 @@
 """mxfusion_tpu_torch stands without JAX: a fresh interpreter in which
 ``import jax`` fails imports the port, trains the small slice with both
-minibatch loops and serves it from a numpy state, and runs the MVN slice
-(structured-PPCA SVI, then forward sampling). Also: chip_smoke.py refuses
+minibatch loops and serves it from a numpy state, runs the MVN slice
+(structured-PPCA SVI, then forward sampling), and fits and serves the
+exact and collapsed GP modules. Also: chip_smoke.py refuses
 to run without a GPU and without the rest of the repository."""
 import os
 import shutil
@@ -160,6 +161,71 @@ jaxy = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib",
 assert not jaxy, jaxy
 print("PPCA", losses[-1])
 """
+
+
+GP_WITHOUT_JAX = r"""
+import sys
+sys.modules["jax"] = None          # any `import jax` now raises
+sys.path.insert(0, {root!r})
+import numpy as np
+from mxfusion_tpu_torch import Model, Variable
+from mxfusion_tpu_torch.common.config import set_default_device
+from mxfusion_tpu_torch.components.variables import PositiveTransformation
+from mxfusion_tpu_torch.components.distributions.gp.kernels import (
+    AddKernel, Bias, CombinationKernel, Kernel, Linear, Matern, Matern12,
+    Matern32, Matern52, MultiplyKernel, NativeKernel, Periodic, Polynomial,
+    RBF, RationalQuadratic, StationaryKernel, White)
+from mxfusion_tpu_torch.modules import GPRegression, SparseGPRegression
+from mxfusion_tpu_torch.inference import (BatchedPredictor,
+                                          GradBasedInference, MAP)
+
+set_default_device("cpu")
+N, D = 60, 2
+rng = np.random.default_rng(0)
+X = rng.uniform(0, 4, (N, D))
+Y = np.sin(2 * X[:, :1]) + 0.1 * rng.standard_normal((N, 1))
+for Module, kw in ((GPRegression, {{}}),
+                   (SparseGPRegression, {{"inducing_inputs": Variable(
+                       shape=(8, D), initial_value=rng.uniform(0, 4, (8, D)))
+                   }})):
+    m = Model()
+    m.N = Variable()
+    m.X = Variable(shape=(m.N, D))
+    m.noise_var = Variable(transformation=PositiveTransformation(),
+                           initial_value=0.1)
+    m.Y = Module.define_variable(
+        X=m.X, kernel=RBF(D, active_dims=[0, 1]) + Matern52(D) + White(D),
+        noise_var=m.noise_var, shape=(m.N, 1), **kw)
+    infr = GradBasedInference(MAP(model=m, observed=[m.X, m.Y]))
+    losses = []
+    infr.run(X=X, Y=Y, max_iter=10, learning_rate=0.05,
+             callback=lambda i, l: losses.append(float(l)))
+    assert np.all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    pred = BatchedPredictor(model=m, infr_params=infr.params,
+                            observed=[m.X], target_variables=[m.Y.uuid],
+                            chunk_size=16)
+    Xt = rng.uniform(0, 4, (40, D))
+    mu, var = pred.predict(X=Xt)[0]
+    assert mu.shape == (1, 40, 1) and var.shape == (1, 40), (mu.shape,
+                                                              var.shape)
+    err = float(np.abs(mu[0] - np.sin(2 * Xt[:, :1])).mean())
+    assert np.isfinite(var).all() and err < 0.5, err
+jaxy = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib",
+                                                       "mxfusion_tpu")
+        and sys.modules[k] is not None]
+assert not jaxy, jaxy
+print("GP", losses[-1])
+"""
+
+
+def test_port_fits_and_predicts_gp_modules_without_jax():
+    """The exact and collapsed GP modules, on a sum kernel, train by MAP
+    and serve through BatchedPredictor in an interpreter without JAX."""
+    proc = subprocess.run(
+        [sys.executable, "-c", GP_WITHOUT_JAX.format(root=str(ROOT))],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert "GP" in proc.stdout
 
 
 def test_port_runs_the_mvn_slice_without_jax():
