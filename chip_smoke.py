@@ -8,7 +8,9 @@ DeviceMinibatchLoop)`` at the bench.py headline step shape (B = 65536),
 the multivariate-normal slice (structured-PPCA SVI with a
 full-covariance posterior, then forward sampling), and the exact and
 collapsed GP modules (``GPRegression`` at the exact-GP bench's N = 1024,
-``SparseGPRegression`` at N = 65536, M = 512) with the GP kernel family.
+``SparseGPRegression`` at N = 65536, M = 512) with the GP kernel family,
+and the mean-field slice (SVI, IWAE, BBVI and ADVI over constrained
+latents), which launches none of the kernels.
 In phases that each print one line:
 
 1. device: needs CUDA (exits nonzero without it); prints the card's
@@ -110,7 +112,32 @@ In phases that each print one line:
    ``RBF * Linear``: K1 once (one RBF gram each), float32 vs float64
    within 1e-4 (loss) and 1e-3 (gradients);
 17. profile (information): ten exact-GP and four collapsed-GP MAP steps
-   under ``torch.profiler``, as phase 13 (traces in ``build/``).
+   under ``torch.profiler``, as phase 13 (traces in ``build/``);
+18. mean-field PPCA: BASELINE config 1 at phase 9's widths and data
+   (N = 2048, Q = 64, D = 128) under ``create_Gaussian_meanfield``,
+   ``StochasticVariationalInference`` with S = 10 and 20 Adam steps: no
+   launch of K1-K5, the loss falls, the first loss on fixed draws
+   float32 vs float64 within 1e-4; prints the step wall's median and
+   quartiles over steps 2-20;
+19. mean-field linear regression: config 2 on the first 65536 rows of
+   phase 6's data (D = 32, a learned noise variance), the same checks;
+   and ``ImportanceWeightedVariationalInference`` at S = 64: its bound
+   is at least the ELBO on the same draws; then ten SVI steps of each
+   of phases 18 and 19 under ``torch.profiler`` (the idle share);
+20. BBVI: ``ScoreFunctionInference`` and ``ScoreFunctionRBInference`` on
+   phase 19's model and state at S = 4096 fixed draws: the gradient in
+   q's mean within five standard errors (of the per-sample differences)
+   of the pathwise SVI gradient on the same draws; then 20 steps of each
+   with finite losses;
+21. ADVI: Gamma-Exponential, Beta-Bernoulli and Dirichlet-Categorical
+   (K = 16) on N = 65536 observations drawn on the card: the mean-field
+   factor is LogNormal, LogitNormal and StickBreakingNormal, and q's
+   mean, from draws of the fitted factor, lies within 3% of the
+   conjugate posterior's; then 2^20 draws of each distribution of the
+   slice on the card's generator: means and variances within six
+   standard errors of the closed forms (LogitNormal and
+   StickBreakingNormal against float64 numpy pushforwards of normal
+   draws; InverseGamma at alpha = 6).
 
 Any failed check raises and the script exits nonzero. The last three
 lines are the card (nvidia-smi), the kernels' JSON record (each with
@@ -221,6 +248,31 @@ SGP_F64_RTOL = 1e-3
 # the bound pins the data tier at HIGHEST in both directions, so the
 # TF32 data tier must leave its loss and gradient as they are
 SGP_TIER_RTOL = 1e-6
+# the mean-field slice (phases 18-21): BASELINE configs 1 and 2 under
+# create_Gaussian_meanfield, S = 10 draws a step, 20 Adam steps; config 1
+# at phase 9's widths and data, config 2 on the first 65536 rows of phase
+# 6's data (D = 32)
+MF_S, MF_STEPS, MF_LR = 10, 20, 0.02
+LINREG_N = 65536
+# float32 vs float64 at the same start and draws: sums of 2048·128
+# likelihood terms (config 1) and 65536 (config 2) in fp32
+MF_F64_RTOL = 1e-4
+IWAE_S = 64
+# BBVI against the pathwise gradient on S = 4096 fixed draws: both are
+# unbiased for the same gradient, so their difference's mean lies within
+# a few standard errors of 0 (five, over 32 coordinates)
+BBVI_S, BBVI_SE = 4096, 5.0
+# ADVI over constrained latents: three conjugate pairs, N = 65536
+# observations drawn on the card, 400 Adam steps at lr 0.05 and 400 at
+# 0.002 (at 0.05 alone the SVI noise keeps the Dirichlet's q some 3% off
+# the posterior's mean, whose own spread is under 5%; a CPU run of this
+# phase reached 0.7% after both); q's mean from 65536 draws of the
+# fitted factor within 3% of the conjugate posterior's
+ADVI_N, ADVI_K, ADVI_RTOL = 65536, 16, 0.03
+ADVI_STEPS, ADVI_LR, ADVI_FINE_STEPS, ADVI_FINE_LR = 400, 0.05, 400, 0.002
+# 2^20 draws of each distribution: means and variances within six
+# standard errors of the closed forms (or of a float64 numpy pushforward)
+MOMENT_DRAWS, MOMENT_SE = 1 << 20, 6.0
 
 
 def check(ok, message):
@@ -781,22 +833,40 @@ def ppca_loss_at(state, x, noise, W0, dtype, dev):
     from mxfusion_tpu_torch.components.distributions import \
         FixedRandomGenerator
     from mxfusion_tpu_torch.inference import (
-        GradBasedInference, StochasticVariationalInference, create_executor)
-    from mxfusion_tpu_torch.util.carryover import load_state
+        GradBasedInference, StochasticVariationalInference)
     n, d = x.shape
     m, q = build_ppca(n, W0.shape[0], d, W0, dtype=dtype,
                       rand_gens={"q": FixedRandomGenerator(noise)})
-    inf = GradBasedInference(StochasticVariationalInference(
+    return loss_at(GradBasedInference(StochasticVariationalInference(
         num_samples=PPCA_S, model=m, posterior=q, observed=[m.x]),
-        dtype=dtype, device=dev)
-    inf.initialize(x=x)
+        dtype=dtype, device=dev), state, {"x": x}, dev)
+
+
+def loaded(inf, state, data):
+    """``inf`` initialized on ``data`` (by observed variable name) and
+    set to the name-path ``state``."""
+    from mxfusion_tpu_torch.util.carryover import load_state
+    inf.initialize(**data)
     load_state(inf.params, {k: v.double().cpu().numpy()
                             for k, v in state.items()}, inf.graphs)
+    return inf
+
+
+def loss_at(inf, state, data, dev):
+    """The loss of ``inf``'s algorithm at the name-path ``state``."""
+    import torch
+    from mxfusion_tpu_torch.inference import create_executor
+    inf = loaded(inf, state, data)
     ex = create_executor(inf.inference_algorithm, inf.params)
     with torch.no_grad():
         return float(ex(inf.params.trainable_params(),
-                        inf.params.fixed_params(), [x],
+                        inf.params.fixed_params(), observed_data(inf, data),
                         torch.Generator(dev))[0])
+
+
+def observed_data(inf, data):
+    """``data`` by observed variable name, in the algorithm's order."""
+    return [data[v.name] for v in inf.inference_algorithm.observed_variables]
 
 
 def whitened_moments(z, mu, L):
@@ -850,21 +920,31 @@ def train_ppca(dev, seed, n, q_dim, d, steps, read_counts, sync):
     """Structured-PPCA SVI through ``GradBasedInference`` (S = 4 samples,
     Adam): returns the trained inference, the data, W's start, the start
     state by name path and the recording loop."""
-    import torch
     from mxfusion_tpu_torch.inference import (
         GradBasedInference, StochasticVariationalInference)
-    from mxfusion_tpu_torch.util.carryover import name_paths
     x, W0 = ppca_data(np.random.default_rng(seed), n, q_dim, d)
     m, q = build_ppca(n, q_dim, d, W0)
-    loop = recording_batch_loop(read_counts, sync)
-    inf = GradBasedInference(StochasticVariationalInference(
-        num_samples=PPCA_S, model=m, posterior=q, observed=[m.x]),
-        grad_loop=loop, dtype="float32", device=dev)
-    inf.run(x=x, max_iter=steps, learning_rate=PPCA_LR,
-            generator=torch.Generator(dev).manual_seed(seed))
-    paths = name_paths(inf.graphs)
-    start = {paths[k]: v for k, v in loop.start_state.items()}
+    inf, loop, start = train_recorded(
+        lambda loop: GradBasedInference(StochasticVariationalInference(
+            num_samples=PPCA_S, model=m, posterior=q, observed=[m.x]),
+            grad_loop=loop, dtype="float32", device=dev),
+        {"x": x}, steps, PPCA_LR, dev, seed, read_counts, sync)
     return inf, x, W0, start, loop
+
+
+def train_recorded(make_inference, data, steps, lr, dev, seed,
+                   read_counts, sync):
+    """``steps`` Adam steps of ``make_inference(loop)`` through a
+    recording loop: returns the inference, the loop and the start state
+    by name path."""
+    import torch
+    from mxfusion_tpu_torch.util.carryover import name_paths
+    loop = recording_batch_loop(read_counts, sync)
+    inf = make_inference(loop)
+    inf.run(max_iter=steps, learning_rate=lr,
+            generator=torch.Generator(dev).manual_seed(seed), **data)
+    paths = name_paths(inf.graphs)
+    return inf, loop, {paths[k]: v for k, v in loop.start_state.items()}
 
 
 def profile_steps(make_inference, data, steps, lr, trace_path,
@@ -968,6 +1048,475 @@ def sample_ppca(inf, seed):
                             infr_params=inf.params,
                             target_variables=[m.z, m.x])
     return post.run(generator=gen), prior.run(generator=gen)
+
+
+def meanfield_ppca(n, q_dim, d, W0, dtype="float32"):
+    """BASELINE config 1 (tests/goldens/configs.py:48-77) at phase 9's
+    widths: z_n ~ N(0, I), x = z·w + noise, w starting at W0. The
+    priors' inputs are unnamed: the name paths of ``util.carryover``
+    tell them apart. Returns (model, observed)."""
+    from mxfusion_tpu_torch import Model, Variable
+    from mxfusion_tpu_torch.components.distributions import Normal
+    from mxfusion_tpu_torch.components.functions.operators import (
+        broadcast_to, dot)
+    from mxfusion_tpu_torch.components.variables import \
+        PositiveTransformation
+    m = Model()
+    m.w = Variable(shape=(q_dim, d), initial_value=W0)
+    m.z = Normal.define_variable(
+        mean=broadcast_to(Variable(value=0.), (n, q_dim)),
+        variance=broadcast_to(Variable(value=1.), (n, q_dim)),
+        shape=(n, q_dim), dtype=dtype)
+    m.noise = Variable(transformation=PositiveTransformation(),
+                       initial_value=1.0)
+    m.x = Normal.define_variable(mean=dot(m.z, m.w),
+                                 variance=broadcast_to(m.noise, (n, d)),
+                                 shape=(n, d), dtype=dtype)
+    return m, [m.x]
+
+
+def meanfield_linreg(n, d, dtype="float32"):
+    """BASELINE config 2 (tests/goldens/configs.py:80-111): w ~ N(0, I)
+    in R^(d x 1), y = X·w + noise with a learned noise variance.
+    Returns (model, observed)."""
+    from mxfusion_tpu_torch import Model, Variable
+    from mxfusion_tpu_torch.components.distributions import Normal
+    from mxfusion_tpu_torch.components.functions.operators import (
+        broadcast_to, dot)
+    from mxfusion_tpu_torch.components.variables import \
+        PositiveTransformation
+    m = Model()
+    m.X = Variable(shape=(n, d))
+    m.w = Normal.define_variable(
+        mean=broadcast_to(Variable(value=0.), (d, 1)),
+        variance=broadcast_to(Variable(value=1.), (d, 1)),
+        shape=(d, 1), dtype=dtype)
+    m.noise = Variable(transformation=PositiveTransformation(),
+                       initial_value=1.0)
+    m.y = Normal.define_variable(mean=dot(m.X, m.w),
+                                 variance=broadcast_to(m.noise, (n, 1)),
+                                 shape=(n, 1), dtype=dtype)
+    return m, [m.X, m.y]
+
+
+def posterior_latents(q):
+    from mxfusion_tpu_torch.components.variables import VariableType
+    return [v for v in q.variables.values()
+            if v.type == VariableType.RANDVAR]
+
+
+def meanfield_inference(build, algorithm, S, dev, dtype="float32",
+                        grad_loop=None, noise=None):
+    """``GradBasedInference(algorithm)`` over ``build(dtype)``'s model
+    and its ``create_Gaussian_meanfield`` posterior, whose draws are
+    ``noise`` when it is given."""
+    from mxfusion_tpu_torch.components.distributions import \
+        FixedRandomGenerator
+    from mxfusion_tpu_torch.inference import (GradBasedInference,
+                                              create_Gaussian_meanfield)
+    m, observed = build(dtype)
+    q = create_Gaussian_meanfield(model=m, observed=observed, dtype=dtype)
+    if noise is not None:
+        for v in posterior_latents(q):
+            v.factor._rand_gen = FixedRandomGenerator(noise)
+    return GradBasedInference(
+        algorithm(num_samples=S, model=m, posterior=q, observed=observed),
+        grad_loop=grad_loop, dtype=dtype, device=dev)
+
+
+def meanfield_loss_at(build, state, data, S, noise, dtype, dev,
+                      algorithm=None):
+    """The loss of ``algorithm`` (default SVI) at the name-path ``state``
+    on posterior draws fixed to ``noise``, in ``dtype`` on ``dev``."""
+    from mxfusion_tpu_torch.inference import StochasticVariationalInference
+    return loss_at(meanfield_inference(
+        build, algorithm or StochasticVariationalInference, S, dev, dtype,
+        noise=noise), state, data, dev)
+
+
+def train_meanfield(build, data, S, steps, lr, dev, seed, read_counts,
+                    sync, algorithm=None):
+    """:func:`train_recorded` of ``algorithm`` (default SVI) over
+    ``build``'s mean-field model."""
+    from mxfusion_tpu_torch.inference import StochasticVariationalInference
+    return train_recorded(
+        lambda loop: meanfield_inference(
+            build, algorithm or StochasticVariationalInference, S, dev,
+            grad_loop=loop), data, steps, lr, dev, seed, read_counts, sync)
+
+
+def wall_summary(wall_s):
+    """Median and quartiles (ms) of the step walls after the first."""
+    q1, med, q3 = np.percentile(1e3 * np.asarray(wall_s[1:]), [25, 50, 75])
+    return "median {:.3f} (quartiles {:.3f}-{:.3f}) of {}".format(
+        med, q1, q3, [round(1e3 * w, 3) for w in wall_s])
+
+
+def per_sample_mean_gradients(inf, data, dev):
+    """The gradient of ``inf``'s differentiated loss in q's mean, per
+    sample: each draw gets its own copy of the mean in the env, and the
+    loss averages over the draws, so S times the copy's gradient is the
+    draw's own term. (S, ...) of the posterior's single latent."""
+    import torch
+    from mxfusion_tpu_torch.inference import RuntimeContext, create_executor
+    alg = inf.inference_algorithm
+    (v,) = posterior_latents(alg.posterior)
+    mean = dict(v.factor.inputs)["mean"]
+    env = create_executor(alg, inf.params).build_env(
+        inf.params.trainable_params(), inf.params.fixed_params(),
+        observed_data(inf, data))
+    S = alg.num_samples
+    copies = env[mean].detach().expand(
+        (S,) + tuple(env[mean].shape[1:])).clone().requires_grad_(True)
+    env[mean] = copies
+    _, loss_for_grad = alg.compute(env, RuntimeContext(torch.Generator(dev)))
+    loss_for_grad.backward()
+    return copies.grad * S
+
+
+def advi_pairs(dev, seed):
+    """The three conjugate pairs of phase 21, N = ADVI_N observations
+    drawn on the card: (label, model builder, data, the latent's name,
+    the expected factor family, the conjugate posterior's mean)."""
+    import torch
+    from mxfusion_tpu_torch import Model
+    from mxfusion_tpu_torch.components.distributions import (
+        Bernoulli, Beta, Categorical, Dirichlet, Exponential, Gamma)
+    from mxfusion_tpu_torch.components.functions.operators import (
+        broadcast_to, log)
+    g = torch.Generator(dev).manual_seed(seed)
+    n, k = ADVI_N, ADVI_K
+    y_exp = torch.empty((n, 1), device=dev).exponential_(generator=g) / 1.7
+    y_ber = (torch.rand((n, 1), generator=g, device=dev) < 0.3).float()
+    p_true = torch.arange(1, k + 1, dtype=torch.float32, device=dev)
+    p_true = p_true / p_true.sum()
+    y_cat = torch.multinomial(p_true, n, replacement=True,
+                              generator=g).float()[:, None]
+
+    def gamma_exponential(dtype):
+        m = Model()
+        m.tau = Gamma.define_variable(alpha=2.0, beta=2.0, shape=(1,),
+                                      dtype=dtype)
+        m.y = Exponential.define_variable(
+            rate=broadcast_to(m.tau, (n, 1)), shape=(n, 1), dtype=dtype)
+        return m, [m.y]
+
+    def beta_bernoulli(dtype):
+        m = Model()
+        m.p = Beta.define_variable(alpha=2.0, beta=2.0, shape=(1,),
+                                   dtype=dtype)
+        m.y = Bernoulli.define_variable(
+            prob_true=broadcast_to(m.p, (n, 1)), shape=(n, 1), dtype=dtype)
+        return m, [m.y]
+
+    def dirichlet_categorical(dtype):
+        m = Model()
+        m.p = Dirichlet.define_variable(alpha=np.full(k, 2.0), shape=(k,),
+                                        dtype=dtype)
+        m.y = Categorical.define_variable(
+            log_prob=log(broadcast_to(m.p, (n, k))), num_classes=k,
+            shape=(n, 1), dtype=dtype)
+        return m, [m.y]
+
+    counts = torch.bincount(y_cat[:, 0].long(), minlength=k).double()
+    return [
+        ("Gamma-Exponential", gamma_exponential, {"y": y_exp}, "tau",
+         "LogNormal", ((2.0 + n) / (2.0 + y_exp.double().sum()))[None]),
+        ("Beta-Bernoulli", beta_bernoulli, {"y": y_ber}, "p", "LogitNormal",
+         ((2.0 + y_ber.double().sum()) / (4.0 + n))[None]),
+        ("Dirichlet-Categorical (K={})".format(k), dirichlet_categorical,
+         {"y": y_cat}, "p", "StickBreakingNormal",
+         (2.0 + counts) / (2.0 * k + n))]
+
+
+def stick_breaking_f64(z):
+    """ops/simplex.py's forward in float64 numpy: R^(..., K-1) -> the
+    K-simplex, with the offsets log(K-1-k)."""
+    k1 = z.shape[-1]
+    v = 1.0 / (1.0 + np.exp(-(z - np.log(np.arange(k1, 0, -1)))))
+    rem = np.concatenate([np.ones(z.shape[:-1] + (1,)),
+                          np.cumprod(1.0 - v, axis=-1)], axis=-1)
+    return np.concatenate([v * rem[..., :-1], rem[..., -1:]], axis=-1)
+
+
+def moment_cases(rng, n):
+    """(name, class name, parameters, event shape, closed-form mean and
+    variance, or None and a float64 numpy sample of the same law)."""
+    k = 4
+    alpha = np.array([0.5, 1.0, 2.0, 4.0])
+    a0 = alpha.sum()
+    probs = np.arange(1, 17) / np.arange(1, 17).sum()
+    idx = np.arange(16)
+    cat_mean = float((idx * probs).sum())
+    sb_mean, sb_var = np.array([0.3, -0.5, 0.1]), np.array([0.4, 0.2, 0.9])
+    return [
+        ("LogNormal", "LogNormal", {"mean": 0.2, "variance": 0.25}, (1,),
+         (np.exp(0.325), (np.exp(0.25) - 1) * np.exp(0.65)), None),
+        ("LogitNormal", "LogitNormal", {"mean": 0.3, "variance": 0.5}, (1,),
+         None, 1.0 / (1.0 + np.exp(-(0.3 + np.sqrt(0.5)
+                                      * rng.standard_normal((n, 1)))))),
+        ("StickBreakingNormal (K=4)", "StickBreakingNormal",
+         {"mean": sb_mean, "variance": sb_var}, (k,), None,
+         stick_breaking_f64(sb_mean + np.sqrt(sb_var)
+                            * rng.standard_normal((n, k - 1)))),
+        ("Gamma", "Gamma", {"alpha": 2.5, "beta": 1.5}, (1,),
+         (2.5 / 1.5, 2.5 / 1.5 ** 2), None),
+        ("GammaMeanVariance", "GammaMeanVariance",
+         {"mean": 2.0, "variance": 0.5}, (1,), (2.0, 0.5), None),
+        ("Exponential", "Exponential", {"rate": 2.0}, (1,), (0.5, 0.25),
+         None),
+        ("InverseGamma (alpha=6)", "InverseGamma",
+         {"alpha": 6.0, "beta": 2.0}, (1,),
+         (2.0 / 5.0, 4.0 / (25.0 * 4.0)), None),
+        ("Beta", "Beta", {"alpha": 2.0, "beta": 3.0}, (1,),
+         (0.4, 6.0 / (25.0 * 6.0)), None),
+        ("Bernoulli", "Bernoulli", {"prob_true": 0.3}, (1,), (0.3, 0.21),
+         None),
+        ("Dirichlet (K=4)", "Dirichlet", {"alpha": alpha}, (k,),
+         (alpha / a0, alpha / a0 * (1 - alpha / a0) / (a0 + 1)), None),
+        ("Categorical (K=16), index", "Categorical",
+         {"log_prob": np.log(probs)}, (1,),
+         (cat_mean, float(((idx - cat_mean) ** 2 * probs).sum())), None)]
+
+
+def moment_check(x, closed, ref):
+    """Largest |mean - expected| and |variance - expected| over the
+    event's entries, each in standard errors of the draws (of both
+    samples against a pushforward)."""
+    x = x.reshape(x.shape[0], -1)
+    n = x.shape[0]
+    mean, var = x.mean(0), x.var(0)
+    m4 = ((x - mean) ** 4).mean(0)
+    if closed is not None:
+        e_mean, e_var = (np.asarray(c, dtype=np.float64).reshape(-1)
+                         for c in closed)
+        se_mean = np.sqrt(e_var / n)
+        se_var = np.sqrt((m4 - var ** 2) / n)
+    else:
+        r = ref.reshape(ref.shape[0], -1)
+        e_mean, e_var = r.mean(0), r.var(0)
+        r4 = ((r - e_mean) ** 4).mean(0)
+        se_mean = np.sqrt(var / n + e_var / r.shape[0])
+        se_var = np.sqrt((m4 - var ** 2) / n + (r4 - e_var ** 2) / r.shape[0])
+    return (float(np.max(np.abs(mean - e_mean) / se_mean)),
+            float(np.max(np.abs(var - e_var) / se_var)))
+
+
+def draw_moments(dev, seed):
+    """MOMENT_DRAWS draws of each distribution on the card's generator,
+    float32, against the closed forms: [(name, mean z, variance z)]."""
+    import torch
+    from mxfusion_tpu_torch.components import distributions as dists
+    from mxfusion_tpu_torch.components.variables import Variable
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, (name, cls, params, shape, closed, ref) in enumerate(
+            moment_cases(rng, MOMENT_DRAWS)):
+        inputs = {p: Variable() for p in params}
+        kw = {"num_classes": 16} if cls == "Categorical" else {}
+        dist = getattr(dists, cls)(dtype="float32", **kw, **inputs)
+        dist._generate_outputs(shape=shape)
+        env = {inputs[p].uuid: torch.as_tensor(
+            np.reshape(v, (1, -1)), dtype=torch.float32, device=dev)
+            for p, v in params.items()}
+        gen = torch.Generator(dev).manual_seed(seed + i)
+        with torch.no_grad():
+            x = dist.draw_samples(env, gen, num_samples=MOMENT_DRAWS)
+        check(x.device.type == torch.device(dev).type
+              and x.dtype == torch.float32
+              and tuple(x.shape) == (MOMENT_DRAWS,) + shape,
+              "{} draws: {} {} {}".format(name, x.device, x.dtype,
+                                          tuple(x.shape)))
+        z_mean, z_var = moment_check(x.double().cpu().numpy(), closed, ref)
+        check(z_mean <= MOMENT_SE and z_var <= MOMENT_SE,
+              "{}: {} draws' mean {:.2f} and variance {:.2f} standard "
+              "errors off (tol {})".format(name, MOMENT_DRAWS, z_mean, z_var,
+                                           MOMENT_SE))
+        out.append((name, z_mean, z_var))
+    return out
+
+
+def meanfield_phases(dev, card, seed, X, Y, x_ppca, W0, read_counts,
+                     zero_counts, sync):
+    """Phases 18-21: mean-field SVI (BASELINE configs 1 and 2), IWAE,
+    BBVI against the pathwise gradient, and ADVI over constrained
+    latents with the draws of every distribution of the slice. No
+    kernel of K1-K5 lies on this path: each training run must launch
+    none."""
+    import torch
+    from mxfusion_tpu_torch.inference import (
+        ImportanceWeightedVariationalInference, ScoreFunctionInference,
+        ScoreFunctionRBInference, StochasticVariationalInference,
+        create_executor)
+    from mxfusion_tpu_torch.util.carryover import name_paths
+    t_start = time.perf_counter()
+    none = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    configs = {
+        18: ("mean-field PPCA (config 1): N={} Q={} D={}".format(
+            x_ppca.shape[0], W0.shape[0], x_ppca.shape[1]),
+            lambda dtype: meanfield_ppca(x_ppca.shape[0], W0.shape[0],
+                                         x_ppca.shape[1], W0, dtype),
+            {"x": x_ppca}, W0.shape[0] * x_ppca.shape[0]),
+        19: ("mean-field linear regression (config 2): N={} D={}".format(
+            LINREG_N, X.shape[1]),
+            lambda dtype: meanfield_linreg(LINREG_N, X.shape[1], dtype),
+            {"X": X[:LINREG_N], "y": Y[:LINREG_N]}, X.shape[1])}
+    trained = {}
+    for phase, (label, build, data, n_latent) in configs.items():
+        zero_counts()
+        inf, loop, start = train_meanfield(build, data, MF_S, MF_STEPS,
+                                           MF_LR, dev, seed + phase,
+                                           read_counts, sync)
+        sync()
+        launches = read_counts()
+        check(launches == none, "{}: launched {}; this path has no kernel"
+              .format(label, launches))
+        losses = loop.losses
+        check(len(losses) == MF_STEPS
+              and all(math.isfinite(v) for v in losses)
+              and losses[-1] < losses[0],
+              "{}: losses do not fall: {}".format(label, losses))
+        noise = np.random.default_rng(seed + phase).standard_normal(
+            MF_S * n_latent)
+        l32 = meanfield_loss_at(build, start, data, MF_S, noise, "float32",
+                                dev)
+        l64 = meanfield_loss_at(build, start, data, MF_S, noise, "float64",
+                                dev)
+        rel = abs(l32 - l64) / abs(l64)
+        check(rel <= MF_F64_RTOL, "{}: first loss float32 {} vs float64 {}: "
+              "relative {}".format(label, l32, l64, rel))
+        extra = ""
+        if phase == 19:
+            # IWAE at S = 64 and the ELBO on the same 64 draws (Jensen)
+            noise64 = np.random.default_rng(seed + 64).standard_normal(
+                IWAE_S * n_latent)
+            elbo = -meanfield_loss_at(build, start, data, IWAE_S, noise64,
+                                      "float32", dev)
+            iwae = -meanfield_loss_at(
+                build, start, data, IWAE_S, noise64, "float32", dev,
+                ImportanceWeightedVariationalInference)
+            check(math.isfinite(iwae) and iwae >= elbo, "IWAE bound {} < "
+                  "ELBO {} on the same {} draws".format(iwae, elbo, IWAE_S))
+            extra = " | IWAE bound at S={} {:.8g} >= ELBO {:.8g} on the " \
+                "same draws".format(IWAE_S, iwae, elbo)
+        trained[phase] = (build, data, n_latent, inf)
+        print("phase {} {}, S={}, {} Adam steps (lr {}) | launches {} | "
+              "losses {:.6g} -> {:.6g} | first loss on fixed draws float32 "
+              "{:.8g} vs float64 {:.8g}: rel {:.3e} (tol {:.0e}){} | step "
+              "wall ms ({}): {}".format(
+                  phase, label, MF_S, MF_STEPS, MF_LR, launches, losses[0],
+                  losses[-1], l32, l64, rel, MF_F64_RTOL, extra, card,
+                  wall_summary(loop.wall_s)), flush=True)
+
+    # ---- 18/19 profile (information): the two SVI steps' idle share
+    profiles = []
+    for phase in (18, 19):
+        build, data, _, _ = trained[phase]
+        prof = profile_steps(
+            lambda loop, build=build: meanfield_inference(
+                build, StochasticVariationalInference, MF_S, dev,
+                grad_loop=loop),
+            data, PROFILE_STEPS, MF_LR,
+            ROOT / "build" / "chip_smoke_meanfield_{}_trace.json".format(
+                phase),
+            generator=torch.Generator(dev).manual_seed(seed))
+        profiles.append("phase {}: {}".format(
+            phase, profile_summary(prof, PROFILE_STEPS)))
+    print("phase 18-19 profile ({}): {} SVI steps each under "
+          "torch.profiler | {}".format(card, PROFILE_STEPS,
+                                       " | ".join(profiles)), flush=True)
+
+    # ---- 20. BBVI: both score-function estimators against the pathwise
+    # gradient on the same S = 4096 draws, then 20 steps of each
+    build, data, n_latent, inf19 = trained[19]
+    noise = np.random.default_rng(seed + 20).standard_normal(
+        BBVI_S * n_latent)
+    state = {name_paths(inf19.graphs)[k]: v.detach()
+             for k, v in inf19.params.param_dict.items()}
+
+    def mean_gradients(algorithm):
+        inf = loaded(meanfield_inference(build, algorithm, BBVI_S, dev,
+                                         noise=noise), state, data)
+        return per_sample_mean_gradients(inf, data, dev).double().reshape(
+            BBVI_S, -1)
+
+    pathwise = mean_gradients(StochasticVariationalInference)
+    bbvi = []
+    for algorithm in (ScoreFunctionInference, ScoreFunctionRBInference):
+        g = mean_gradients(algorithm)
+        diff = g - pathwise
+        z = float((diff.mean(0).abs()
+                   / (diff.std(0) / math.sqrt(BBVI_S))).max())
+        rel = float((g.mean(0) - pathwise.mean(0)).norm()
+                    / pathwise.mean(0).norm())
+        name = algorithm.__name__
+        check(z <= BBVI_SE, "{}: gradient in q's mean {} standard errors "
+              "from the pathwise one (tol {})".format(name, z, BBVI_SE))
+        zero_counts()
+        _, loop, _ = train_meanfield(build, data, MF_S, MF_STEPS, MF_LR,
+                                     dev, seed + 20, read_counts, sync,
+                                     algorithm)
+        launches = read_counts()
+        check(launches == none and len(loop.losses) == MF_STEPS
+              and all(math.isfinite(v) for v in loop.losses),
+              "{}: {} steps gave {} (launches {})".format(
+                  name, MF_STEPS, loop.losses, launches))
+        bbvi.append("{}: max |mean difference| {:.2f} standard errors "
+                    "(tol {}), relative {:.3e}; {} steps (S={}) losses "
+                    "{:.6g} -> {:.6g}, step wall ms {}".format(
+                        name, z, BBVI_SE, rel, MF_STEPS, MF_S,
+                        loop.losses[0], loop.losses[-1],
+                        wall_summary(loop.wall_s)))
+    print("phase 20 bbvi ({}): gradient in q(w)'s mean at S={} fixed "
+          "draws against the pathwise (SVI) gradient | {}".format(
+              card, BBVI_S, " | ".join(bbvi)), flush=True)
+
+    # ---- 21. ADVI over constrained latents; draws of every distribution
+    advi = []
+    for label, build, data, latent, family, post_mean in advi_pairs(
+            dev, seed + 21):
+        zero_counts()
+        inf, loop, _ = train_meanfield(build, data, MF_S, ADVI_STEPS,
+                                       ADVI_LR, dev, seed + 21, read_counts,
+                                       sync)
+        inf.run(max_iter=ADVI_FINE_STEPS, learning_rate=ADVI_FINE_LR,
+                generator=torch.Generator(dev).manual_seed(seed + 22),
+                **data)
+        check(read_counts() == none, "{}: launched {}".format(
+            label, read_counts()))
+        alg = inf.inference_algorithm
+        factor = getattr(alg.posterior, latent).factor
+        check(type(factor).__name__ == family, "{}: the mean-field factor "
+              "is {}, not {}".format(label, type(factor).__name__, family))
+        env = create_executor(alg, inf.params).build_env(
+            inf.params.trainable_params(), inf.params.fixed_params(),
+            observed_data(inf, data))
+        with torch.no_grad():
+            draws = factor.draw_samples(
+                env, torch.Generator(dev).manual_seed(seed),
+                num_samples=ADVI_N)
+        q_mean = draws.double().mean(0).reshape(-1)
+        err = float(((q_mean - post_mean.to(q_mean.device)).abs()
+                     / post_mean.to(q_mean.device)).max())
+        check(err <= ADVI_RTOL and all(math.isfinite(v)
+                                       for v in loop.losses),
+              "{}: q's mean {} vs the conjugate posterior's {}: relative "
+              "{} > {}".format(label, q_mean.tolist(), post_mean.tolist(),
+                               err, ADVI_RTOL))
+        advi.append("{}: {}, q's mean vs conjugate max rel {:.3e} (tol "
+                    "{}), step wall median {:.3f} ms".format(
+                        label, family, err, ADVI_RTOL,
+                        1e3 * float(np.median(loop.wall_s[1:]))))
+    moments = draw_moments(dev, seed + 22)
+    print("phase 21 advi ({}): N={}, {} Adam steps at lr {} and {} at {} "
+          "each | {} | {} draws on the card's generator, max |mean| and "
+          "|variance| error in standard errors (tol {}): {} | phases 18-21 "
+          "took {:.1f} s".format(
+              card, ADVI_N, ADVI_STEPS, ADVI_LR, ADVI_FINE_STEPS,
+              ADVI_FINE_LR, " | ".join(advi),
+              MOMENT_DRAWS, MOMENT_SE, ", ".join(
+                  "{} {:.2f} {:.2f}".format(*m) for m in moments),
+              time.perf_counter() - t_start), flush=True)
 
 
 def main():
@@ -1851,6 +2400,10 @@ def main():
         print("phase 17 profile ({}): {}, {} MAP steps under torch.profiler: "
               "{}".format(card, label, steps,
                           profile_summary(gp_prof, steps)), flush=True)
+
+    # ---- 18-21. the mean-field slice: SVI, IWAE, BBVI and ADVI
+    meanfield_phases(dev, card, args.seed, Xtr, Ytr, x_ppca, W0,
+                     read_counts, zero_counts, sync)
 
     check(not any(k == "jax" or k.startswith(("jax.", "mxfusion_tpu."))
                   or k == "mxfusion_tpu" for k in sys.modules),

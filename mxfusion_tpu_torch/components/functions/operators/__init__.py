@@ -1,2 +1,2 @@
 from .operators import Operator, operator_definition
-from .operator_impl import broadcast_to, dot
+from .operator_impl import broadcast_to, dot, log

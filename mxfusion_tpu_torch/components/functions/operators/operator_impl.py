@@ -1,7 +1,8 @@
 """Operator library.
 
 Counterpart of ``mxfusion_tpu/components/functions/operators/
-operator_impl.py``. So far ``dot`` (the PPCA model's ``z·W``) and
+operator_impl.py``. So far ``dot`` (the PPCA model's ``z·W``),
+``log`` (a Categorical's log-probabilities from a Dirichlet latent) and
 ``broadcast_to``, which the SVGP module uses to broadcast its noise
 variance over the data.
 """
@@ -10,6 +11,13 @@ import torch
 from .operators import operator_definition, Operator
 from ...variables.variable import Variable
 from ....util.inference import realize_shape
+
+
+# --- elementwise ---------------------------------------------------------
+
+@operator_definition(name="log", args=["data"], inputs=["data"])
+def log(data):
+    return torch.log(data)
 
 
 # --- matrix ops (batched over the sample axis) ----------------------------

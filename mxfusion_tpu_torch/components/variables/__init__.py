@@ -3,4 +3,4 @@ from .var_trans import (
     VariableTransformation, Softplus, PositiveTransformation, Logistic,
     SimplexTransformation)
 from .runtime_variable import (
-    as_samples, align_sample_arrays, arrays_as_samples)
+    as_samples, align_sample_arrays, arrays_as_samples, expectation)

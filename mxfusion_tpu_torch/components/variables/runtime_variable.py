@@ -14,6 +14,11 @@ def as_samples(array, num_samples):
     return array.expand((num_samples,) + tuple(array.shape[1:]))
 
 
+def expectation(array):
+    """Mean over the sample axis."""
+    return torch.mean(array, dim=0)
+
+
 def align_sample_arrays(arrays):
     """Right-align event dims across arrays that share the sample axis.
 

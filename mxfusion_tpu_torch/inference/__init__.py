@@ -10,10 +10,15 @@ from .minibatch_loop import MinibatchInferenceLoop
 from .device_loop import DeviceMinibatchLoop
 from .variational import (
     VariationalInference, VariationalSamplingAlgorithm,
-    StochasticVariationalInference)
+    StochasticVariationalInference,
+    ImportanceWeightedVariationalInference)
+from .meanfield import create_Gaussian_meanfield
 from .map import MAP
+from .score_function import ScoreFunctionInference, ScoreFunctionRBInference
 from .forward_sampling import (
     ForwardSamplingAlgorithm, ForwardSampling,
     VariationalPosteriorForwardSampling, merge_posterior_into_model)
+from .expectation import (
+    ExpectationAlgorithm, ExpectationScoreFunctionAlgorithm)
 from .prediction import ModulePredictionAlgorithm
 from .serving import BatchedPredictor

@@ -6,6 +6,10 @@ the posterior, evaluate ``log p − log q`` on the same env (model and
 posterior share variable UUIDs by replication), negate. Autograd takes
 the pathwise gradient through the sampled values.
 """
+import math
+
+import torch
+
 from .inference_alg import InferenceAlgorithm, SamplingAlgorithm
 
 
@@ -49,3 +53,24 @@ class StochasticVariationalInference(VariationalInference):
         logL = self.model.log_pdf(env, ctx=ctx) - \
             self.posterior.log_pdf(env, ctx=ctx)
         return -logL, -logL
+
+
+class ImportanceWeightedVariationalInference(VariationalInference):
+    """Multi-sample importance-weighted bound (IWAE, Burda et al. 2016).
+
+        L_S = E[ log (1/S) Σ_s p(x, z_s) / q(z_s) ],  z_s ~ q
+
+    is tighter than the ELBO, monotone in ``num_samples``, and tends to
+    log p(x) as S grows. The S samples ride the leading sample axis:
+    one batched density evaluation, and autograd takes the IWAE
+    pathwise gradient."""
+
+    def compute(self, env, ctx):
+        samples = self.posterior.draw_samples(
+            env, ctx.next_generator(), num_samples=self.num_samples)
+        env.update(samples)
+        logw = self.model.log_pdf_per_sample(env, ctx=ctx) - \
+            self.posterior.log_pdf_per_sample(env, ctx=ctx)
+        bound = torch.logsumexp(logw, dim=0) - \
+            math.log(float(self.num_samples))
+        return -bound, -bound

@@ -165,6 +165,25 @@ class FactorGraph:
             logL = logL + torch.mean(t, dim=0)
         return logL
 
+    def log_pdf_per_sample(self, env, targets=None, ctx=None):
+        """Per-sample joint log density, shape ``(num_samples,)``.
+
+        Terms with a size-1 sample axis broadcast against sampled terms;
+        an empty target set gives ``zeros((1,))`` on the env's device.
+        The score-function estimators need the per-sample values before
+        the Monte-Carlo average.
+        """
+        terms = self.log_pdf_terms(env, targets=targets, ctx=ctx)
+        if not terms:
+            like = next((v for v in env.values()
+                         if isinstance(v, torch.Tensor)), None)
+            return torch.zeros((1,), device=None if like is None
+                               else like.device)
+        out = terms[0]
+        for t in terms[1:]:
+            out = out + t
+        return out
+
     def draw_samples(self, env, generator, num_samples=1, targets=None):
         """Ancestral sampling with one ``torch.Generator``.
 

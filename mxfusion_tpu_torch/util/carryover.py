@@ -6,8 +6,16 @@ They are matched by *name path* instead:
 
 * a named variable of a top-level graph (model or posterior) is its
   name: ``noise_var``;
-* an unnamed one is the label of the edge that feeds it into a factor:
-  the module input ``inducing_inputs``;
+* an unnamed one is named by the label of the edge that feeds it into
+  its first factor. A module input, and any unnamed variable of a
+  module's internal graphs, is that label alone: ``inducing_inputs``.
+  Any other input of a function or a distribution is
+  qualified by what the factor produces: the path of a function's
+  output (``p(z).mean.data`` for the constant that ``broadcast_to``
+  spreads into z's prior mean), and for a distribution the random
+  variable it describes, as ``mu.mean`` and ``tau.variance`` in a
+  posterior (a mean-field posterior's parameters) and as ``p(mu).mean``
+  in any other graph (the model's prior of mu);
 * a variable of a module's internal graphs is prefixed with the module's
   name, or with the name of its first output: ``Y.qU_mean``,
   ``Y.qU_cov_W``, ``Y.qU_cov_diag``, and the kernel's
@@ -15,8 +23,8 @@ They are matched by *name path* instead:
 
 The walk reads only what the graph classes of both packages share
 (``components_graph``, ``name``, ``uuid``, ``successors``, ``outputs``,
-``internal_graphs``), so it runs on either package's graphs and imports
-no JAX.
+``internal_graphs``, ``random_variable`` and a posterior's ``model``),
+so it runs on either package's graphs and imports no JAX.
 """
 import numpy as np
 import torch
@@ -49,12 +57,29 @@ def name_paths(graphs):
     def walk(graph, prefix):
         nodes = list(graph.components_graph.nodes)
         variables = [c for c in nodes if _is_variable(c)]
+        posterior = hasattr(type(graph), "model")
+
+        def unnamed(v):
+            label, factor = v.successors[0]
+            if prefix or hasattr(factor, "internal_graphs"):
+                return label    # a module's input, or inside a module
+            out = factor.outputs[0][1]
+            if hasattr(factor, "random_variable") and out.name:
+                owner = out.name if posterior else "p({})".format(out.name)
+            elif out.name:
+                owner = out.name
+            elif out.successors:
+                owner = unnamed(out)
+            else:
+                return label
+            return owner + "." + label
+
         for v in variables:
             if v.name:
                 add(v.uuid, prefix + v.name)
         for v in variables:
             if not v.name and v.successors:
-                add(v.uuid, prefix + v.successors[0][0])
+                add(v.uuid, prefix + unnamed(v))
         for c in nodes:
             if hasattr(c, "internal_graphs"):
                 name = c.name or c.outputs[0][1].name

@@ -1,8 +1,9 @@
 """mxfusion_tpu_torch stands without JAX: a fresh interpreter in which
 ``import jax`` fails imports the port, trains the small slice with both
 minibatch loops and serves it from a numpy state, runs the MVN slice
-(structured-PPCA SVI, then forward sampling), and fits and serves the
-exact and collapsed GP modules. Also: chip_smoke.py refuses
+(structured-PPCA SVI, then forward sampling), fits and serves the
+exact and collapsed GP modules, and trains mean-field posteriors by
+SVI and by the score-function estimator. Also: chip_smoke.py refuses
 to run without a GPU and without the rest of the repository."""
 import os
 import shutil
@@ -216,6 +217,72 @@ jaxy = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib",
 assert not jaxy, jaxy
 print("GP", losses[-1])
 """
+
+
+MEANFIELD_WITHOUT_JAX = r"""
+import sys
+sys.modules["jax"] = None          # any `import jax` now raises
+sys.path.insert(0, {root!r})
+import numpy as np
+import torch
+from mxfusion_tpu_torch import Model, Variable
+from mxfusion_tpu_torch.common.config import set_default_device
+from mxfusion_tpu_torch.components.distributions import (
+    Exponential, Gamma, LogNormal, Normal)
+from mxfusion_tpu_torch.components.functions.operators import broadcast_to
+from mxfusion_tpu_torch.components.variables import PositiveTransformation
+from mxfusion_tpu_torch.inference import (
+    GradBasedInference, ScoreFunctionInference,
+    StochasticVariationalInference, create_Gaussian_meanfield)
+
+set_default_device("cpu")
+N = 100
+rng = np.random.default_rng(0)
+y = rng.standard_normal((N, 1)) * 2.0 + 3.0
+for Alg in (StochasticVariationalInference, ScoreFunctionInference):
+    m = Model()
+    m.mu = Normal.define_variable(mean=0., variance=100., shape=(1,))
+    m.s = Variable(transformation=PositiveTransformation(), initial_value=5.)
+    m.y = Normal.define_variable(mean=broadcast_to(m.mu, (N, 1)),
+                                 variance=broadcast_to(m.s, (N, 1)),
+                                 shape=(N, 1))
+    q = create_Gaussian_meanfield(model=m, observed=[m.y])
+    infr = GradBasedInference(Alg(num_samples=10, model=m, posterior=q,
+                                  observed=[m.y]))
+    losses = []
+    infr.run(y=y, max_iter=300, learning_rate=0.1,
+             generator=torch.Generator().manual_seed(0),
+             callback=lambda i, l: losses.append(float(l)))
+    mu = float(infr.params[q.mu.factor.mean])
+    assert np.all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert abs(mu - y.mean()) < 0.3, (Alg.__name__, mu, y.mean())
+t = rng.exponential(1.0 / 1.7, (60, 1))
+m = Model()
+m.tau = Gamma.define_variable(alpha=2.0, beta=2.0, shape=(1,))
+m.t = Exponential.define_variable(rate=broadcast_to(m.tau, (60, 1)),
+                                  shape=(60, 1))
+q = create_Gaussian_meanfield(model=m, observed=[m.t])
+assert isinstance(q.tau.factor, LogNormal)
+infr = GradBasedInference(StochasticVariationalInference(
+    num_samples=10, model=m, posterior=q, observed=[m.t]))
+infr.run(t=t, max_iter=200, learning_rate=0.05)
+assert np.isfinite(float(infr.params[q.tau.factor.mean]))
+jaxy = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib",
+                                                       "mxfusion_tpu")
+        and sys.modules[k] is not None]
+assert not jaxy, jaxy
+print("MEANFIELD", mu)
+"""
+
+
+def test_port_trains_meanfield_svi_and_bbvi_without_jax():
+    """Mean-field SVI and BBVI recover a latent mean, and SVI runs over a
+    Gamma latent through its LogNormal factor, without JAX."""
+    proc = subprocess.run(
+        [sys.executable, "-c", MEANFIELD_WITHOUT_JAX.format(root=str(ROOT))],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert "MEANFIELD" in proc.stdout
 
 
 def test_port_fits_and_predicts_gp_modules_without_jax():
