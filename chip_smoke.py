@@ -9,8 +9,10 @@ the multivariate-normal slice (structured-PPCA SVI with a
 full-covariance posterior, then forward sampling), and the exact and
 collapsed GP modules (``GPRegression`` at the exact-GP bench's N = 1024,
 ``SparseGPRegression`` at N = 65536, M = 512) with the GP kernel family,
-and the mean-field slice (SVI, IWAE, BBVI and ADVI over constrained
-latents), which launches none of the kernels.
+the mean-field slice (SVI, IWAE, BBVI and ADVI over constrained
+latents), which launches none of the kernels, and the non-Gaussian
+SVGPs (binary and multi-class classification, Poisson and negative
+binomial counts) at B = 65536, M = 512, D = 32, whose grams are K1's.
 In phases that each print one line:
 
 1. device: needs CUDA (exits nonzero without it); prints the card's
@@ -137,7 +139,37 @@ In phases that each print one line:
    slice on the card's generator: means and variances within six
    standard errors of the closed forms (LogitNormal and
    StickBreakingNormal against float64 numpy pushforwards of normal
-   draws; InverseGamma at alpha = 6).
+   draws; InverseGamma at alpha = 6);
+22. classification: ``SVGPClassification`` on phase 6's 262144 rows
+   with labels y ~ Bernoulli(sigmoid(3 f)), M = 512, D = 32, 20
+   Gauss-Hermite points, MAP + ``DeviceMinibatchLoop`` at B = 65536 and
+   Adam (lr 3e-3): the logit link unwhitened (the wide arm) for 8 steps,
+   then the probit link whitened for 4; K1 exactly twice per step (Kuu,
+   Kuf), finite losses, the first loss float32 vs float64 at the same
+   state and batch within 1e-3; the step walls' median and quartiles,
+   and ten logit steps under ``torch.profiler`` (the idle share);
+23. classification serving: each trained store answers a 262144-row
+   request in chunks of 8192 and a 128-row one through
+   ``BatchedPredictor``: K1 twice per chunk, probabilities in (0, 1),
+   the logit quadrature and the probit closed form against float64
+   numpy on 256 rows within 1e-3; rows/s and the small request's
+   latency;
+24. counts: ``SVGPPoissonRegression`` (y ~ Poisson(exp f); log and
+   softplus links) and ``SVGPNegBinomialRegression`` (a Gamma-Poisson
+   draw at dispersion 0.5, the dispersion learned), 4 steps each at
+   B = 65536: K1 twice a step, the first loss vs float64, the step wall;
+25. multi-class: ``SVGPMultiClassification`` with C = 10 classes by the
+   equal-count bins of f and K = 8 draws a point (a (1, 65536, 10, 8)
+   tensor), 4 steps: K1 twice a step, the first loss on fixed draws
+   float32 vs float64 within 1e-3; 8192 served rows whose probabilities
+   sum to 1 within 1e-5;
+26. draws: 2^20 draws each of Laplace, Student-t (nu = 5), Uniform,
+   Poisson, NegativeBinomial, Concrete (the argmax's frequencies),
+   NormalMixture and Wishart (D = 8, mean n·S): means and variances
+   within six standard errors of the closed forms; and the gamma draw's
+   gradient in alpha on the card (float32) within 1e-5 of the ported
+   ``random_gamma_grad`` in float64 at alpha = 0.1, 0.7, 2, 6 and 50,
+   with the iterations each backward ran.
 
 Any failed check raises and the script exits nonzero. The last three
 lines are the card (nvidia-smi), the kernels' JSON record (each with
@@ -273,6 +305,24 @@ ADVI_STEPS, ADVI_LR, ADVI_FINE_STEPS, ADVI_FINE_LR = 400, 0.05, 400, 0.002
 # 2^20 draws of each distribution: means and variances within six
 # standard errors of the closed forms (or of a float64 numpy pushforward)
 MOMENT_DRAWS, MOMENT_SE = 1 << 20, 6.0
+# the non-Gaussian SVGPs (phases 22-25): phase 6's rows and inputs
+# (262144, D = 32), M = 512, B = 65536, Adam at lr 3e-3, float32, 20
+# Gauss-Hermite points; the logit classifier runs two epochs (8 steps),
+# every other model one (4 steps)
+NG_LR, NG_Q, CLASS_EPOCHS = 3e-3, 20, 2
+# float32 vs float64 at the same state and batch: the bound's var_f =
+# Kff − Σ(L⁻¹Kuf)² + Σ(LsᵀL⁻¹Kuf)² cancels, and cond(Kuu) ≈ 1e3 times
+# fp32's eps leaves about 1e-4 of each term; the loss, a sum over 65536
+# points, lies some 10x inside
+NG_F64_RTOL = 1e-3
+# predictions vs float64 numpy on 256 rows (phase 4's tolerance)
+NG_PRED_RTOL = 1e-3
+MC_C, MC_K = 10, 8          # classes, MC draws a point a step
+NB_DISPERSION = 0.5
+PROB_SUM_ATOL = 1e-5
+# the gamma draw's gradient: float32 on the card vs the ported
+# random_gamma_grad in float64 on the CPU at the same draws
+GAMMA_ALPHAS, GAMMA_N, GAMMA_RTOL = (0.1, 0.7, 2.0, 6.0, 50.0), 65536, 1e-5
 
 
 def check(ok, message):
@@ -594,12 +644,13 @@ def broadcast_cases(dev, dtype, seed):
 
 
 def loss_and_grad_at(alg, state, data, dtype, dev, grad=True,
-                     rv_scaling=None):
+                     rv_scaling=None, generator=None):
     """The loss of ``alg`` on ``data`` in ``dtype`` on ``dev``, at the
     trainable ``state`` ({uuid: unconstrained tensor}; None: the
     initialized store), with ``rv_scaling`` as the executor takes it,
-    and with ``grad`` its gradient by uuid as float64 numpy. float64
-    takes the plain branch of every kernel."""
+    and with ``grad`` its gradient by uuid as float64 numpy; draws, if
+    the algorithm makes any, take ``generator``. float64 takes the plain
+    branch of every kernel."""
     import torch
     from mxfusion_tpu_torch.inference import (GradBasedInference,
                                               create_executor)
@@ -614,7 +665,8 @@ def loss_and_grad_at(alg, state, data, dtype, dev, grad=True,
     train = {k: v.clone().requires_grad_(grad)
              for k, v in inf.params.trainable_params().items()}
     with torch.set_grad_enabled(grad):
-        loss = executor(train, inf.params.fixed_params(), data, None)[1]
+        loss = executor(train, inf.params.fixed_params(), data,
+                        generator)[1]
     if not grad:
         return float(loss), None
     loss.backward()
@@ -1302,23 +1354,24 @@ def moment_check(x, closed, ref):
             float(np.max(np.abs(var - e_var) / se_var)))
 
 
-def draw_moments(dev, seed):
-    """MOMENT_DRAWS draws of each distribution on the card's generator,
-    float32, against the closed forms: [(name, mean z, variance z)]."""
+def draw_moments(dev, seed, cases):
+    """MOMENT_DRAWS draws of each distribution of ``cases`` on the card's
+    generator, float32, against the closed forms: [(name, mean z,
+    variance z)]. A case's optional seventh entry maps the draws to what
+    its closed form describes."""
     import torch
     from mxfusion_tpu_torch.components import distributions as dists
     from mxfusion_tpu_torch.components.variables import Variable
-    rng = np.random.default_rng(seed)
     out = []
-    for i, (name, cls, params, shape, closed, ref) in enumerate(
-            moment_cases(rng, MOMENT_DRAWS)):
+    for i, (name, cls, params, shape, closed, ref, *post) in enumerate(
+            cases):
         inputs = {p: Variable() for p in params}
         kw = {"num_classes": 16} if cls == "Categorical" else {}
         dist = getattr(dists, cls)(dtype="float32", **kw, **inputs)
         dist._generate_outputs(shape=shape)
         env = {inputs[p].uuid: torch.as_tensor(
-            np.reshape(v, (1, -1)), dtype=torch.float32, device=dev)
-            for p, v in params.items()}
+            np.reshape(v, (1,) + (np.shape(v) or (1,))),
+            dtype=torch.float32, device=dev) for p, v in params.items()}
         gen = torch.Generator(dev).manual_seed(seed + i)
         with torch.no_grad():
             x = dist.draw_samples(env, gen, num_samples=MOMENT_DRAWS)
@@ -1327,7 +1380,10 @@ def draw_moments(dev, seed):
               and tuple(x.shape) == (MOMENT_DRAWS,) + shape,
               "{} draws: {} {} {}".format(name, x.device, x.dtype,
                                           tuple(x.shape)))
-        z_mean, z_var = moment_check(x.double().cpu().numpy(), closed, ref)
+        x = x.double().cpu().numpy()
+        if post:
+            x = post[0](x)
+        z_mean, z_var = moment_check(x, closed, ref)
         check(z_mean <= MOMENT_SE and z_var <= MOMENT_SE,
               "{}: {} draws' mean {:.2f} and variance {:.2f} standard "
               "errors off (tol {})".format(name, MOMENT_DRAWS, z_mean, z_var,
@@ -1507,7 +1563,8 @@ def meanfield_phases(dev, card, seed, X, Y, x_ppca, W0, read_counts,
                     "{}), step wall median {:.3f} ms".format(
                         label, family, err, ADVI_RTOL,
                         1e3 * float(np.median(loop.wall_s[1:]))))
-    moments = draw_moments(dev, seed + 22)
+    moments = draw_moments(dev, seed + 22, moment_cases(
+        np.random.default_rng(seed + 22), MOMENT_DRAWS))
     print("phase 21 advi ({}): N={}, {} Adam steps at lr {} and {} at {} "
           "each | {} | {} draws on the card's generator, max |mean| and "
           "|variance| error in standard errors (tol {}): {} | phases 18-21 "
@@ -1517,6 +1574,403 @@ def meanfield_phases(dev, card, seed, X, Y, x_ppca, W0, read_counts,
               MOMENT_DRAWS, MOMENT_SE, ", ".join(
                   "{} {:.2f} {:.2f}".format(*m) for m in moments),
               time.perf_counter() - t_start), flush=True)
+
+
+def nongaussian_model(module, Z0, columns=1, **kw):
+    """``module`` (a non-Gaussian SVGP class) over D = 32 inputs with an
+    RBF kernel of lengthscale sqrt(D) and M inducing points at ``Z0``;
+    returns the model and its MAP algorithm."""
+    from mxfusion_tpu_torch import Model, Variable
+    from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
+    from mxfusion_tpu_torch.inference import MAP
+    m = Model()
+    m.n = Variable()
+    m.X = Variable(shape=(m.n, D))
+    m.Y = module.define_variable(
+        X=m.X, kernel=RBF(input_dim=D, variance=1.0,
+                          lengthscale=math.sqrt(D)),
+        shape=(m.n, columns),
+        inducing_inputs=Variable(shape=(M, D), initial_value=Z0), **kw)
+    return m, MAP(model=m, observed=[m.X, m.Y])
+
+
+def train_nongaussian(loop_cls, m, alg, X, Y, epochs, dev, seed):
+    """``epochs`` epochs of MAP + Adam through the recording device loop
+    at B = TRAIN_B: returns the trained inference, the loop and the start
+    state ({uuid: tensor})."""
+    import torch
+    from mxfusion_tpu_torch.inference import GradBasedInference
+    loop = loop_cls(batch_size=TRAIN_B, rv_scaling={m.Y: TRAIN_N / TRAIN_B})
+    inf = GradBasedInference(alg, grad_loop=loop, dtype="float32",
+                             device=dev)
+    gen = torch.Generator(dev).manual_seed(seed)
+    inf.initialize(X=X[:TRAIN_B], Y=Y[:TRAIN_B], generator=gen)
+    start = {k: v.detach().clone() for k, v in inf.params.param_dict.items()}
+    inf.run(X=X, Y=Y, max_iter=epochs, learning_rate=NG_LR, generator=gen)
+    return inf, loop, start
+
+
+def rekeyed(state, graphs, to_graphs):
+    """``state`` ({uuid of ``graphs``: value}) keyed by the uuids of the
+    same variables in ``to_graphs``, matched by name path."""
+    from mxfusion_tpu_torch.util.carryover import name_paths
+    paths = name_paths(graphs)
+    to = {p: u for u, p in name_paths(to_graphs).items()}
+    return {to[paths[k]]: v for k, v in state.items()}
+
+
+def checked_run(label, loop, start, alg, dev):
+    """Check a recorded training run: K1 twice and nothing else each step,
+    finite losses, and the first loss against the float64 bound (plain
+    gram) at the start state and the first batch. Returns the first
+    loss's relative error and its float64 value."""
+    two_k1 = {"K1": 2, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    for i, counts in enumerate(loop.counts):
+        check(counts == two_k1, "{} step {} launched {}; expected {} (Kuu, "
+              "Kuf)".format(label, i, counts, two_k1))
+    losses = [float(v) for v in loop.losses]
+    check(all(math.isfinite(v) for v in losses),
+          "{}: non-finite losses {}".format(label, losses))
+    f64 = loss_and_grad_at(alg, start, loop.first_batch, "float64", dev,
+                           grad=False, rv_scaling={
+                               alg.model.Y.uuid: TRAIN_N / TRAIN_B})[0]
+    rel = abs(losses[0] - f64) / abs(f64)
+    check(rel <= NG_F64_RTOL, "{}: first loss float32 {} vs float64 {}: "
+          "relative {} > {}".format(label, losses[0], f64, rel, NG_F64_RTOL))
+    return rel, f64
+
+
+def q_moments_f64(params, m, X, whitened):
+    """Diagonal q(f) moments at X in float64 numpy from the trained store
+    (svgp_classification.py's _layer_q_moments, relative jitter)."""
+    from mxfusion_tpu_torch.components.variables import \
+        PositiveTransformation
+    from mxfusion_tpu_torch.util.carryover import name_paths
+    sp = PositiveTransformation().transform
+    state = {p: params.param_dict[u].detach().double().cpu()
+             for u, p in name_paths([m]).items() if u in params.param_dict}
+    pos = {k: sp(state[k]).numpy() for k in ("Y.rbf_lengthscale",
+                                             "Y.rbf_variance",
+                                             "Y.qU_cov_diag")}
+    Z = state["inducing_inputs"].numpy()
+    ls, var = pos["Y.rbf_lengthscale"], float(pos["Y.rbf_variance"][0])
+    W = state["Y.qU_cov_W"].numpy()
+    mu = state["Y.qU_mean"].numpy()
+    jitter = m.Y.factor.jitter
+    Kuu = rbf_f64(Z, Z, ls, var)
+    Kuu = Kuu + np.eye(M) * jitter * np.mean(np.diag(Kuu))
+    L = np.linalg.cholesky(Kuu)
+    Ls = np.linalg.cholesky(W @ W.T + np.diag(pos["Y.qU_cov_diag"]))
+    if whitened:
+        LinvLs, Linvmu = Ls, mu
+    else:
+        LinvLs, Linvmu = np.linalg.solve(L, Ls), np.linalg.solve(L, mu)
+    LinvKuf = np.linalg.solve(L, rbf_f64(Z, X, ls, var))
+    mu_f = LinvKuf.T @ Linvmu
+    var_f = var - np.sum(LinvKuf ** 2, 0) + np.sum((LinvLs.T @ LinvKuf) ** 2,
+                                                   0)
+    return mu_f, np.maximum(var_f, 1e-14)
+
+
+def class_probability_f64(mu, var, link):
+    """p(y=1) in float64 numpy: Φ(μ/√(1+σ²)) for probit, the 20-point
+    Gauss-Hermite mean of the logistic for logit."""
+    if link == "probit":
+        erf = np.frompyfunc(math.erf, 1, 1)
+        z = mu / np.sqrt(1.0 + var)
+        return 0.5 * (1.0 + erf(z / math.sqrt(2.0)).astype(np.float64))
+    t, w = np.polynomial.hermite.hermgauss(NG_Q)
+    f = mu[:, None] + np.sqrt(2.0 * var)[:, None] * t
+    return (w / np.sqrt(np.pi) / (1.0 + np.exp(-f))).sum(-1)
+
+
+def new_moment_cases(rng, n):
+    """Phase 26's laws: (name, class name, parameters, event shape,
+    closed-form mean and variance, None[, a map of the draws])."""
+    w, mus, vs = np.array([0.3, 0.7]), np.array([-2.0, 1.0]), \
+        np.array([0.5, 2.0])
+    mix_mean = float(w @ mus)
+    p = np.array([0.1, 0.2, 0.3, 0.4])
+    A = rng.standard_normal((8, 8))
+    S = (A @ A.T + 8.0 * np.eye(8)) / 16.0
+    dof = 12.0
+    return [
+        ("Laplace", "Laplace", {"location": 0.5, "scale": 1.5}, (1,),
+         (0.5, 4.5), None),
+        ("StudentT (nu=5)", "StudentT",
+         {"degrees_of_freedom": 5.0, "location": 0.5, "scale": 2.0}, (1,),
+         (0.5, 4.0 * 5.0 / 3.0), None),
+        ("Uniform", "Uniform", {"low": -1.0, "high": 3.0}, (1,),
+         (1.0, 16.0 / 12.0), None),
+        ("Poisson", "Poisson", {"rate": 3.5}, (1,), (3.5, 3.5), None),
+        ("NegativeBinomial", "NegativeBinomial",
+         {"mean": 3.0, "dispersion": 0.5}, (1,), (3.0, 7.5), None),
+        # the argmax of a Concrete draw is class k with probability p_k
+        ("Concrete (K=4, argmax)", "Concrete", {"probs": p}, (4,),
+         (p, p * (1 - p)), None,
+         lambda x: np.eye(4)[x.reshape(-1, 4).argmax(-1)]),
+        ("NormalMixture (K=2)", "NormalMixture",
+         {"weights": w, "means": mus, "variances": vs}, (1,),
+         (mix_mean, float(w @ (vs + mus ** 2)) - mix_mean ** 2), None),
+        ("Wishart (D=8, n=12)", "Wishart",
+         {"degrees_of_freedom": dof, "scale": S}, (8, 8),
+         (dof * S, dof * (S ** 2 + np.outer(np.diag(S), np.diag(S)))),
+         None)]
+
+
+def gamma_gradient_check(dev, seed):
+    """dx/dalpha of GAMMA_N float32 gamma draws on the card at each of
+    GAMMA_ALPHAS against ``random_gamma_grad`` in float64 on the CPU at
+    the same draws: [(alpha, max relative error, iterations of the
+    backward's series and continued fraction)]."""
+    import torch
+    from mxfusion_tpu_torch.components.distributions.random_gen import \
+        RandomGenerator
+    from mxfusion_tpu_torch.ops.igamma import random_gamma_grad
+    tiny = torch.finfo(torch.float32).tiny
+    out = []
+    for i, a in enumerate(GAMMA_ALPHAS):
+        alpha = torch.full((GAMMA_N,), a, device=dev, requires_grad=True)
+        x = RandomGenerator().sample_gamma(
+            torch.Generator(dev).manual_seed(seed + i), alpha=alpha,
+            shape=(GAMMA_N,), dtype="float32")
+        x.sum().backward()
+        torch.cuda.synchronize()
+        iterations = dict(random_gamma_grad.iterations)
+        got = alpha.grad.double().cpu()
+        xv = x.detach().double().cpu()
+        want = random_gamma_grad(torch.full_like(xv, a), xv)
+        normal = xv >= tiny   # subnormal float32 draws count as 0
+        check(bool((got[~normal] == 0).all()) and bool(
+            torch.isfinite(got).all()), "alpha={}: gradient at subnormal "
+            "draws not 0, or not finite".format(a))
+        rel = float(((got - want).abs() / want.abs())[normal].max())
+        check(rel <= GAMMA_RTOL, "alpha={}: gamma draw gradient on the card "
+              "{} relative off float64 (tol {})".format(a, rel, GAMMA_RTOL))
+        out.append((a, rel, iterations, int((~normal).sum())))
+    return out
+
+
+def nongaussian_phases(dev, card, seed, X, read_counts, zero_counts, sync,
+                       loop_cls):
+    """Phases 22-26: SVGP classification (logit, unwhitened; probit,
+    whitened), its serving, the count SVGPs (Poisson with both links,
+    negative binomial with a learned dispersion), the multi-class SVGP,
+    and the draws of the rest of the distribution library with the gamma
+    draw's gradient. Returns the K1 launches of their main paths."""
+    import torch
+    from mxfusion_tpu_torch.components.distributions import \
+        FixedRandomGenerator
+    from mxfusion_tpu_torch.inference import (BatchedPredictor,
+                                              GradBasedInference)
+    from mxfusion_tpu_torch.modules import (
+        SVGPClassification, SVGPMultiClassification,
+        SVGPNegBinomialRegression, SVGPPoissonRegression)
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(seed + 22)
+    f = (np.sin(2.0 * X[:, :1]) + 0.3 * np.cos(3.0 * X[:, 1:2])).astype(
+        np.float64)
+    Z0 = rng.uniform(0.0, BOX, (M, D))
+    k1 = 0
+
+    # ---- 22. binary classification: logit unwhitened, probit whitened
+    labels = (rng.random((TRAIN_N, 1)) < 1.0 / (1.0 + np.exp(-3.0 * f))
+              ).astype(np.float32)
+    cm, calg = nongaussian_model(SVGPClassification, Z0, link="logit",
+                                 num_quadrature_points=NG_Q)
+    zero_counts()
+    cinf, cloop, cstart = train_nongaussian(loop_cls, cm, calg, X, labels,
+                                            CLASS_EPOCHS, dev, seed + 22)
+    sync()
+    k1 += read_counts()["K1"]
+    crel, c64 = checked_run("classification (logit)", cloop, cstart, calg,
+                            dev)
+    check(len(cloop.losses) == CLASS_EPOCHS * TRAIN_N // TRAIN_B,
+          "classification ran {} steps".format(len(cloop.losses)))
+    cprof = profile_steps(
+        lambda loop: GradBasedInference(calg, grad_loop=loop,
+                                        dtype="float32", device=dev),
+        {"X": X[:TRAIN_B], "Y": labels[:TRAIN_B]}, PROFILE_STEPS, NG_LR,
+        ROOT / "build" / "chip_smoke_classification_trace.json")
+    pm, palg = nongaussian_model(SVGPClassification, Z0, link="probit",
+                                 whitened=True, num_quadrature_points=NG_Q)
+    zero_counts()
+    pinf, ploop, pstart = train_nongaussian(loop_cls, pm, palg, X, labels,
+                                            1, dev, seed + 23)
+    sync()
+    k1 += read_counts()["K1"]
+    prel, p64 = checked_run("classification (probit, whitened)", ploop,
+                            pstart, palg, dev)
+    print("phase 22 classification ({}): {} rows, B={}, M={}, D={}, {} "
+          "Gauss-Hermite points | logit, unwhitened (the wide arm), {} Adam "
+          "steps (lr {}): K1 launches per step {} | losses {} | first loss "
+          "float32 {:.8g} vs float64 {:.8g}: rel {:.3e} (tol {:.0e}) | step "
+          "wall ms {} | profile: {} | probit, whitened, {} steps: losses {} "
+          "| first loss vs float64 {:.8g}: rel {:.3e} | step wall ms {}"
+          .format(card, TRAIN_N, TRAIN_B, M, D, NG_Q, len(cloop.losses),
+                  NG_LR, cloop.counts[0]["K1"],
+                  [round(float(v), 2) for v in cloop.losses],
+                  float(cloop.losses[0]), c64, crel, NG_F64_RTOL,
+                  wall_summary(cloop.wall_s),
+                  profile_summary(cprof, PROFILE_STEPS), len(ploop.losses),
+                  [round(float(v), 2) for v in ploop.losses], p64, prel,
+                  wall_summary(ploop.wall_s)), flush=True)
+
+    # ---- 23. classification serving: both trained stores
+    bulk = X[:TRAIN_N]
+    small = rng.uniform(0.0, BOX, (128, D)).astype(np.float32)
+    serve_notes = []
+    for label, m, inf, whitened, link in (
+            ("logit", cm, cinf, False, "logit"),
+            ("probit, whitened", pm, pinf, True, "probit")):
+        pred = BatchedPredictor(model=m, infr_params=inf.params,
+                                observed=[m.X], target_variables=[m.Y.uuid],
+                                chunk_size=CHUNK)
+        # the first request fixes the chunk: a full one
+        pred.predict(X=bulk[:CHUNK])
+        sync()
+        zero_counts()
+        t0 = time.perf_counter()
+        p, pvar = pred.predict(X=bulk)[0]
+        bulk_s = time.perf_counter() - t0
+        bulk_k1 = read_counts()["K1"]
+        t0 = time.perf_counter()
+        ps, _ = pred.predict(X=small)[0]
+        small_ms = 1e3 * (time.perf_counter() - t0)
+        k1 += read_counts()["K1"]
+        chunks = TRAIN_N // CHUNK + 1
+        check(read_counts()["K1"] == 2 * chunks and bulk_k1 == 2 * (
+            chunks - 1), "{}: serving launched K1 {} times for {} chunks; "
+              "expected 2 per chunk".format(label, read_counts()["K1"],
+                                           chunks))
+        check(p.shape == pvar.shape == (1, TRAIN_N, 1)
+              and ps.shape == (1, 128, 1) and np.isfinite(p).all()
+              and p.min() > 0.0 and p.max() < 1.0,
+              "{}: served probabilities {} not in (0, 1)".format(
+                  label, p.shape))
+        mu64, var64 = q_moments_f64(inf.params, m,
+                                    bulk[:F64_ROWS].astype(np.float64),
+                                    whitened)
+        p64 = class_probability_f64(mu64[:, 0], var64, link)
+        err = rel_err(p[0, :F64_ROWS, 0], p64)
+        check(err <= NG_PRED_RTOL, "{}: served p vs float64 on {} rows: "
+              "rel {} > {}".format(label, F64_ROWS, err, NG_PRED_RTOL))
+        serve_notes.append(
+            "{}: {} rows in {} chunks {:.1f} rows/s, K1 {} | 128-row "
+            "request {:.3f} ms | vs float64 on {} rows rel {:.3e} (tol "
+            "{:.0e})".format(label, TRAIN_N, chunks - 1, TRAIN_N / bulk_s,
+                             bulk_k1, small_ms, F64_ROWS, err,
+                             NG_PRED_RTOL))
+    print("phase 23 classification serving ({}): chunk {} | {}".format(
+        card, CHUNK, " | ".join(serve_notes)), flush=True)
+
+    # ---- 24. the count SVGPs
+    counts = rng.poisson(np.exp(f)).astype(np.float32)
+    r = 1.0 / NB_DISPERSION
+    nb_counts = rng.poisson(rng.gamma(r, np.exp(f) / r)).astype(np.float32)
+    count_notes = []
+    for label, module, Y, kw in (
+            ("Poisson, log link", SVGPPoissonRegression, counts,
+             dict(link="log")),
+            ("Poisson, softplus link", SVGPPoissonRegression, counts,
+             dict(link="softplus", num_quadrature_points=NG_Q)),
+            ("negative binomial", SVGPNegBinomialRegression, nb_counts,
+             dict(num_quadrature_points=NG_Q))):
+        m, alg = nongaussian_model(module, Z0, **kw)
+        zero_counts()
+        inf, loop, start = train_nongaussian(loop_cls, m, alg, X, Y, 1,
+                                             dev, seed + 24)
+        sync()
+        k1 += read_counts()["K1"]
+        rel, l64 = checked_run(label, loop, start, alg, dev)
+        extra = ""
+        if module is SVGPNegBinomialRegression:
+            extra = ", learned dispersion {:.4f}".format(
+                float(inf.params[m.Y.factor.dispersion]))
+        count_notes.append(
+            "{}: K1 per step {}, losses {}, first loss vs float64 {:.8g} "
+            "rel {:.3e}, step wall ms {}{}".format(
+                label, loop.counts[0]["K1"],
+                [round(float(v), 2) for v in loop.losses], l64, rel,
+                wall_summary(loop.wall_s), extra))
+    print("phase 24 counts ({}): B={}, M={}, D={}, 4 Adam steps each (tol "
+          "{:.0e}) | {}".format(card, TRAIN_B, M, D, NG_F64_RTOL,
+                                " | ".join(count_notes)), flush=True)
+
+    # ---- 25. multi-class: C classes by the equal-count bins of f
+    edges = np.quantile(f[:, 0], np.linspace(0, 1, MC_C + 1)[1:-1])
+    onehot = np.eye(MC_C, dtype=np.float32)[np.searchsorted(edges, f[:, 0])]
+    mm, malg = nongaussian_model(SVGPMultiClassification, Z0,
+                                 columns=MC_C, num_classes=MC_C,
+                                 num_mc_samples=MC_K)
+    zero_counts()
+    minf, mloop, mstart = train_nongaussian(loop_cls, mm, malg, X, onehot,
+                                            1, dev, seed + 25)
+    sync()
+    k1 += read_counts()["K1"]
+    # float32 vs float64 on fixed draws: the same model with a fixed
+    # generator of TRAIN_B·C·K normals, the start state moved across by
+    # name path
+    noise = rng.standard_normal(TRAIN_B * MC_C * MC_K)
+    fm, falg = nongaussian_model(SVGPMultiClassification, Z0,
+                                 columns=MC_C, num_classes=MC_C,
+                                 num_mc_samples=MC_K,
+                                 rand_gen=FixedRandomGenerator(noise))
+    fstate = rekeyed(mstart, malg.graphs, falg.graphs)
+    fixed32 = loss_and_grad_at(
+        falg, fstate, mloop.first_batch, "float32", dev, grad=False,
+        rv_scaling={fm.Y.uuid: TRAIN_N / TRAIN_B},
+        generator=torch.Generator(dev))[0]
+    fixed64 = loss_and_grad_at(
+        falg, fstate, mloop.first_batch, "float64", dev, grad=False,
+        rv_scaling={fm.Y.uuid: TRAIN_N / TRAIN_B},
+        generator=torch.Generator(dev))[0]
+    mrel = abs(fixed32 - fixed64) / abs(fixed64)
+    check(mrel <= NG_F64_RTOL, "multi-class first loss on fixed draws "
+          "float32 {} vs float64 {}: rel {}".format(fixed32, fixed64, mrel))
+    two_k1 = {"K1": 2, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    check(all(c == two_k1 for c in mloop.counts)
+          and all(math.isfinite(float(v)) for v in mloop.losses),
+          "multi-class steps launched {}, losses {}".format(
+              mloop.counts, mloop.losses))
+    zero_counts()
+    pred = BatchedPredictor(model=mm, infr_params=minf.params,
+                            observed=[mm.X], target_variables=[mm.Y.uuid],
+                            chunk_size=CHUNK)
+    probs, _ = pred.predict(X=X[:CHUNK])[0]
+    sync()
+    k1 += read_counts()["K1"]
+    sum_err = float(np.abs(probs.sum(-1) - 1.0).max())
+    check(probs.shape == (1, CHUNK, MC_C) and read_counts()["K1"] == 2
+          and sum_err <= PROB_SUM_ATOL, "multi-class serving: shape {}, K1 "
+          "{}, max |Σp − 1| {}".format(probs.shape, read_counts()["K1"],
+                                       sum_err))
+    print("phase 25 multi-class ({}): C={}, K={} draws ((1, {}, {}, {}) "
+          "normals a step), B={}, M={}, {} Adam steps: K1 per step {} | "
+          "losses {} | first loss on fixed draws float32 {:.8g} vs float64 "
+          "{:.8g}: rel {:.3e} (tol {:.0e}) | step wall ms {} | served {} "
+          "rows: max |sum p - 1| {:.3e} (tol {:.0e})".format(
+              card, MC_C, MC_K, TRAIN_B, MC_C, MC_K, TRAIN_B, M,
+              len(mloop.losses), mloop.counts[0]["K1"],
+              [round(float(v), 2) for v in mloop.losses], fixed32, fixed64,
+              mrel, NG_F64_RTOL, wall_summary(mloop.wall_s), CHUNK, sum_err,
+              PROB_SUM_ATOL), flush=True)
+
+    # ---- 26. the rest of the distribution library; the gamma gradient
+    moments = draw_moments(dev, seed + 26, new_moment_cases(rng,
+                                                            MOMENT_DRAWS))
+    grads = gamma_gradient_check(dev, seed + 27)
+    print("phase 26 draws ({}): {} draws each on the card's generator, max "
+          "|mean| and |variance| error in standard errors (tol {}): {} | "
+          "gamma draw gradient, {} float32 draws per alpha vs float64 "
+          "random_gamma_grad (tol {:.0e}): {} | phases 22-26 took {:.1f} s"
+          .format(card, MOMENT_DRAWS, MOMENT_SE, ", ".join(
+              "{} {:.2f} {:.2f}".format(*mo) for mo in moments), GAMMA_N,
+              GAMMA_RTOL, ", ".join(
+                  "alpha {}: rel {:.3e}, iterations {} ({} subnormal draws)"
+                  .format(a, rel, it, sub) for a, rel, it, sub in grads),
+              time.perf_counter() - t_start), flush=True)
+    return k1
 
 
 def main():
@@ -2405,6 +2859,10 @@ def main():
     meanfield_phases(dev, card, args.seed, Xtr, Ytr, x_ppca, W0,
                      read_counts, zero_counts, sync)
 
+    # ---- 22-26. the non-Gaussian SVGPs and the rest of the library
+    ng_k1 = nongaussian_phases(dev, card, args.seed, Xtr, read_counts,
+                               zero_counts, sync, RecordingLoop)
+
     check(not any(k == "jax" or k.startswith(("jax.", "mxfusion_tpu."))
                   or k == "mxfusion_tpu" for k in sys.modules),
           "JAX or the JAX package was imported")
@@ -2426,7 +2884,8 @@ def main():
         row("rbf_gram", "mxfusion_tpu_torch/csrc/rbf_gram.cu",
             "mxfusion_tpu/ops/pallas_kernels.py:89",
             launches + train_launches["K1"] + exact_launches["K1"]
-            + exact_serve["K1"] + sgp_launches["K1"] + sgp_serve["K1"],
+            + exact_serve["K1"] + sgp_launches["K1"] + sgp_serve["K1"]
+            + ng_k1,
             max_err, min(ms["kernel"]),
             min(ms["plain"]), ms["bound"], None),
         row("fused_gram_fwd", fused_src,

@@ -7,18 +7,37 @@ on the generator's device. :class:`FixedRandomGenerator` is the test
 double: it returns pre-seeded values reshaped on demand, ignoring the
 generator, so a test can feed both packages the same draws.
 
-The normal, gamma, multinomial, Bernoulli, uniform and exponential
-draws are here; the Laplace, Poisson and Student-t draws come with
-their distributions.
+A gamma draw's gradient in its shape is the implicit reparameterization
+gradient that ``jax.random.gamma`` has (``ops/igamma.py``); the
+Student-t draw takes its chi-square from it.
 """
 import numpy as np
 import torch
 
 from ...common.config import as_torch_dtype
+from ...ops.igamma import random_gamma_grad
 
 
 def _device(generator):
     return generator.device if generator is not None else None
+
+
+class _StandardGamma(torch.autograd.Function):
+    """Gamma(alpha, 1) draws on ``generator``; the backward in ``alpha``
+    is JAX's implicit gradient, ``random_gamma_grad(alpha, x)``."""
+
+    @staticmethod
+    def forward(ctx, alpha, generator):
+        x = torch._standard_gamma(alpha, generator=generator)
+        ctx.save_for_backward(alpha, x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        alpha, x = ctx.saved_tensors
+        return g * random_gamma_grad(alpha, x), None
 
 
 class RandomGenerator:
@@ -38,8 +57,7 @@ class RandomGenerator:
         ``jax.random.gamma``'s is."""
         alpha = torch.as_tensor(alpha, dtype=as_torch_dtype(dtype),
                                 device=generator.device)
-        g = torch._standard_gamma(torch.broadcast_to(alpha, shape),
-                                  generator=generator)
+        g = _StandardGamma.apply(torch.broadcast_to(alpha, shape), generator)
         return g / beta
 
     def sample_multinomial(self, generator, data, shape=None,
@@ -74,6 +92,35 @@ class RandomGenerator:
                             generator=generator)
         return e / rate
 
+    def sample_laplace(self, generator, location=0.0, scale=1.0, shape=None,
+                       dtype=None):
+        """Inverse CDF from uniform(-0.5, 0.5), as the JAX package's."""
+        u = torch.rand(shape, generator=generator,
+                       dtype=as_torch_dtype(dtype),
+                       device=generator.device) - 0.5
+        return location - scale * torch.sign(u) * torch.log1p(
+            -2.0 * torch.abs(u))
+
+    def sample_poisson(self, generator, rate=1.0, shape=None, dtype=None):
+        """Counts in ``dtype``; no gradient flows into the rate."""
+        lam = torch.broadcast_to(torch.as_tensor(
+            rate, device=generator.device), shape).detach()
+        return torch.poisson(lam, generator=generator).to(
+            as_torch_dtype(dtype))
+
+    def sample_studentt(self, generator, degrees_of_freedom, location=0.0,
+                        scale=1.0, shape=None, dtype=None):
+        """``normal · sqrt(ν / χ²_ν)``, as ``jax.random.t``: the χ² is
+        twice a Gamma(ν/2) draw, so its gradient in ν is the implicit
+        one."""
+        half_df = torch.as_tensor(degrees_of_freedom,
+                                  dtype=as_torch_dtype(dtype),
+                                  device=generator.device) / 2.0
+        n = self.sample_normal(generator, shape=shape, dtype=dtype)
+        g = self.sample_gamma(generator, alpha=half_df, shape=shape,
+                              dtype=dtype)
+        return location + scale * n * torch.sqrt(half_df / g)
+
 
 class FixedRandomGenerator(RandomGenerator):
     """Deterministic test double returning pre-seeded samples.
@@ -95,8 +142,10 @@ class FixedRandomGenerator(RandomGenerator):
         self._cursor += n
         if self._cursor >= self._samples.shape[0]:
             self._cursor = 0
-        return torch.as_tensor(out, dtype=as_torch_dtype(dtype),
-                               device=device)
+        # no dtype keeps the buffer's, as the JAX package's double does
+        return torch.as_tensor(
+            out, dtype=None if dtype is None else as_torch_dtype(dtype),
+            device=device)
 
     def sample_normal(self, generator, loc=0.0, scale=1.0, shape=None,
                       dtype=None):
@@ -123,6 +172,19 @@ class FixedRandomGenerator(RandomGenerator):
     def sample_exponential(self, generator, rate=1.0, shape=None,
                            dtype=None):
         return self._next(shape, dtype, _device(generator)) / rate
+
+    def sample_laplace(self, generator, location=0.0, scale=1.0, shape=None,
+                       dtype=None):
+        return location + scale * self._next(shape, dtype,
+                                             _device(generator))
+
+    def sample_poisson(self, generator, rate=1.0, shape=None, dtype=None):
+        return self._next(shape, dtype, _device(generator))
+
+    def sample_studentt(self, generator, degrees_of_freedom, location=0.0,
+                        scale=1.0, shape=None, dtype=None):
+        return location + scale * self._next(shape, dtype,
+                                             _device(generator))
 
 
 _DEFAULT_RAND_GEN = RandomGenerator()

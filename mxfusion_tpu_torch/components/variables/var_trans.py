@@ -11,10 +11,7 @@ from abc import ABC, abstractmethod
 import numpy as np
 import torch
 
-
-def _softplus(x):
-    # logaddexp(x, 0), as jnp.logaddexp computes it
-    return torch.logaddexp(x, torch.zeros_like(x))
+from ...ops.elementwise import softplus as _softplus
 
 
 def _softplus_inverse(y):

@@ -1,2 +1,5 @@
 from .module import Module
-from .gp_modules import GPRegression, SparseGPRegression, SVGPRegression
+from .gp_modules import (GPRegression, SparseGPRegression,
+                         SVGPRegression, SVGPClassification,
+                         SVGPMultiClassification, SVGPPoissonRegression,
+                         SVGPNegBinomialRegression)

@@ -7,11 +7,7 @@ log(K-1-k))``; the simplex occupies the LAST event axis.
 """
 import torch
 
-
-def _softplus(x):
-    # logaddexp(x, 0), as jax.nn.softplus; torch's softplus returns x
-    # itself above its threshold, which differs in float64
-    return torch.logaddexp(x, torch.zeros_like(x))
+from .elementwise import softplus as _softplus
 
 
 def _offsets(k1, like):

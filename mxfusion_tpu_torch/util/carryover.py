@@ -19,7 +19,10 @@ They are matched by *name path* instead:
 * a variable of a module's internal graphs is prefixed with the module's
   name, or with the name of its first output: ``Y.qU_mean``,
   ``Y.qU_cov_W``, ``Y.qU_cov_diag``, and the kernel's
-  ``Y.rbf_lengthscale`` and ``Y.rbf_variance``.
+  ``Y.rbf_lengthscale`` and ``Y.rbf_variance``. The SVGP family shares
+  this layout (regression, classification, multi-class, Poisson); the
+  negative binomial adds its default dispersion, a module input:
+  ``dispersion``.
 
 The walk reads only what the graph classes of both packages share
 (``components_graph``, ``name``, ``uuid``, ``successors``, ``outputs``,

@@ -282,6 +282,54 @@ def test_cuda_sample_broadcast_launches_the_kernel(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_classification_bound_builds_its_grams_with_k1(cuda_device):
+    """The SVGP classification bound at M = 512, N = 8192, D = 32 (the
+    wide unwhitened arm, float32): each evaluation launches K1 twice (Kuu,
+    Kuf), and its loss is the plain gram's within 1e-5 relative."""
+    import mxfusion_tpu_torch as mt
+    from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
+    from mxfusion_tpu_torch.inference import (MAP, GradBasedInference,
+                                              create_executor)
+    from mxfusion_tpu_torch.modules import SVGPClassification
+    from mxfusion_tpu_torch.util.carryover import load_state
+    N, M, D = 8192, 512, 32
+    rng = np.random.default_rng(24)
+    X = rng.random((N, D)) * 4
+    Y = (rng.random((N, 1)) < 0.5).astype(np.float64)
+    m = mt.Model()
+    m.n = mt.Variable()
+    m.X = mt.Variable(shape=(m.n, D))
+    m.Y = SVGPClassification.define_variable(
+        X=m.X, kernel=RBF(input_dim=D, lengthscale=float(np.sqrt(D))),
+        shape=(m.n, 1), inducing_inputs=mt.Variable(shape=(M, D)))
+    inf = GradBasedInference(MAP(model=m, observed=[m.X, m.Y]),
+                             device=cuda_device)
+    inf.initialize(X=X, Y=Y)
+    load_state(inf.params, {
+        "inducing_inputs": rng.random((M, D)) * 4,
+        "Y.qU_mean": rng.standard_normal((M, 1)),
+        "Y.qU_cov_W": 0.05 * rng.standard_normal((M, M)),
+        "Y.qU_cov_diag": np.full(M, -4.0)}, inf.graphs)
+    ex = create_executor(inf.inference_algorithm, inf.params)
+    losses = []
+    for use in (True, False):
+        ck.set_use_kernel(use)
+        try:
+            before = ck.rbf_kernel_matrix.launches
+            with torch.no_grad():
+                losses.append(float(ex(inf.params.trainable_params(),
+                                       inf.params.fixed_params(), [X, Y],
+                                       None)[0]))
+            torch.cuda.synchronize()
+            assert ck.rbf_kernel_matrix.launches == before + \
+                (2 if use else 0)
+        finally:
+            ck.set_use_kernel(True)
+    assert np.isfinite(losses[0])
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1]), losses
+
+
+@pytest.mark.cuda
 def test_cuda_highest_einsum_ignores_tf32(cuda_device):
     rng = np.random.default_rng(5)
     A = torch.as_tensor(rng.uniform(0, 4, (512, 32)), dtype=torch.float32,

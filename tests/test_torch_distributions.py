@@ -1,4 +1,4 @@
-"""The constrained-latent distributions, their samplers and the
+"""The distribution library, its samplers, ``util/special.py`` and the
 stick-breaking bijector against the JAX package.
 
 For each distribution: the log-pdf and its gradient in every input
@@ -7,7 +7,8 @@ random parameters, float64, rtol 1e-10; draws through the
 ``FixedRandomGenerator`` doubles of both packages are equal; draws of the
 port's own generator have the closed-form moments. ``ops/simplex.py``'s
 forward, inverse and log-Jacobian match JAX (large |z| included) and
-round-trip.
+round-trip. The gamma draw's gradient in its shape is JAX's implicit one
+(``ops/igamma.py``) to 1e-10.
 """
 import jax
 import jax.numpy as jnp
@@ -39,6 +40,11 @@ def _on_the_cpu():
 
 RTOL = 1e-10
 S, B, K = 4, 3, 5
+
+
+def _spd(rng, n):
+    A = rng.standard_normal((n, n))
+    return A @ A.T + n * np.eye(n)
 
 
 def _simplex(rng, shape):
@@ -82,6 +88,47 @@ def _case(name):
         return (name, {}, {"alpha": pos((B, K))},
                 _simplex(rng, (S, B, K)) * 1.3, True, (B, K),
                 pos(S * B * K))
+    if name == "Laplace":
+        return (name, {}, {"location": rng.standard_normal(e),
+                           "scale": pos(e)},
+                rng.standard_normal((S,) + e) * 2, True, e,
+                rng.standard_normal(S * B * 2))
+    if name == "StudentT":
+        return (name, {}, {"degrees_of_freedom": rng.uniform(2.0, 6.0, e),
+                           "location": rng.standard_normal(e),
+                           "scale": pos(e)},
+                rng.standard_normal((S,) + e) * 2, True, e,
+                rng.standard_normal(S * B * 2))
+    if name == "Uniform":
+        return (name, {}, {"low": rng.uniform(-1.0, 0.0, e),
+                           "high": rng.uniform(1.0, 2.0, e)},
+                # the density is flat in x: no gradient to compare
+                rng.uniform(0.0, 0.9, (S,) + e), False, e,
+                rng.uniform(0.0, 1.0, S * B * 2))
+    if name in ("Poisson", "NegativeBinomial"):
+        params = {"rate": pos(e)} if name == "Poisson" else \
+            {"mean": pos(e), "dispersion": rng.uniform(0.2, 2.0, e)}
+        n = S * B * 2 * (1 if name == "Poisson" else 2)
+        return (name, {}, params,
+                rng.poisson(2.0, (S,) + e).astype(np.float64), False, e,
+                rng.poisson(2.0, n).astype(np.float64))
+    if name == "Concrete":
+        return (name, {"temperature": 0.7}, {"probs": pos((B, K))},
+                _simplex(rng, (S, B, K)), True, (B, K),
+                rng.uniform(0.0, 1.0, S * B * K))
+    if name == "NormalMixture":
+        return (name, {}, {"weights": pos(e + (3,)),
+                           "means": rng.standard_normal(e + (3,)) * 2,
+                           "variances": pos(e + (3,))},
+                rng.standard_normal((S,) + e) * 2, True, e,
+                np.concatenate([rng.integers(0, 3, S * B * 2),
+                                rng.standard_normal(S * B * 2)]))
+    if name == "Wishart":
+        A = rng.standard_normal((3, 3))
+        return (name, {}, {"degrees_of_freedom": np.array([5.5]),
+                           "scale": A @ A.T + np.eye(3)},
+                np.stack([_spd(rng, 3) for _ in range(S)]), True, (3, 3),
+                np.concatenate([rng.standard_normal(S * 9), pos(S * 3)]))
     if name.startswith("Categorical"):
         one_hot = name.endswith("one_hot")
         idx = rng.integers(0, K, (S, B))
@@ -97,7 +144,8 @@ def _case(name):
 NAMES = ["LogNormal", "LogitNormal", "StickBreakingNormal", "Gamma",
          "GammaMeanVariance", "Exponential", "InverseGamma", "Beta",
          "Bernoulli", "Dirichlet", "Categorical", "Categorical_one_hot",
-         "Categorical_raw"]
+         "Categorical_raw", "Laplace", "StudentT", "Uniform", "Poisson",
+         "NegativeBinomial", "Concrete", "NormalMixture", "Wishart"]
 
 
 def _build(mod, Var, Fixed, name):
@@ -187,6 +235,14 @@ def _moments(name, a, b=None):
         return a, a * (1 - a)
     if name == "LogNormal":
         return np.exp(a + b / 2), (np.exp(b) - 1) * np.exp(2 * a + b)
+    if name == "Laplace":
+        return a, 2 * b ** 2
+    if name == "Uniform":
+        return (a + b) / 2, (b - a) ** 2 / 12
+    if name == "Poisson":
+        return a, a
+    if name == "NegativeBinomial":
+        return a, a + b * a ** 2
     raise KeyError(name)
 
 
@@ -197,7 +253,11 @@ def _moments(name, a, b=None):
     ("InverseGamma", {"alpha": 4.5, "beta": 2.0}),
     ("Beta", {"alpha": 2.0, "beta": 3.0}),
     ("Bernoulli", {"prob_true": 0.3}),
-    ("LogNormal", {"mean": 0.2, "variance": 0.25})])
+    ("LogNormal", {"mean": 0.2, "variance": 0.25}),
+    ("Laplace", {"location": 0.5, "scale": 1.5}),
+    ("Uniform", {"low": -1.0, "high": 3.0}),
+    ("Poisson", {"rate": 3.5}),
+    ("NegativeBinomial", {"mean": 3.0, "dispersion": 0.5})])
 def test_draws_have_the_closed_form_moments(name, params):
     """2^16 draws of the port's own generator: mean and variance within
     six standard errors (the variance's from the fourth central
@@ -239,13 +299,16 @@ def test_dirichlet_and_categorical_draws_have_the_closed_form_moments():
     assert np.all(np.abs(freq - mean) < 6 * np.sqrt(mean * (1 - mean) / n))
 
 
+GAMMA_ALPHAS = (0.1, 0.7, 2.0, 6.0, 50.0)
+
+
 def test_gamma_draw_gradient_is_the_implicit_one():
     """d x / d alpha of a gamma draw, holding its uniform fixed, against
-    JAX's implicit gradient at the same draws. torch's backward
-    (``_standard_gamma_grad``) is an approximation, 1e-4 relative off
-    the exact value at these shapes (up to 9e-4 at alpha = 0.1), hence
-    5e-4 here; scipy's CDF differenced in alpha agrees with JAX's to
-    1e-8."""
+    JAX's implicit gradient at the same draws: ``sample_gamma``'s
+    backward is ``ops.igamma.random_gamma_grad``, the port of
+    ``jax.lax.random_gamma_grad``, to 1e-10 (float64), at alpha 0.7, 2
+    and 6 and then at 40 draws of each of GAMMA_ALPHAS. scipy's CDF
+    differenced in alpha agrees with JAX's to 1e-8."""
     g = torch.Generator().manual_seed(6)
     alpha = torch.tensor([0.7, 2.0, 6.0], dtype=torch.float64,
                          requires_grad=True)
@@ -257,7 +320,166 @@ def test_gamma_draw_gradient_is_the_implicit_one():
     dF = (special.gammainc(a + h, xv) - special.gammainc(a - h, xv)) / (2 * h)
     pdf = np.exp((a - 1) * np.log(xv) - xv - special.gammaln(a))
     np.testing.assert_allclose(-dF / pdf, exact, rtol=1e-8)
-    np.testing.assert_allclose(alpha.grad.numpy(), exact, rtol=5e-4)
+    np.testing.assert_allclose(alpha.grad.numpy(), exact, rtol=1e-10)
+    alpha = torch.tensor(GAMMA_ALPHAS, dtype=torch.float64).repeat(40)
+    alpha.requires_grad_(True)
+    x = tdist.RandomGenerator().sample_gamma(g, alpha=alpha,
+                                             shape=alpha.shape,
+                                             dtype="float64")
+    x.sum().backward()
+    exact = np.asarray(jax.lax.random_gamma_grad(
+        alpha.detach().numpy(), x.detach().numpy()))
+    np.testing.assert_allclose(alpha.grad.numpy(), exact, rtol=1e-10,
+                               atol=0)
+
+
+@pytest.mark.parametrize("alpha", GAMMA_ALPHAS)
+def test_random_gamma_grad_matches_jax_on_both_branches(alpha):
+    """The series (x <= 1 or x <= alpha) and the continued fraction
+    (x > 1 and x > alpha), at x on both sides of the switch and at the
+    masks: x = 0 gives 0, alpha <= 0 and x < 0 give NaN."""
+    from mxfusion_tpu_torch.ops.igamma import random_gamma_grad
+    x = np.array([1e-3, 0.5 * alpha, 0.9, 0.999, 1.001, 1.5,
+                  0.99 * alpha, alpha, 1.01 * alpha, 3.0 * alpha,
+                  alpha + 10.0 * np.sqrt(alpha), 0.0, -1.0])
+    a = np.full_like(x, alpha)
+    a[-1] = -alpha
+    want = np.asarray(jax.lax.random_gamma_grad(a, x))
+    got = random_gamma_grad(torch.tensor(a), torch.tensor(x)).numpy()
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert got[-2] == want[-2] == 0.0 and np.isnan(got[-1])
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=0)
+    both = ((x > 1) & (x > alpha)).any() and (~((x > 1) & (x > alpha))).any()
+    assert both
+
+
+def test_studentt_draw_moments_and_gradient():
+    """2^16 Student-t draws at nu = 5: mean and variance nu/(nu-2)
+    within six standard errors; the draw's gradient in nu flows through
+    the implicit gamma gradient and is finite."""
+    n = 1 << 16
+    nu = torch.tensor(5.0, dtype=torch.float64, requires_grad=True)
+    t = tdist.RandomGenerator().sample_studentt(
+        torch.Generator().manual_seed(8), nu, location=0.5, scale=2.0,
+        shape=(n,), dtype="float64")
+    t.abs().mean().backward()
+    x = t.detach().numpy()
+    var = 4.0 * 5.0 / 3.0
+    assert abs(x.mean() - 0.5) < 6 * np.sqrt(var / n)
+    m4 = np.mean((x - x.mean()) ** 4)
+    assert abs(x.var() - var) < 6 * np.sqrt((m4 - var ** 2) / n)
+    assert np.isfinite(float(nu.grad)) and float(nu.grad) < 0.0
+
+
+def test_concrete_mixture_and_wishart_draws():
+    """Concrete: the argmax of a draw is class k with probability p_k.
+    NormalMixture: the mixture's mean and variance. Wishart: the mean
+    n·S. 2^14 draws each, within six standard errors."""
+    n = 1 << 14
+    g = torch.Generator().manual_seed(9)
+    p = np.array([0.1, 0.2, 0.3, 0.4])
+    pv = Variable()
+    conc = tdist.Concrete(probs=pv, temperature=0.5, dtype="float64")
+    conc._generate_outputs(shape=(4,))
+    x = conc.draw_samples({pv.uuid: torch.tensor(p)[None]}, g,
+                          num_samples=n).reshape(n, 4).numpy()
+    freq = np.bincount(x.argmax(-1), minlength=4) / n
+    assert np.all(np.abs(freq - p) < 6 * np.sqrt(p * (1 - p) / n))
+    w, mu, v = np.array([0.3, 0.7]), np.array([-2.0, 1.0]), \
+        np.array([0.5, 2.0])
+    ins = {k: Variable() for k in ("weights", "means", "variances")}
+    mix = tdist.NormalMixture(dtype="float64", **ins)
+    mix._generate_outputs(shape=(1,))
+    env = {ins[k].uuid: torch.tensor(a)[None, None]
+           for k, a in zip(ins, (w, mu, v))}
+    x = mix.draw_samples(env, g, num_samples=n).reshape(-1).numpy()
+    mean = w @ mu
+    var = w @ (v + mu ** 2) - mean ** 2
+    assert abs(x.mean() - mean) < 6 * np.sqrt(var / n)
+    dof, sv = Variable(), Variable()
+    wis = tdist.Wishart(degrees_of_freedom=dof, scale=sv, dtype="float64")
+    wis._generate_outputs(shape=(3, 3))
+    S_ = _spd(np.random.default_rng(10), 3) / 3
+    W = wis.draw_samples({dof.uuid: torch.tensor([[6.0]]),
+                          sv.uuid: torch.tensor(S_)[None]}, g,
+                         num_samples=n).numpy()
+    var = 6.0 * (S_ ** 2 + np.outer(np.diag(S_), np.diag(S_)))
+    assert np.all(np.abs(W.mean(0) - 6.0 * S_) < 6 * np.sqrt(var / n))
+
+
+def test_wishart_nan_pattern_as_jax():
+    """A scale that is not positive definite (one of two samples): the
+    log-pdf and the draws are NaN for that sample only, in both
+    packages."""
+    rng = np.random.default_rng(11)
+    good = _spd(rng, 3)
+    bad = good.copy()
+    bad[0, 1] = bad[1, 0] = 10.0 * bad[0, 0]
+    scale = np.stack([good, bad])
+    X = np.stack([_spd(rng, 3), _spd(rng, 3)])
+    out = {}
+    for mod, Var, Fixed, arr in ((tdist, Variable, FixedRandomGenerator,
+                                  torch.tensor),
+                                 (jdist, JVariable, JFixed, jnp.asarray)):
+        dof, sv = Var(), Var()
+        draws = np.concatenate([rng.standard_normal(18), np.ones(6)]) \
+            if mod is tdist else out["draws"]
+        out["draws"] = draws
+        dist = mod.Wishart(degrees_of_freedom=dof, scale=sv,
+                           dtype="float64", rand_gen=Fixed(draws))
+        dist._generate_outputs(shape=(3, 3))
+        env = {dof.uuid: arr(np.array([[5.0]])), sv.uuid: arr(scale)}
+        lp = dist.log_pdf(dict(env, **{dist.random_variable.uuid: arr(X)}))
+        d = dist.draw_samples(env, torch.Generator() if mod is tdist
+                              else jax.random.PRNGKey(0), num_samples=2)
+        out[mod.__name__] = (np.asarray(lp), np.asarray(d))
+    (tlp, td), (jlp, jd) = out[tdist.__name__], out[jdist.__name__]
+    assert np.isnan(tlp).tolist() == np.isnan(jlp).tolist() == [False, True]
+    np.testing.assert_allclose(tlp[0], jlp[0], rtol=RTOL)
+    assert np.array_equal(np.isnan(td), np.isnan(jd))
+    assert np.isnan(td[1]).all() and not np.isnan(td[0]).any()
+
+
+def test_special_functions_match_jax():
+    """``util/special.py``: values and gradients in float64, rtol 1e-10."""
+    from mxfusion_tpu.util import special as jspecial
+    from mxfusion_tpu_torch.util import special as tspecial
+    rng = np.random.default_rng(12)
+    A = np.stack([_spd(rng, 4) for _ in range(3)])
+    b = rng.standard_normal((3, 4, 2))
+    L = np.linalg.cholesky(A)
+    x = rng.uniform(2.0, 5.0, 3)
+    cases = [
+        ("log_determinant", lambda m, a, b_, x_: m.log_determinant(a)),
+        ("log_multivariate_gamma",
+         lambda m, a, b_, x_: m.log_multivariate_gamma(x_, 4)),
+        ("solve_posdef", lambda m, a, b_, x_: m.solve_posdef(a, b_)),
+        ("trace", lambda m, a, b_, x_: m.trace(a)),
+        ("solve_triangular", lambda m, a, b_, x_: m.solve_triangular(
+            a, b_)),
+        ("solve_triangular_trans", lambda m, a, b_, x_: m.solve_triangular(
+            a, b_, trans=True)),
+        ("solve_triangular_upper", lambda m, a, b_, x_: m.solve_triangular(
+            a, b_, lower=False))]
+    for name, f in cases:
+        a0 = L if name.startswith("solve_triangular") else A
+        if name == "solve_triangular_upper":
+            a0 = np.swapaxes(L, -1, -2)
+        jv, jg = jax.value_and_grad(
+            lambda a, b_, x_: jnp.sum(jnp.sin(f(jspecial, a, b_, x_))),
+            argnums=(0, 1, 2))(jnp.asarray(a0), jnp.asarray(b),
+                               jnp.asarray(x))
+        args = [torch.tensor(v, requires_grad=True) for v in (a0, b, x)]
+        tv = torch.sum(torch.sin(f(tspecial, *args)))
+        tv.backward()
+        np.testing.assert_allclose(float(tv.detach()), float(jv), rtol=RTOL,
+                                   err_msg=name)
+        for t, j in zip(args, jg):
+            j = np.asarray(j)
+            got = np.zeros_like(j) if t.grad is None else t.grad.numpy()
+            np.testing.assert_allclose(got, j, rtol=RTOL,
+                                       atol=RTOL * (np.abs(j).max() + 1e-300),
+                                       err_msg=name)
 
 
 def test_simplex_bijector_matches_jax_and_round_trips():

@@ -172,3 +172,33 @@ def test_module_terms_keep_their_sample_axis():
     assert torch.equal(_sum_event_dims(term), term)
     assert torch.equal(_sum_event_dims(torch.ones((3, 2, 4))),
                        torch.full((3,), 8.0))
+
+
+@pytest.mark.parametrize("name", ["add", "subtract", "multiply", "divide",
+                                  "power", "square", "exp", "sigmoid",
+                                  "tanh", "softplus", "probit", "log"])
+def test_elementwise_operators_match_jax(name):
+    """Each elementwise operator of the port evaluated on sampled inputs
+    against the JAX package's: x of shape (3, 4, 2) (three samples), y
+    of shape (1, 2) aligned against it as (1, 1, 2); softplus past torch's
+    threshold of 20. rtol 1e-12."""
+    from mxfusion_tpu.components.functions import operators as jops
+    from mxfusion_tpu.components.variables import Variable as JVariable
+    from mxfusion_tpu_torch.components.functions import operators as tops
+    from mxfusion_tpu_torch.components.variables import Variable
+    rng = np.random.default_rng(13)
+    x = rng.uniform(0.5, 2.0, (3, 4, 2))
+    if name == "softplus":
+        x = x * 20.0
+    y = rng.uniform(0.5, 2.0, (1, 2))
+    binary = name in ("add", "subtract", "multiply", "divide", "power")
+    outs = []
+    for ops, Var, arr in ((tops, Variable, torch.tensor),
+                          (jops, JVariable, jnp.asarray)):
+        vx, vy = Var(shape=(4, 2)), Var(shape=(2,))
+        out = getattr(ops, name)(vx, vy) if binary else \
+            getattr(ops, name)(vx)
+        env = {vx.uuid: arr(x), vy.uuid: arr(y)}
+        outs.append(np.asarray(out.factor.eval(env)["output_0"]))
+    assert outs[0].shape == outs[1].shape == (3, 4, 2)
+    np.testing.assert_allclose(outs[0], outs[1], rtol=1e-12)

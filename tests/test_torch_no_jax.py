@@ -2,8 +2,9 @@
 ``import jax`` fails imports the port, trains the small slice with both
 minibatch loops and serves it from a numpy state, runs the MVN slice
 (structured-PPCA SVI, then forward sampling), fits and serves the
-exact and collapsed GP modules, and trains mean-field posteriors by
-SVI and by the score-function estimator. Also: chip_smoke.py refuses
+exact and collapsed GP modules, trains mean-field posteriors by SVI and
+by the score-function estimator, and fits and serves an SVGP classifier
+and a Poisson SVGP. Also: chip_smoke.py refuses
 to run without a GPU and without the rest of the repository."""
 import os
 import shutil
@@ -273,6 +274,77 @@ jaxy = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib",
 assert not jaxy, jaxy
 print("MEANFIELD", mu)
 """
+
+
+NONGAUSSIAN_WITHOUT_JAX = r"""
+import sys
+sys.modules["jax"] = None          # any `import jax` now raises
+sys.path.insert(0, {root!r})
+import numpy as np
+import torch
+from mxfusion_tpu_torch import Model, Variable
+from mxfusion_tpu_torch.common.config import set_default_device
+from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
+from mxfusion_tpu_torch.inference import (BatchedPredictor,
+                                          DeviceMinibatchLoop,
+                                          GradBasedInference, MAP)
+from mxfusion_tpu_torch.modules import (SVGPClassification,
+                                        SVGPPoissonRegression)
+
+set_default_device("cpu")
+N, M, D, B = 256, 12, 2, 64
+rng = np.random.default_rng(0)
+X = rng.uniform(0, 4, (N, D))
+f = 2.0 * np.sin(2.0 * X[:, :1])
+labels = (rng.random((N, 1)) < 1.0 / (1.0 + np.exp(-3.0 * f))) * 1.0
+counts = rng.poisson(np.exp(f)).astype(np.float64)
+Xt = rng.uniform(0, 4, (100, D))
+for Module, Y, kw in ((SVGPClassification, labels, dict(link="probit")),
+                      (SVGPPoissonRegression, counts,
+                       dict(link="softplus"))):
+    m = Model()
+    m.n = Variable()
+    m.X = Variable(shape=(m.n, D))
+    m.Y = Module.define_variable(
+        X=m.X, kernel=RBF(input_dim=D), shape=(m.n, 1),
+        inducing_inputs=Variable(shape=(M, D),
+                                 initial_value=rng.uniform(0, 4, (M, D))),
+        **kw)
+    infr = GradBasedInference(
+        MAP(model=m, observed=[m.X, m.Y]),
+        grad_loop=DeviceMinibatchLoop(batch_size=B,
+                                      rv_scaling={{m.Y: N / B}}))
+    losses = []
+    infr.run(X=X, Y=Y, max_iter=8, learning_rate=0.05,
+             generator=torch.Generator().manual_seed(0),
+             callback=lambda e, l: losses.append(l))
+    assert np.all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    pred = BatchedPredictor(model=m, infr_params=infr.params,
+                            observed=[m.X], target_variables=[m.Y.uuid],
+                            chunk_size=64)
+    mean, var = pred.predict(X=Xt)[0]
+    assert mean.shape == var.shape == (1, 100, 1)
+    assert np.isfinite(mean).all() and (var >= 0).all()
+    if Module is SVGPClassification:
+        assert 0.0 < mean.min() and mean.max() < 1.0
+jaxy = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib",
+                                                       "mxfusion_tpu")
+        and sys.modules[k] is not None]
+assert not jaxy, jaxy
+print("NONGAUSSIAN", losses[-1])
+"""
+
+
+def test_port_fits_and_serves_nongaussian_svgps_without_jax():
+    """An SVGP classifier (probit) and a Poisson SVGP (softplus link)
+    train by MAP through the device loop and serve through
+    BatchedPredictor in an interpreter without JAX."""
+    proc = subprocess.run(
+        [sys.executable, "-c", NONGAUSSIAN_WITHOUT_JAX.format(
+            root=str(ROOT))],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert "NONGAUSSIAN" in proc.stdout
 
 
 def test_port_trains_meanfield_svi_and_bbvi_without_jax():
