@@ -10,10 +10,13 @@ full-covariance posterior, then forward sampling), and the exact and
 collapsed GP modules (``GPRegression`` at the exact-GP bench's N = 1024,
 ``SparseGPRegression`` at N = 65536, M = 512) with the GP kernel family,
 the mean-field slice (SVI, IWAE, BBVI and ADVI over constrained
-latents), which launches none of the kernels, and the non-Gaussian
+latents), which launches none of the kernels, the non-Gaussian
 SVGPs (binary and multi-class classification, Poisson and negative
-binomial counts) at B = 65536, M = 512, D = 32, whose grams are K1's.
-In phases that each print one line:
+binomial counts) at B = 65536, M = 512, D = 32, whose grams are K1's,
+and the rest of the GP module family: the LMC multi-output SVGP, 2-layer
+deep GPs (regression and classification) and natural-gradient SVGP
+training, minibatch and full batch. In phases that each print one
+line:
 
 1. device: needs CUDA (exits nonzero without it); prints the card's
    name and power limit (nvidia-smi) and the TF32 settings;
@@ -27,7 +30,10 @@ In phases that each print one line:
    (1024², D = 4, X2 None), Kxt (1024 x 8192, D = 4) and Kxx on the
    ``active_dims`` copy (D = 2), one ragged ARD shape and
    three whose M % 4 != 0 takes its 4-byte stores (M = 8191; two samples
-   at M = 130 and at M = 1), max |diff| <= 1e-5 at variance 1; K2 (rtol 2e-4, atol 2e-5) and K3
+   at M = 130 and at M = 1), and, through ``RBF.K``'s route, the deep
+   GP's inner-layer Kuf (Z at s = 1 against 5 samples of 65536 inputs,
+   D = 30, expanded to one launch), max |diff| <= 1e-5 at variance 1;
+   K2 (rtol 2e-4, atol 2e-5) and K3
    (2e-3 of each output's largest entry, and the same bits on a second
    call) at the training shape (M = 512, N = 65536, D = 32), a ragged
    shape the gate admits and two shapes (N = 4104 and 100000, N % 4 = 0)
@@ -47,9 +53,10 @@ In phases that each print one line:
    numpy evaluation of the predictive formulas (1e-3 relative);
 5. timing (information): K1's and its plain version's device time at
    serving's Kzx (512 x 8192) and Kuu and the materialized arm's Kuf
-   (512 x 65536), D = 32, and at the exact GP's Kxx (1024²) and Kxt
-   (1024 x 8192), D = 4, each beside its bound, and serving rows/s with
-   and without the kernel;
+   (512 x 65536), D = 32, at the exact GP's Kxx (1024²) and Kxt
+   (1024 x 8192), D = 4, and at the deep GP's Kuf (5 x 512 x 65536,
+   D = 30), each beside its bound, and serving rows/s with and without
+   the kernel;
 6. train: MAP with Adam (lr 3e-3) for one epoch of 4 steps on 262144
    seeded rows, once through the fused arm and once with
    ``fused_gram.disabled()`` (materialized Kuf) from the same start and
@@ -169,7 +176,38 @@ In phases that each print one line:
    within six standard errors of the closed forms; and the gamma draw's
    gradient in alpha on the card (float32) within 1e-5 of the ported
    ``random_gamma_grad`` in float64 at alpha = 0.1, 0.7, 2, 6 and 50,
-   with the iterations each backward ran.
+   with the iterations each backward ran;
+27. LMC: ``LMCSVGPRegression`` at benchmarks/lmc_scale.py:22's shape
+   (B = 65536, M = 512, D = 32, Q = 8 latents, C = 16 outputs mixed from
+   8 latent functions of phase 6's inputs plus noise), MAP +
+   ``DeviceMinibatchLoop``, Adam at lr 3e-3, 4 steps: K1 twice a step,
+   finite losses, the first loss float32 vs float64 within 1e-3; then a
+   65536-row request with the full 16 x 16 output covariance and a
+   128-row one (K1 twice a chunk), against float64 numpy on 256 rows
+   within 1e-3; rows/s and the latency;
+28. deep GP regression: ``DeepGPRegression``, RBF(32) -> 30 hidden ->
+   RBF(30) -> 1, M = 512 a layer, S = 5 draws, whitened, the linear
+   inner mean, on phase 6's rows at B = 65536, 4 Adam steps: K1 four
+   times a step (layer 1's Kuf at s = 5 among them), finite losses, the
+   first loss on fixed draws float32 vs float64 within 1e-3; ten steps
+   under ``torch.profiler``; a 65536-row request (20 draws, K1 four
+   times a chunk) with finite moments, and the moments on fixed draws
+   float32 vs float64 on 256 rows within 1e-3;
+29. deep GP classification: phase 28's stack with phase 22's labels and
+   the logit link, 4 steps, the same checks; served probabilities in
+   (0, 1);
+30. natural gradients, minibatch: benchmarks/svgp_1m.py's ngd mode (10^6
+   rows of its data, d = 8, B = 4096, M = 256, gamma 0.1, N/B scaling):
+   one epoch (245 steps) of ``NaturalGradientMinibatchLoop`` and one of
+   ``DeviceMinibatchLoop`` from one start and one permutation: K2 once,
+   K3 three times and K1 once a step, NGD's epoch loss below Adam's, the
+   NaN guard's trips printed, both step walls;
+31. natural gradients, full batch: phase 15's configuration (N = 65536,
+   M = 512, D = 32) with the hyperparameters fixed, three
+   ``NaturalGradientLoop`` steps at gamma 1 in float64: step 2's loss is
+   the collapsed bound (``SparseGPRegression``, float64) within 1e-6;
+   then the same in float32 with K1, K2 and K3 on, its gap to the bound
+   and the guard's trips printed (information).
 
 Any failed check raises and the script exits nonzero. The last three
 lines are the card (nvidia-smi), the kernels' JSON record (each with
@@ -323,6 +361,28 @@ PROB_SUM_ATOL = 1e-5
 # the gamma draw's gradient: float32 on the card vs the ported
 # random_gamma_grad in float64 on the CPU at the same draws
 GAMMA_ALPHAS, GAMMA_N, GAMMA_RTOL = (0.1, 0.7, 2.0, 6.0, 50.0), 65536, 1e-5
+# the rest of the GP module family (phases 27-31). LMC at
+# benchmarks/lmc_scale.py:22's shape (Q latents, C outputs) on phase 6's
+# rows; the deep GPs RBF(D) → DGP_H hidden → RBF(DGP_H) → 1, the hidden
+# width min(30, D) as in Salimbeni & Deisenroth 2017, DGP_S propagation
+# draws (the module's default) and DGP_SERVE_S served ones (the
+# prediction's default)
+LMC_Q, LMC_C = 8, 16
+DGP_H, DGP_S, DGP_SERVE_S = 30, 5, 20
+# served variances may cancel below 0 by this much (phase 4's limit)
+VAR_ATOL = 1e-6
+# natural gradients: benchmarks/svgp_1m.py:25-64's ngd mode (10^6 rows of
+# its own data, d = 8, B = 4096, M = 256, γ = 0.1), Adam at lr 3e-3 on the
+# hyperparameters; one epoch is 245 steps
+NGD_N, NGD_D, NGD_B, NGD_M, NGD_GAMMA, NGD_LR = (
+    1_000_000, 8, 4096, 256, 0.1, 3e-3)
+# the γ = 1 step onto the collapsed bound at phase 15's configuration, in
+# float64: tests/inference/test_natural_gradient.py:66-82 holds it to 1e-8
+# at N = 60. At N = 65536 the data term of P = S⁻¹ + 2γ g_S/D, about
+# N·var/σ² = 6.6e5, dwarfs S⁻¹, so the solve for the new S may lose up to
+# cond(P)·eps of its relative accuracy; the loss takes that at second
+# order (the step lands on a stationary point), and 1e-6 leaves room
+NGD_ORACLE_RTOL = 1e-6
 
 
 def check(ok, message):
@@ -723,10 +783,10 @@ def sparse_gp_predict_f64(X, Y, Z, ls, var, noise, jitter, Xt):
     return Kxt.T @ w, var - np.sum(B * B, 0) + np.sum(C * C, 0)
 
 
-def gp_model(module, kernel, d, **kw):
-    """``module`` (GPRegression or SparseGPRegression) over d inputs with
-    ``kernel`` and a noise variance starting at 0.1; returns the model
-    and its MAP algorithm."""
+def gp_model(module, kernel, d, noise=0.1, **kw):
+    """``module`` (GPRegression, SparseGPRegression or SVGPRegression)
+    over d inputs with ``kernel`` and a noise variance starting at
+    ``noise``; returns the model and its MAP algorithm."""
     from mxfusion_tpu_torch import Model, Variable
     from mxfusion_tpu_torch.components.variables import \
         PositiveTransformation
@@ -735,7 +795,7 @@ def gp_model(module, kernel, d, **kw):
     m.n = Variable()
     m.X = Variable(shape=(m.n, d))
     m.noise_var = Variable(transformation=PositiveTransformation(),
-                           initial_value=0.1)
+                           initial_value=noise)
     m.Y = module.define_variable(X=m.X, kernel=kernel,
                                  noise_var=m.noise_var, shape=(m.n, 1), **kw)
     return m, MAP(model=m, observed=[m.X, m.Y])
@@ -934,6 +994,37 @@ def whitened_moments(z, mu, L):
     cov = torch.cov(w.T)
     eye = torch.eye(z.shape[-1], dtype=w.dtype, device=w.device)
     return float(mean.abs().max()), float((cov - eye).abs().max())
+
+
+def recording_loop(loop_cls, read_counts):
+    """``loop_cls`` (a minibatch loop) recording each step's loss, kernel
+    launches and wall time (synchronized before and after), and the first
+    batch."""
+    import torch
+
+    class RecordingLoop(loop_cls):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.losses, self.counts, self.wall_s = [], [], []
+            self.first_batch = None
+
+        def _step(self, executor, opt, trainable, fixed, batch, generator,
+                  grad_norm=False):
+            if self.first_batch is None:
+                self.first_batch = batch
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super()._step(executor, opt, trainable, fixed, batch,
+                                generator, grad_norm)
+            torch.cuda.synchronize()
+            self.wall_s.append(time.perf_counter() - t0)
+            after = read_counts()
+            self.counts.append({k: after[k] - before[k] for k in after})
+            self.losses.append(out[0])
+            return out
+
+    return RecordingLoop
 
 
 def recording_batch_loop(read_counts, sync):
@@ -1197,11 +1288,13 @@ def train_meanfield(build, data, S, steps, lr, dev, seed, read_counts,
             grad_loop=loop), data, steps, lr, dev, seed, read_counts, sync)
 
 
-def wall_summary(wall_s):
-    """Median and quartiles (ms) of the step walls after the first."""
+def wall_summary(wall_s, listed=True):
+    """Median and quartiles (ms) of the step walls after the first, and
+    the walls themselves (``listed``) or their count."""
     q1, med, q3 = np.percentile(1e3 * np.asarray(wall_s[1:]), [25, 50, 75])
     return "median {:.3f} (quartiles {:.3f}-{:.3f}) of {}".format(
-        med, q1, q3, [round(1e3 * w, 3) for w in wall_s])
+        med, q1, q3, [round(1e3 * w, 3) for w in wall_s] if listed
+        else len(wall_s))
 
 
 def per_sample_mean_gradients(inf, data, dev):
@@ -1619,18 +1712,25 @@ def rekeyed(state, graphs, to_graphs):
     return {to[paths[k]]: v for k, v in state.items()}
 
 
-def checked_run(label, loop, start, alg, dev):
-    """Check a recorded training run: K1 twice and nothing else each step,
-    finite losses, and the first loss against the float64 bound (plain
-    gram) at the start state and the first batch. Returns the first
-    loss's relative error and its float64 value."""
-    two_k1 = {"K1": 2, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+def check_steps(label, loop, per_step):
+    """Every step of a recorded run launched ``per_step`` ({kernel:
+    count}, the rest 0) and every loss is finite; returns the losses."""
+    want = dict({"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}, **per_step)
     for i, counts in enumerate(loop.counts):
-        check(counts == two_k1, "{} step {} launched {}; expected {} (Kuu, "
-              "Kuf)".format(label, i, counts, two_k1))
+        check(counts == want, "{} step {} launched {}; expected {}".format(
+            label, i, counts, want))
     losses = [float(v) for v in loop.losses]
     check(all(math.isfinite(v) for v in losses),
           "{}: non-finite losses {}".format(label, losses))
+    return losses
+
+
+def checked_run(label, loop, start, alg, dev):
+    """Check a recorded training run: K1 twice (Kuu, Kuf) and nothing
+    else each step, finite losses, and the first loss against the float64
+    bound (plain gram) at the start state and the first batch. Returns
+    the first loss's relative error and its float64 value."""
+    losses = check_steps(label, loop, {"K1": 2})
     f64 = loss_and_grad_at(alg, start, loop.first_batch, "float64", dev,
                            grad=False, rv_scaling={
                                alg.model.Y.uuid: TRAIN_N / TRAIN_B})[0]
@@ -1757,7 +1857,8 @@ def nongaussian_phases(dev, card, seed, X, read_counts, zero_counts, sync,
     whitened), its serving, the count SVGPs (Poisson with both links,
     negative binomial with a learned dispersion), the multi-class SVGP,
     and the draws of the rest of the distribution library with the gamma
-    draw's gradient. Returns the K1 launches of their main paths."""
+    draw's gradient. Returns the K1 launches of their main paths and the
+    class labels."""
     import torch
     from mxfusion_tpu_torch.components.distributions import \
         FixedRandomGenerator
@@ -1970,7 +2071,392 @@ def nongaussian_phases(dev, card, seed, X, read_counts, zero_counts, sync,
                   "alpha {}: rel {:.3e}, iterations {} ({} subnormal draws)"
                   .format(a, rel, it, sub) for a, rel, it, sub in grads),
               time.perf_counter() - t_start), flush=True)
-    return k1
+    return k1, labels
+
+
+def deep_kuf_inputs(rng, dev):
+    """The deep GP's inner-layer Kuf operands at phase 28's shapes: Z
+    (1, M, DGP_H) on the box, DGP_S samples of propagated inputs
+    (DGP_S, TRAIN_B, DGP_H) around points of the box, and the lengthscale
+    sqrt(DGP_H) at s = 1."""
+    import torch
+    f32 = dict(dtype=torch.float32, device=dev)
+    A = rng.uniform(0.0, BOX, (1, TRAIN_B, DGP_H)) \
+        + 0.3 * rng.standard_normal((DGP_S, TRAIN_B, DGP_H))
+    return (torch.as_tensor(rng.uniform(0.0, BOX, (1, M, DGP_H)), **f32),
+            torch.as_tensor(A, **f32),
+            torch.full((1, 1), math.sqrt(DGP_H), **f32))
+
+
+def deep_gp_model(module, Z0s, **kw):
+    """``module`` (DeepGPRegression or DeepGPClassification): RBF(D) →
+    DGP_H hidden → RBF(DGP_H) → 1, lengthscales sqrt(width), M inducing
+    points a layer at ``Z0s``, DGP_S propagation draws, whitened, the
+    linear inner mean (the defaults); regression learns a noise variance
+    from 0.1. Returns the model and its MAP algorithm."""
+    from mxfusion_tpu_torch import Model, Variable
+    from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
+    from mxfusion_tpu_torch.components.variables import \
+        PositiveTransformation
+    from mxfusion_tpu_torch.inference import MAP
+    from mxfusion_tpu_torch.modules import DeepGPRegression
+    m = Model()
+    m.n = Variable()
+    m.X = Variable(shape=(m.n, D))
+    if module is DeepGPRegression:
+        m.noise_var = Variable(transformation=PositiveTransformation(),
+                               initial_value=0.1)
+        kw["noise_var"] = m.noise_var
+    m.Y = module.define_variable(
+        X=m.X, kernels=[RBF(input_dim=D, lengthscale=math.sqrt(D)),
+                        RBF(input_dim=DGP_H, lengthscale=math.sqrt(DGP_H))],
+        shape=(m.n, 1), num_samples=DGP_S,
+        inducing_inputs=[Variable(shape=z.shape, initial_value=z)
+                         for z in Z0s], **kw)
+    return m, MAP(model=m, observed=[m.X, m.Y])
+
+
+def state_by_path(params, graphs):
+    """The trainable store of ``params`` by name path."""
+    from mxfusion_tpu_torch.util.carryover import name_paths
+    paths = name_paths(graphs)
+    return {paths[k]: v.detach() for k, v in params.param_dict.items()}
+
+
+def serve_timed(pred, X, small, sync, read_counts, zero_counts):
+    """``pred`` (a BatchedPredictor whose first request fixed its chunk)
+    answers ``X`` and the 128-row ``small``: (bulk outputs, bulk seconds,
+    bulk K1 launches, small outputs, small ms, K1 launches of both)."""
+    sync()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = pred.predict(X=X)[0]
+    bulk_s = time.perf_counter() - t0
+    bulk_k1 = read_counts()["K1"]
+    t0 = time.perf_counter()
+    out_small = pred.predict(X=small)[0]
+    small_ms = 1e3 * (time.perf_counter() - t0)
+    return out, bulk_s, bulk_k1, out_small, small_ms, read_counts()["K1"]
+
+
+def fixed_draw_loss(module, Z0s, start, alg, batch, dev):
+    """The deep GP bound at ``start`` (a state of ``alg``'s graphs) on
+    ``batch``, float32 and float64, on one buffer of fixed normals (DGP_S
+    draws of the hidden layer for every row)."""
+    import torch
+    from mxfusion_tpu_torch.components.distributions import \
+        FixedRandomGenerator
+    noise = np.random.default_rng(0).standard_normal(
+        DGP_S * TRAIN_B * DGP_H)
+    fm, falg = deep_gp_model(module, Z0s,
+                             rand_gen=FixedRandomGenerator(noise))
+    fstate = rekeyed(start, alg.graphs, falg.graphs)
+    out = []
+    for dtype in ("float32", "float64"):
+        fm.Y.factor._rand_gen.reset()
+        out.append(loss_and_grad_at(
+            falg, fstate, batch, dtype, dev, grad=False,
+            rv_scaling={fm.Y.uuid: TRAIN_N / TRAIN_B},
+            generator=torch.Generator(dev))[0])
+    return out[0], out[1], abs(out[0] - out[1]) / abs(out[1])
+
+
+def fixed_draw_moments(module, Z0s, params, graphs, X, dev):
+    """The served deep GP moments on ``X`` (F64_ROWS rows, one chunk) at
+    the trained ``params``, float32 and float64, on one buffer of fixed
+    normals (DGP_SERVE_S draws of the hidden layer for every row)."""
+    from mxfusion_tpu_torch.components.distributions import \
+        FixedRandomGenerator
+    from mxfusion_tpu_torch.inference import BatchedPredictor
+    from mxfusion_tpu_torch.util.carryover import carryover_params
+    noise = np.random.default_rng(1).standard_normal(
+        DGP_SERVE_S * len(X) * DGP_H)
+    fm, _ = deep_gp_model(module, Z0s, rand_gen=FixedRandomGenerator(noise))
+    state = state_by_path(params, graphs)
+    out = []
+    for dtype in ("float32", "float64"):
+        fm.Y.factor._rand_gen.reset()
+        pred = BatchedPredictor(
+            model=fm, observed=[fm.X], target_variables=[fm.Y.uuid],
+            infr_params=carryover_params(state, [fm], dtype=dtype,
+                                         device=dev),
+            chunk_size=len(X))
+        out.append(pred.predict(X=X)[0])
+    return out
+
+
+def gp_family_phases(dev, card, seed, X, Y, labels, read_counts,
+                     zero_counts, sync, loop_cls):
+    """Phases 27-31: LMC multi-output SVGP, deep GP regression and
+    classification, natural-gradient SVGP training (minibatch against
+    Adam, and the full-batch γ = 1 step onto the collapsed bound).
+    Returns the launches of their main paths by kernel."""
+    import torch
+    from mxfusion_tpu_torch import Variable
+    from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
+    from mxfusion_tpu_torch.inference import (
+        BatchedPredictor, DeviceMinibatchLoop, GradBasedInference,
+        NaturalGradientLoop, NaturalGradientMinibatchLoop)
+    from mxfusion_tpu_torch.modules import (
+        DeepGPClassification, DeepGPRegression, LMCSVGPRegression,
+        SparseGPRegression, SVGPRegression)
+    from mxfusion_tpu_torch.modules.gp_modules.lmc_svgp import \
+        LMCSVGPMeanVariancePrediction
+    t_start = time.perf_counter()
+    launches = {"K1": 0, "K2": 0, "K3": 0}
+
+    def add_launches():
+        sync()
+        for k in launches:
+            launches[k] += read_counts()[k]
+
+    small = np.random.default_rng(seed + 40).uniform(
+        0.0, BOX, (128, D)).astype(np.float32)
+    bulk = X[:TRAIN_B]
+    chunks = TRAIN_B // CHUNK
+
+    # ---- 27. LMC: C outputs mixed from Q latent functions of phase 6's
+    # inputs, plus noise
+    rng = np.random.default_rng(seed + 41)
+    G = np.sin(2.0 * X @ (rng.standard_normal((D, LMC_Q)) / math.sqrt(D))
+               + rng.uniform(0.0, 2.0 * math.pi, LMC_Q))
+    Ylmc = (G @ rng.standard_normal((LMC_Q, LMC_C)) + 0.1
+            * rng.standard_normal((TRAIN_N, LMC_C))).astype(np.float32)
+    del G
+    Z0 = rng.uniform(0.0, BOX, (M, D))
+    lm, lalg = nongaussian_model(LMCSVGPRegression, Z0, columns=LMC_C,
+                                 num_outputs=LMC_C, num_latents=LMC_Q)
+    zero_counts()
+    linf, lloop, lstart = train_nongaussian(loop_cls, lm, lalg, X, Ylmc, 1,
+                                            dev, seed + 41)
+    add_launches()
+    lrel, l64 = checked_run("LMC", lloop, lstart, lalg, dev)
+    # serving with the full cross-output covariance
+    mod = lm.Y.factor
+    mod.attach_prediction_algorithms(
+        targets=mod.output_names, conditionals=mod.input_names,
+        algorithm=LMCSVGPMeanVariancePrediction(
+            mod._module_graph, mod._extra_graphs[0],
+            [v for _, v in mod.inputs], full_output_cov=True,
+            jitter=mod.jitter, whitened=mod.whitened),
+        alg_name="lmc_svgp_predict")
+    pred = BatchedPredictor(model=lm, infr_params=linf.params,
+                            observed=[lm.X], target_variables=[lm.Y.uuid],
+                            chunk_size=CHUNK)
+    pred.predict(X=bulk[:CHUNK])
+    (mean, cov), bulk_s, bulk_k1, (_, cs_), small_ms, k1 = serve_timed(
+        pred, bulk, small, sync, read_counts, zero_counts)
+    add_launches()
+    check(bulk_k1 == 2 * chunks and k1 == 2 * chunks + 2,
+          "LMC serving launched K1 {} and {} times; expected 2 per chunk "
+          "(Kuu, Kzx)".format(bulk_k1, k1))
+    check(mean.shape == (1, TRAIN_B, LMC_C)
+          and cov.shape == (1, TRAIN_B, LMC_C, LMC_C)
+          and cs_.shape == (1, 128, LMC_C, LMC_C) and np.isfinite(mean).all()
+          and np.isfinite(cov).all(), "LMC served {} and {}".format(
+              mean.shape, cov.shape))
+    mu_g, var_g = q_moments_f64(linf.params, lm,
+                                bulk[:F64_ROWS].astype(np.float64), False)
+    Wmix = state_by_path(linf.params, linf.graphs)[
+        "mixing_matrix"].double().cpu().numpy()
+    lerr = max(rel_err(mean[0, :F64_ROWS], mu_g @ Wmix),
+               rel_err(cov[0, :F64_ROWS],
+                       var_g[:, None, None] * (Wmix.T @ Wmix)[None]))
+    check(lerr <= NG_PRED_RTOL, "LMC served moments vs float64 on {} rows: "
+          "rel {} > {}".format(F64_ROWS, lerr, NG_PRED_RTOL))
+    print("phase 27 LMC ({}): B={}, M={}, D={}, Q={}, C={}, {} Adam steps "
+          "(lr {}): K1 per step {} | losses {} | first loss float32 {:.8g} "
+          "vs float64 {:.8g}: rel {:.3e} (tol {:.0e}) | step wall ms {} | "
+          "served {} rows with the full {}x{} output covariance in {} "
+          "chunks: {:.1f} rows/s, K1 {} | 128-row request {:.3f} ms | vs "
+          "float64 on {} rows rel {:.3e} (tol {:.0e})".format(
+              card, TRAIN_B, M, D, LMC_Q, LMC_C, len(lloop.losses), NG_LR,
+              lloop.counts[0]["K1"],
+              [round(float(v), 2) for v in lloop.losses],
+              float(lloop.losses[0]), l64, lrel, NG_F64_RTOL,
+              wall_summary(lloop.wall_s), TRAIN_B, LMC_C, LMC_C, chunks,
+              TRAIN_B / bulk_s, bulk_k1, small_ms, F64_ROWS, lerr,
+              NG_PRED_RTOL), flush=True)
+    del mean, cov, linf, lloop, pred
+
+    # ---- 28-29. deep GPs, two layers, regression and classification
+    rng = np.random.default_rng(seed + 42)
+    Z0s = [rng.uniform(0.0, BOX, (M, D)), rng.uniform(0.0, BOX, (M, DGP_H))]
+    for phase, module, Yd in ((28, DeepGPRegression, Y),
+                              (29, DeepGPClassification, labels)):
+        label = "deep GP {}".format("regression" if phase == 28
+                                    else "classification")
+        dm, dalg = deep_gp_model(module, Z0s)
+        zero_counts()
+        dinf, dloop, dstart = train_nongaussian(loop_cls, dm, dalg, X, Yd,
+                                                1, dev, seed + phase)
+        add_launches()
+        losses = check_steps(label, dloop, {"K1": 4})
+        d32, d64, drel = fixed_draw_loss(module, Z0s, dstart, dalg,
+                                         dloop.first_batch, dev)
+        check(drel <= NG_F64_RTOL, "{}: first loss on fixed draws float32 "
+              "{} vs float64 {}: rel {}".format(label, d32, d64, drel))
+        pred = BatchedPredictor(model=dm, infr_params=dinf.params,
+                                observed=[dm.X], target_variables=[dm.Y.uuid],
+                                chunk_size=CHUNK)
+        pred.predict(X=bulk[:CHUNK])
+        (mean, var), bulk_s, bulk_k1, _, small_ms, k1 = serve_timed(
+            pred, bulk, small, sync, read_counts, zero_counts)
+        add_launches()
+        check(bulk_k1 == 4 * chunks and k1 == 4 * chunks + 4,
+              "{} serving launched K1 {} and {} times; expected 4 per chunk"
+              .format(label, bulk_k1, k1))
+        check(mean.shape == var.shape == (1, TRAIN_B, 1)
+              and np.isfinite(mean).all() and np.isfinite(var).all()
+              and var.min() >= -VAR_ATOL,
+              "{}: served moments {} not finite or variance {} < -{}"
+              .format(label, mean.shape, var.min(), VAR_ATOL))
+        note = ("B={}, M={} a layer, D={} -> {} -> 1, S={}, whitened, {} "
+                "Adam steps (lr {}): K1 per step {} | losses {} | first "
+                "loss on fixed draws float32 {:.8g} vs float64 {:.8g}: rel "
+                "{:.3e} (tol {:.0e}) | step wall ms {}".format(
+                    TRAIN_B, M, D, DGP_H, DGP_S, len(losses), NG_LR,
+                    dloop.counts[0]["K1"], [round(v, 2) for v in losses],
+                    d32, d64, drel, NG_F64_RTOL, wall_summary(dloop.wall_s)))
+        if phase == 28:
+            prof = profile_steps(
+                lambda loop: GradBasedInference(dalg, grad_loop=loop,
+                                                dtype="float32", device=dev),
+                {"X": X[:TRAIN_B], "Y": Yd[:TRAIN_B]}, PROFILE_STEPS, NG_LR,
+                ROOT / "build" / "chip_smoke_deep_gp_trace.json")
+            m32, m64 = fixed_draw_moments(module, Z0s, dinf.params,
+                                          dinf.graphs, bulk[:F64_ROWS], dev)
+            merr = max(rel_err(a, b) for a, b in zip(m32, m64))
+            check(merr <= NG_PRED_RTOL, "{}: served moments on fixed draws "
+                  "float32 vs float64 on {} rows: rel {}".format(
+                      label, F64_ROWS, merr))
+            note += (" | profile: {} | served {} rows ({} draws) in {} "
+                     "chunks: {:.1f} rows/s, K1 {} | 128-row request {:.3f} "
+                     "ms | moments on fixed draws float32 vs float64 on {} "
+                     "rows: rel {:.3e} (tol {:.0e})".format(
+                         profile_summary(prof, PROFILE_STEPS), TRAIN_B,
+                         DGP_SERVE_S, chunks, TRAIN_B / bulk_s, bulk_k1,
+                         small_ms, F64_ROWS, merr, NG_PRED_RTOL))
+        else:
+            check(mean.min() > 0.0 and mean.max() < 1.0, "{}: served "
+                  "probabilities in [{}, {}]".format(label, mean.min(),
+                                                     mean.max()))
+            note += (" | served {} rows: {:.1f} rows/s, K1 {}, p in "
+                     "[{:.4f}, {:.4f}] | 128-row request {:.3f} ms".format(
+                         TRAIN_B, TRAIN_B / bulk_s, bulk_k1, mean.min(),
+                         mean.max(), small_ms))
+        print("phase {} {} ({}): {}".format(phase, label, card, note),
+              flush=True)
+        del dinf, dloop, pred, mean, var
+
+    # ---- 30. natural gradients, minibatch: svgp_1m.py's ngd mode, one
+    # epoch of NGD and one of Adam from one start and one permutation
+    rng = np.random.default_rng(seed + 44)
+    Xn = (rng.random((NGD_N, NGD_D)) * 4).astype(np.float32)
+    fn = np.sin(Xn[:, :1] * 2.0) + 0.3 * np.cos(Xn[:, 1:2] * 3.0)
+    Yn = (fn + rng.standard_normal((NGD_N, 1)) * 0.1).astype(np.float32)
+    nm, nalg = gp_model(SVGPRegression, RBF(input_dim=NGD_D), NGD_D,
+                        noise=0.5, inducing_inputs=Variable(
+                            shape=(NGD_M, NGD_D),
+                            initial_value=rng.random((NGD_M, NGD_D)) * 4))
+    start_inf = GradBasedInference(nalg, dtype="float32", device=dev)
+    start_inf.initialize(X=Xn[:NGD_B], Y=Yn[:NGD_B],
+                         generator=torch.Generator(dev).manual_seed(seed))
+    nstart = {k: v.clone() for k, v in start_inf.params.param_dict.items()}
+    nloops = {}
+    for which, cls, kw in (
+            ("NGD", NaturalGradientMinibatchLoop,
+             dict(module=nm.Y.factor, nat_learning_rate=NGD_GAMMA)),
+            ("Adam", DeviceMinibatchLoop, {})):
+        loop = recording_loop(cls, read_counts)(
+            batch_size=NGD_B, rv_scaling={nm.Y: NGD_N / NGD_B}, **kw)
+        inf = GradBasedInference(nalg, grad_loop=loop, dtype="float32",
+                                 device=dev)
+        inf.params.update_params({k: v.clone() for k, v in nstart.items()})
+        zero_counts()
+        inf.run(X=Xn, Y=Yn, max_iter=1, learning_rate=NGD_LR)
+        add_launches()
+        check_steps("{} epoch".format(which), loop,
+                    {"K1": 1, "K2": 1, "K3": 3})
+        nloops[which] = loop
+    steps = -(-NGD_N // NGD_B)
+    epoch = {k: float(np.mean([float(v) for v in loop.losses]))
+             for k, loop in nloops.items()}
+    trips = nloops["NGD"].guard_trips
+    check(len(nloops["NGD"].losses) == len(nloops["Adam"].losses) == steps
+          and epoch["NGD"] < epoch["Adam"], "NGD epoch: {} steps, mean loss "
+          "{} against Adam's {} ({} steps)".format(
+              len(nloops["NGD"].losses), epoch["NGD"], epoch["Adam"],
+              len(nloops["Adam"].losses)))
+    print("phase 30 natural gradients, minibatch ({}): N={}, d={}, B={}, "
+          "M={}, gamma {}, Adam lr {}, one epoch of {} steps each from one "
+          "start and permutation | launches per step {} | epoch mean loss "
+          "NGD {:.8g} vs Adam {:.8g} | last loss NGD {:.8g} vs Adam {:.8g} | "
+          "guard trips {} | step wall ms: NGD {} | Adam {}".format(
+              card, NGD_N, NGD_D, NGD_B, NGD_M, NGD_GAMMA, NGD_LR, steps,
+              nloops["NGD"].counts[0], epoch["NGD"], epoch["Adam"],
+              float(nloops["NGD"].losses[-1]),
+              float(nloops["Adam"].losses[-1]), trips,
+              wall_summary(nloops["NGD"].wall_s, listed=False),
+              wall_summary(nloops["Adam"].wall_s, listed=False)), flush=True)
+    del Xn, Yn, fn, nloops
+
+    # ---- 31. natural gradients, full batch: γ = 1 at phase 15's
+    # configuration lands on the collapsed bound
+    rng = np.random.default_rng(seed + 45)
+    Xs, Ys = X[:SGP_N], Y[:SGP_N]
+    Z0 = rng.uniform(0.0, BOX, (M, D))
+
+    def model(module):
+        return gp_model(module, RBF(input_dim=D, variance=1.0,
+                                    lengthscale=math.sqrt(D)), D,
+                        inducing_inputs=Variable(shape=(M, D),
+                                                 initial_value=Z0),
+                        jitter=0.0)
+
+    _, salg = model(SparseGPRegression)
+    bound64 = loss_and_grad_at(salg, None, [Xs, Ys], "float64", dev,
+                               grad=False)[0]
+    oracle = {}
+    for dtype in ("float64", "float32"):
+        om, oalg = model(SVGPRegression)
+        loop = NaturalGradientLoop(om.Y.factor, nat_learning_rate=1.0)
+        inf = GradBasedInference(oalg, grad_loop=loop, dtype=dtype,
+                                 device=dev)
+        inf.initialize(X=Xs, Y=Ys)
+        kern = om.Y.factor._module_graph.kernel
+        for v in (om.noise_var, kern.lengthscale, kern.variance,
+                  om.Y.factor._module_graph.inducing_inputs):
+            inf.params.fixed.add(v.uuid)
+        losses = []
+        zero_counts()
+        t0 = time.perf_counter()
+        inf.run(X=Xs, Y=Ys, max_iter=3, learning_rate=0.0,
+                callback=lambda i, l: losses.append(l))
+        sync()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        add_launches()
+        oracle[dtype] = (losses, abs(losses[1] - bound64) / abs(bound64),
+                         loop.guard_trips, counts, wall)
+    losses64, rel64, trips64, _, _ = oracle["float64"]
+    check(rel64 <= NGD_ORACLE_RTOL and trips64 == 0,
+          "NGD at gamma 1, float64: step 2's loss {} vs the collapsed bound "
+          "{}: rel {} > {} (guard trips {})".format(
+              losses64[1], bound64, rel64, NGD_ORACLE_RTOL, trips64))
+    losses32, rel32, trips32, counts32, wall32 = oracle["float32"]
+    print("phase 31 natural gradients, full batch ({}): N={}, M={}, D={}, "
+          "hyperparameters fixed, gamma 1, 3 steps | float64: losses {} vs "
+          "the collapsed bound (SparseGPRegression, float64) {:.10g}: step "
+          "2 rel {:.3e} (tol {:.0e}), guard trips {} | float32 (K1, K2, K3 "
+          "on; launches {}): losses {}, step 2 rel {:.3e} to the float64 "
+          "bound (information), guard trips {}, 3 steps in {:.3f} s | "
+          "phases 27-31 took {:.1f} s".format(
+              card, SGP_N, M, D, [float(v) for v in losses64], bound64,
+              rel64, NGD_ORACLE_RTOL, trips64, counts32,
+              [float(v) for v in losses32], rel32, trips32, wall32,
+              time.perf_counter() - t_start), flush=True)
+    return launches
 
 
 def main():
@@ -2017,31 +2503,7 @@ def main():
         batched_cholesky._k4_cuda.launches = 0
         batched_cholesky._k5_cuda.launches = 0
 
-    class RecordingLoop(DeviceMinibatchLoop):
-        """The device loop, recording each step's loss, kernel launches
-        and wall time (synchronized before and after), and the first
-        batch."""
-
-        def __init__(self, **kw):
-            super().__init__(**kw)
-            self.losses, self.counts, self.wall_s = [], [], []
-            self.first_batch = None
-
-        def _step(self, executor, opt, trainable, fixed, batch, generator,
-                  grad_norm=False):
-            if self.first_batch is None:
-                self.first_batch = batch
-            before = read_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = DeviceMinibatchLoop._step(executor, opt, trainable, fixed,
-                                            batch, generator, grad_norm)
-            torch.cuda.synchronize()
-            self.wall_s.append(time.perf_counter() - t0)
-            after = read_counts()
-            self.counts.append({k: after[k] - before[k] for k in after})
-            self.losses.append(out[0])
-            return out
+    RecordingLoop = recording_loop(DeviceMinibatchLoop, read_counts)
     card = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     print("phase 1 device: {} | nvidia-smi: {} | torch {} cuda {} | "
@@ -2131,6 +2593,29 @@ def main():
             max_err = max(max_err, err)
             print("phase 3 kernel: {} {} max_abs_err={:.3e} (tol {:.0e})"
                   .format(name, shape, err, KERNEL_ATOL), flush=True)
+        # the deep GP's inner-layer Kuf (phase 28) through RBF.K's route:
+        # Z and the parameters at s = 1 against DGP_S samples of the
+        # propagated inputs, expanded to one launch
+        Zd, Ad, ls_d = deep_kuf_inputs(np.random.default_rng(args.seed + 46),
+                                       dev)
+        before = cuda_kernels.rbf_kernel_matrix.launches
+        K = RBF(input_dim=DGP_H).K(Zd, Ad, rbf_lengthscale=ls_d,
+                                   rbf_variance=var1)
+        torch.cuda.synchronize()
+        routed = cuda_kernels.rbf_kernel_matrix.launches - before
+        P = cuda_kernels._rbf_torch(Zd, Ad, ls_d, var1)
+        err = float((K - P).abs().max())
+        check(routed == 1 and tuple(K.shape) == (DGP_S, M, TRAIN_B)
+              and bool(torch.isfinite(K).all()) and err <= KERNEL_ATOL,
+              "deep GP Kuf through the route: {} launches (expected 1), "
+              "shape {}, max |kernel - plain| {}".format(
+                  routed, tuple(K.shape), err))
+        max_err = max(max_err, err)
+        print("phase 3 kernel: deep GP Kuf_1 through RBF.K, Z {} and "
+              "inputs {}: K1 launches {} {} max_abs_err={:.3e} (tol {:.0e})"
+              .format(tuple(Zd.shape), tuple(Ad.shape), routed,
+                      tuple(K.shape), err, KERNEL_ATOL), flush=True)
+        del K, P
         old_tf32 = torch.get_float32_matmul_precision()
         torch.backends.cuda.matmul.allow_tf32 = True
         try:
@@ -2269,21 +2754,28 @@ def main():
     # ---- 5. timing, for information: K1 at serving's Kzx and Kuu, at the
     # materialized training arm's Kuf and at the exact GP's Kxx and Kxt
     rbf_ms = {}
+    # the deep GP's Kuf_1 as the route hands it over: dense s = DGP_S copies
+    Zd5, ls_d5, var5 = (t.expand((DGP_S,) + tuple(t.shape[1:])).contiguous()
+                        for t in (Zd, ls_d, var1))
     with torch.no_grad():
-        for label, A, X2t, ls in (("Kzx", Z, Xk, ls_iso),
-                                  ("Kuu", Z, None, ls_iso),
-                                  ("Kuf", Z, Xuf, ls_iso),
-                                  ("Kxx", Xe_t, None, var1),
-                                  ("Kxt", Xe_t, Xq_t, var1)):
+        for label, A, X2t, ls, v in (("Kzx", Z, Xk, ls_iso, var1),
+                                     ("Kuu", Z, None, ls_iso, var1),
+                                     ("Kuf", Z, Xuf, ls_iso, var1),
+                                     ("Kxx", Xe_t, None, var1, var1),
+                                     ("Kxt", Xe_t, Xq_t, var1, var1),
+                                     ("Kuf_deep", Zd5, Ad, ls_d5, var5)):
             t = {"plain": [], "kernel": []}
             for which in ("plain", "kernel", "kernel", "plain"):
                 fn = cuda_kernels._rbf_torch if which == "plain" \
                     else cuda_kernels.rbf_kernel_matrix
-                t[which].append(cuda_ms(lambda: fn(A, X2t, ls, var1)))
-            rows, dim = A.shape[1:]
+                t[which].append(cuda_ms(lambda: fn(A, X2t, ls, v),
+                                        5 if label == "Kuf_deep" else 50))
+            samples, rows, dim = A.shape
             t["shape"] = (rows, rows if X2t is None else X2t.shape[1], dim)
-            t["bound"] = rbf_bound(1, *t["shape"], 1)
+            t["bound"] = rbf_bound(samples, *t["shape"], 1)
+            t["samples"] = samples
             rbf_ms[label] = t
+    del Zd5, Ad
     ms = rbf_ms["Kzx"]
     bulk = rng.uniform(0.0, BOX, (BULK_ROWS, D)).astype(np.float32)
     rows_s = {"plain": [], "kernel": []}
@@ -2303,11 +2795,11 @@ def main():
     print("phase 5 timing ({}): rbf gram: {} | serving {} rows at "
           "chunk {}: kernel {} rows/s, plain {} rows/s".format(
               card, " | ".join(
-                  "{} ({} x {}, D={}): kernel {} ms, plain {} ms, bound "
-                  "{:.5f} ms ({}), best kernel at {:.1%} of the bound".format(
-                      label, *t["shape"], t["kernel"], t["plain"],
-                      t["bound"][0], t["bound"][1],
-                      t["bound"][0] / min(t["kernel"]))
+                  "{} ({} x {} x {}, D={}): kernel {} ms, plain {} ms, "
+                  "bound {:.5f} ms ({}), best kernel at {:.1%} of the bound"
+                  .format(label, t["samples"], *t["shape"], t["kernel"],
+                          t["plain"], t["bound"][0], t["bound"][1],
+                          t["bound"][0] / min(t["kernel"]))
                   for label, t in rbf_ms.items()),
               BULK_ROWS, CHUNK, rows_s["kernel"], rows_s["plain"]),
           flush=True)
@@ -2860,8 +3352,13 @@ def main():
                      read_counts, zero_counts, sync)
 
     # ---- 22-26. the non-Gaussian SVGPs and the rest of the library
-    ng_k1 = nongaussian_phases(dev, card, args.seed, Xtr, read_counts,
-                               zero_counts, sync, RecordingLoop)
+    ng_k1, labels = nongaussian_phases(dev, card, args.seed, Xtr,
+                                       read_counts, zero_counts, sync,
+                                       RecordingLoop)
+
+    # ---- 27-31. LMC, deep GPs and natural gradients
+    family = gp_family_phases(dev, card, args.seed, Xtr, Ytr, labels,
+                              read_counts, zero_counts, sync, RecordingLoop)
 
     check(not any(k == "jax" or k.startswith(("jax.", "mxfusion_tpu."))
                   or k == "mxfusion_tpu" for k in sys.modules),
@@ -2885,14 +3382,16 @@ def main():
             "mxfusion_tpu/ops/pallas_kernels.py:89",
             launches + train_launches["K1"] + exact_launches["K1"]
             + exact_serve["K1"] + sgp_launches["K1"] + sgp_serve["K1"]
-            + ng_k1,
+            + ng_k1 + family["K1"],
             max_err, min(ms["kernel"]),
             min(ms["plain"]), ms["bound"], None),
         row("fused_gram_fwd", fused_src,
-            "mxfusion_tpu/ops/pallas_fused_gram.py:93", train_launches["K2"],
+            "mxfusion_tpu/ops/pallas_fused_gram.py:93",
+            train_launches["K2"] + family["K2"],
             fwd_err, min(fms["K2"]), min(fms["K2 plain"]), k2_bound, None),
         row("fused_gram_bwd", fused_src,
-            "mxfusion_tpu/ops/pallas_fused_gram.py:109", train_launches["K3"],
+            "mxfusion_tpu/ops/pallas_fused_gram.py:109",
+            train_launches["K3"] + family["K3"],
             bwd_err, min(fms["K3"]), min(fms["K3 plain"]), k3_bound, None),
         row("batched_cholesky", chol_src,
             "mxfusion_tpu/ops/pallas_batched_cholesky.py:111",

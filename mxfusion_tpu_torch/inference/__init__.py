@@ -8,6 +8,8 @@ from .grad_loop import GradLoop, TrainState
 from .batch_loop import BatchInferenceLoop
 from .minibatch_loop import MinibatchInferenceLoop
 from .device_loop import DeviceMinibatchLoop
+from .natural_gradient import (NaturalGradientLoop,
+                               NaturalGradientMinibatchLoop)
 from .variational import (
     VariationalInference, VariationalSamplingAlgorithm,
     StochasticVariationalInference,

@@ -1,5 +1,7 @@
 from .module import Module
 from .gp_modules import (GPRegression, SparseGPRegression,
                          SVGPRegression, SVGPClassification,
-                         SVGPMultiClassification, SVGPPoissonRegression,
-                         SVGPNegBinomialRegression)
+                         SVGPMultiClassification, LMCSVGPRegression,
+                         SVGPPoissonRegression,
+                         SVGPNegBinomialRegression, DeepGPRegression,
+                         DeepGPClassification)

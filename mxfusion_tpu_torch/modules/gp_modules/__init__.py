@@ -5,3 +5,5 @@ from .svgp_classification import SVGPClassification
 from .svgp_poisson import SVGPPoissonRegression
 from .svgp_negbinom import SVGPNegBinomialRegression
 from .svgp_multiclass import SVGPMultiClassification
+from .lmc_svgp import LMCSVGPRegression
+from .deep_gp import DeepGPClassification, DeepGPRegression

@@ -22,7 +22,12 @@ They are matched by *name path* instead:
   ``Y.rbf_lengthscale`` and ``Y.rbf_variance``. The SVGP family shares
   this layout (regression, classification, multi-class, Poisson); the
   negative binomial adds its default dispersion, a module input:
-  ``dispersion``.
+  ``dispersion``, and the LMC module its ``mixing_matrix``;
+* where unnamed variables of one module graph share their label, each is
+  qualified as at the top level: a deep GP's layers are indexed
+  (``inducing_inputs_1``, ``Y.qU_mean_0``), and their kernels' parameters
+  are ``Y.p(F_0).rbf_lengthscale``, ``Y.p(F_1).rbf_lengthscale`` (of the
+  factors a variable feeds, the one whose path sorts first).
 
 The walk reads only what the graph classes of both packages share
 (``components_graph``, ``name``, ``uuid``, ``successors``, ``outputs``,
@@ -66,6 +71,10 @@ def name_paths(graphs):
             label, factor = v.successors[0]
             if prefix or hasattr(factor, "internal_graphs"):
                 return label    # a module's input, or inside a module
+            return owned(label, factor)
+
+        def owned(label, factor):
+            """``label`` qualified by what ``factor`` produces."""
             out = factor.outputs[0][1]
             if hasattr(factor, "random_variable") and out.name:
                 owner = out.name if posterior else "p({})".format(out.name)
@@ -80,9 +89,15 @@ def name_paths(graphs):
         for v in variables:
             if v.name:
                 add(v.uuid, prefix + v.name)
-        for v in variables:
-            if not v.name and v.successors:
-                add(v.uuid, prefix + unnamed(v))
+        anonymous = [v for v in variables if not v.name and v.successors]
+        labels = [unnamed(v) for v in anonymous]
+        for v, label in zip(anonymous, labels):
+            if prefix and labels.count(label) > 1:
+                # one label in one module graph, as the kernels' parameters
+                # of a deep GP's layers: qualified by what a factor makes,
+                # the least of them (cloning reorders the successors)
+                label = min(owned(lb, f) for lb, f in v.successors)
+            add(v.uuid, prefix + label)
         for c in nodes:
             if hasattr(c, "internal_graphs"):
                 name = c.name or c.outputs[0][1].name

@@ -330,6 +330,72 @@ def test_cuda_classification_bound_builds_its_grams_with_k1(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_deep_gp_bound_launches_k1_on_every_layer(cuda_device,
+                                                       monkeypatch):
+    """A 2-layer deep GP bound (RBF(8) → 6 hidden → RBF(6) → 1, M = 64,
+    N = 2048, S = 5 propagation draws, float32) launches K1 four times:
+    Kuu and Kuf of each layer, layer 1's Kuf at s = 5 from a Z at s = 1
+    through the route's expansion. On the same fixed draws its loss is
+    the plain grams' within 1e-4 relative."""
+    import mxfusion_tpu_torch as mt
+    from mxfusion_tpu_torch.components.distributions import \
+        FixedRandomGenerator
+    from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
+    from mxfusion_tpu_torch.components.variables import \
+        PositiveTransformation
+    from mxfusion_tpu_torch.inference import (MAP, GradBasedInference,
+                                              create_executor)
+    from mxfusion_tpu_torch.modules import DeepGPRegression
+    N, M, D, H, S = 2048, 64, 8, 6, 5
+    rng = np.random.default_rng(27)
+    X = rng.random((N, D)) * 4
+    Y = np.sin(X[:, :1]) + 0.1 * rng.standard_normal((N, 1))
+    m = mt.Model()
+    m.n = mt.Variable()
+    m.X = mt.Variable(shape=(m.n, D))
+    m.noise_var = mt.Variable(transformation=PositiveTransformation(),
+                              initial_value=0.1)
+    m.Y = DeepGPRegression.define_variable(
+        X=m.X, kernels=[RBF(input_dim=D, lengthscale=float(np.sqrt(D))),
+                        RBF(input_dim=H, lengthscale=float(np.sqrt(H)))],
+        noise_var=m.noise_var, shape=(m.n, 1), num_samples=S,
+        inducing_inputs=[mt.Variable(shape=(M, D),
+                                     initial_value=rng.random((M, D)) * 4),
+                         mt.Variable(shape=(M, H),
+                                     initial_value=rng.standard_normal(
+                                         (M, H)))],
+        rand_gen=FixedRandomGenerator(rng.standard_normal(S * N * H)))
+    inf = GradBasedInference(MAP(model=m, observed=[m.X, m.Y]),
+                             device=cuda_device)
+    inf.initialize(X=X, Y=Y)
+    ex = create_executor(inf.inference_algorithm, inf.params)
+    shapes = []
+    real = ck._rbf_cuda
+
+    def record(X, X2, lengthscale, variance):
+        shapes.append((X.shape[0], (X if X2 is None else X2).shape[0]))
+        return real(X, X2, lengthscale, variance)
+    monkeypatch.setattr(ck, "_rbf_cuda", record)
+    losses = []
+    for use in (True, False):
+        m.Y.factor._rand_gen.reset()
+        ck.set_use_kernel(use)
+        try:
+            before = ck.rbf_kernel_matrix.launches
+            with torch.no_grad():
+                losses.append(float(ex(
+                    inf.params.trainable_params(), inf.params.fixed_params(),
+                    [X, Y], torch.Generator(cuda_device))[0]))
+            torch.cuda.synchronize()
+            assert ck.rbf_kernel_matrix.launches == before + (4 if use else 0)
+        finally:
+            ck.set_use_kernel(True)
+    assert shapes == [(1, 1), (1, 1), (1, 1), (S, S)]
+    assert np.isfinite(losses[0])
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1]), losses
+
+
+@pytest.mark.cuda
 def test_cuda_highest_einsum_ignores_tf32(cuda_device):
     rng = np.random.default_rng(5)
     A = torch.as_tensor(rng.uniform(0, 4, (512, 32)), dtype=torch.float32,

@@ -3,8 +3,10 @@
 minibatch loops and serves it from a numpy state, runs the MVN slice
 (structured-PPCA SVI, then forward sampling), fits and serves the
 exact and collapsed GP modules, trains mean-field posteriors by SVI and
-by the score-function estimator, and fits and serves an SVGP classifier
-and a Poisson SVGP. Also: chip_smoke.py refuses
+by the score-function estimator, fits and serves an SVGP classifier
+and a Poisson SVGP, and fits and serves an LMC multi-output SVGP and
+2-layer deep GPs (regression and classification) and trains an SVGP by
+natural gradients, full batch and minibatch. Also: chip_smoke.py refuses
 to run without a GPU and without the rest of the repository."""
 import os
 import shutil
@@ -333,6 +335,110 @@ jaxy = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib",
 assert not jaxy, jaxy
 print("NONGAUSSIAN", losses[-1])
 """
+
+
+GP_FAMILY_WITHOUT_JAX = r"""
+import sys
+sys.modules["jax"] = None          # any `import jax` now raises
+sys.path.insert(0, {root!r})
+import numpy as np
+import torch
+from mxfusion_tpu_torch import Model, Variable
+from mxfusion_tpu_torch.common.config import set_default_device
+from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
+from mxfusion_tpu_torch.components.variables import PositiveTransformation
+from mxfusion_tpu_torch.inference import (
+    BatchedPredictor, DeviceMinibatchLoop, GradBasedInference, MAP,
+    NaturalGradientLoop, NaturalGradientMinibatchLoop)
+from mxfusion_tpu_torch.modules import (DeepGPClassification,
+                                        DeepGPRegression, LMCSVGPRegression,
+                                        SVGPRegression)
+
+set_default_device("cpu")
+N, M, D, B = 256, 10, 2, 64
+rng = np.random.default_rng(1)
+X = rng.uniform(0, 4, (N, D))
+f = np.sin(2.0 * X[:, :1])
+Xt = rng.uniform(0, 4, (70, D))
+
+
+def fit(m, Y, loop=None, steps=8, lr=0.05):
+    infr = GradBasedInference(MAP(model=m, observed=[m.X, m.Y]),
+                              grad_loop=loop)
+    losses = []
+    infr.run(X=X, Y=Y, max_iter=steps, learning_rate=lr,
+             generator=torch.Generator().manual_seed(0),
+             callback=lambda e, l: losses.append(float(l)))
+    assert np.all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    pred = BatchedPredictor(model=m, infr_params=infr.params,
+                            observed=[m.X], target_variables=[m.Y.uuid],
+                            chunk_size=32)
+    return losses, pred.predict(X=Xt)[0]
+
+
+def model():
+    m = Model()
+    m.n = Variable()
+    m.X = Variable(shape=(m.n, D))
+    return m
+
+
+Z = lambda d: Variable(shape=(M, d), initial_value=rng.uniform(0, 4, (M, d)))
+# LMC: three outputs mixed from two latent functions
+m = model()
+Y3 = np.concatenate([f, np.cos(X[:, 1:]), f - np.cos(X[:, 1:])], 1)
+m.Y = LMCSVGPRegression.define_variable(
+    X=m.X, kernel=RBF(input_dim=D), num_outputs=3, num_latents=2,
+    shape=(m.n, 3), inducing_inputs=Z(D))
+_, (mu, var) = fit(m, Y3 + 0.05 * rng.standard_normal((N, 3)), steps=30)
+assert mu.shape == var.shape == (1, 70, 3) and (var >= 0).all()
+# 2-layer deep GPs through the device loop
+for Module, Y, kw in ((DeepGPRegression, f + 0.1 * rng.standard_normal(
+                           (N, 1)), dict(noise_var=Variable(
+                           transformation=PositiveTransformation(),
+                           initial_value=0.1))),
+                      (DeepGPClassification, (f > 0) * 1.0, {{}})):
+    m = model()
+    m.Y = Module.define_variable(
+        X=m.X, kernels=[RBF(input_dim=D), RBF(input_dim=D)],
+        shape=(m.n, 1), inducing_inputs=[Z(D), Z(D)], **kw)
+    _, (mean, var) = fit(m, Y, DeviceMinibatchLoop(
+        batch_size=B, rv_scaling={{m.Y: N / B}}))
+    assert mean.shape == var.shape == (1, 70, 1)
+    assert np.isfinite(mean).all() and (var >= 0).all()
+# natural gradients on SVGP regression, full batch and minibatch
+for make in (lambda m: NaturalGradientLoop(m.Y.factor, 0.5),
+             lambda m: NaturalGradientMinibatchLoop(
+                 m.Y.factor, batch_size=B, rv_scaling={{m.Y: N / B}},
+                 nat_learning_rate=0.2)):
+    m = model()
+    m.noise_var = Variable(transformation=PositiveTransformation(),
+                           initial_value=0.1)
+    m.Y = SVGPRegression.define_variable(
+        X=m.X, kernel=RBF(input_dim=D), noise_var=m.noise_var,
+        shape=(m.n, 1), inducing_inputs=Z(D), jitter=1e-6)
+    loop = make(m)
+    losses, (mu, _) = fit(m, f + 0.1 * rng.standard_normal((N, 1)), loop)
+    assert loop.guard_trips == 0 and np.isfinite(mu).all()
+jaxy = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib",
+                                                       "mxfusion_tpu")
+        and sys.modules[k] is not None]
+assert not jaxy, jaxy
+print("GPFAMILY", losses[-1])
+"""
+
+
+def test_port_fits_lmc_deep_gps_and_natural_gradients_without_jax():
+    """An LMC SVGP and 2-layer deep GPs (regression and classification)
+    train by MAP and serve, and SVGP regression trains by natural
+    gradients (full batch and minibatch), in an interpreter without
+    JAX."""
+    proc = subprocess.run(
+        [sys.executable, "-c", GP_FAMILY_WITHOUT_JAX.format(
+            root=str(ROOT))],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert "GPFAMILY" in proc.stdout
 
 
 def test_port_fits_and_serves_nongaussian_svgps_without_jax():

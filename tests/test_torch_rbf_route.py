@@ -174,3 +174,109 @@ def test_svgp_bound_with_sampled_noise_matches_jax(handed_over):
                if t is not None)
     assert abs(got64 - want) <= 1e-10 * abs(want)
     assert abs(got32 - want) <= 1e-4 * abs(want)
+
+
+# ---------------------------------------------------------------------
+# mixed sample counts: Z and the parameters at s = 1 against inputs at
+# s = S (a deep GP's Kuf beyond its first layer)
+# ---------------------------------------------------------------------
+
+def _mixed(seed=31, S=3, M=6, N=9, D=3, ard=True, dtype=torch.float32):
+    """Z (1, M, D), A (S, N, D), a (1, D) or (1, 1) lengthscale and a
+    (1, 1) variance."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(a, dtype=dtype) for a in (
+        rng.random((1, M, D)) * 4, rng.standard_normal((S, N, D)),
+        rng.random((1, D if ard else 1)) + 0.6, np.full((1, 1), 0.8)))
+
+
+@pytest.mark.parametrize("ard", [True, False], ids=["ard", "isotropic"])
+@pytest.mark.parametrize("z_first", [True, False], ids=["Kzx", "Kxz"])
+def test_mixed_sample_counts_take_the_kernel(handed_over, ard, z_first):
+    """Z (1, M, D) against A (3, N, D), a (1, D) or (1, 1) lengthscale
+    and a (1, 1) variance: the gate refuses them as they are; the route
+    expands the s = 1 operands to s = 3 and hands the wrapper dense
+    copies that pass the kernel's checks, one call for the gram."""
+    Z, A, ls, var = _mixed(ard=ard)
+    X, X2 = (Z, A) if z_first else (A, Z)
+    assert not ck.kernel_eligible(X, X2, ls, var)
+    K = RBF(input_dim=3, ARD=ard).K(X, X2, rbf_lengthscale=ls,
+                                    rbf_variance=var)
+    assert len(handed_over) == 1
+    Xk, X2k, lsk, vark = handed_over[0]
+    assert tuple(Xk.shape[:1]) == tuple(X2k.shape[:1]) == (3,)
+    assert tuple(lsk.shape) == ((3, 3) if ard else (3, 1))
+    assert tuple(vark.shape) == (3, 1)
+    assert all(t.is_contiguous() for t in handed_over[0])
+    assert ck.kernel_eligible(*handed_over[0])
+    ck.check_kernel_args(*handed_over[0])
+    assert tuple(K.shape) == ((3, 6, 9) if z_first else (3, 9, 6))
+
+
+@pytest.mark.parametrize("z_first", [True, False], ids=["Kzx", "Kxz"])
+def test_mixed_sample_counts_plain_gram_matches_jax(handed_over, z_first):
+    """In float64 (the plain branch: nothing is handed over) the mixed
+    gram is JAX's ``_rbf_jnp`` on the same operands, 1e-12 relative."""
+    Z, A, ls, var = _mixed(dtype=torch.float64)
+    X, X2 = (Z, A) if z_first else (A, Z)
+    K = RBF(input_dim=3, ARD=True).K(X, X2, rbf_lengthscale=ls,
+                                     rbf_variance=var)
+    assert handed_over == []
+    with jax_f64():
+        Kj = pk._rbf_jnp(*(jnp.asarray(t.numpy()) for t in (X, X2, ls, var)))
+    assert K.shape == Kj.shape
+    np.testing.assert_allclose(K.numpy(), np.asarray(Kj), rtol=1e-12)
+
+
+def test_mixed_sample_counts_gradients_sum_over_samples(handed_over):
+    """Through the route (float32, the expanded copies) the gradients in
+    Z, the lengthscale and the variance are the plain branch's: the
+    expansion's backward sums them over the s = 3 samples."""
+    grads = []
+    for use in (True, False):
+        Z, A, ls, var = (t.clone().requires_grad_(True) for t in _mixed())
+        ck.set_use_kernel(use)
+        try:
+            K = RBF(input_dim=3, ARD=True).K(Z, A, rbf_lengthscale=ls,
+                                             rbf_variance=var)
+        finally:
+            ck.set_use_kernel(True)
+        w = torch.as_tensor(np.random.default_rng(3).standard_normal(
+            tuple(K.shape)), dtype=torch.float32)
+        torch.sum(K * w).backward()
+        grads.append([t.grad for t in (Z, A, ls, var)])
+    assert len(handed_over) == 1
+    for got, want in zip(*grads):
+        assert got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_one_ard_lengthscale_of_width_s_stays_ard(handed_over):
+    """A (1, D) lengthscale with D = s = 3 is one ARD lengthscale, not
+    three isotropic ones: expanded along its sample axis, each sample's
+    gram uses all three widths, as the plain gram does."""
+    Z, A, _, var = _mixed(S=3, D=3)
+    ls = torch.tensor([[0.5, 1.0, 3.0]], dtype=torch.float32)
+    K = RBF(input_dim=3, ARD=True).K(Z, A, rbf_lengthscale=ls,
+                                     rbf_variance=var)
+    assert len(handed_over) == 1
+    torch.testing.assert_close(handed_over[0][2], ls.expand(3, 3))
+    torch.testing.assert_close(K, ck._rbf_torch(Z, A, ls, var), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("X,X2,ls", [
+    ((2, 6, 3), (3, 9, 3), (1, 3)),     # neither sample count is 1
+    ((1, 6, 3), (3, 9, 3), (2, 3))])    # a lengthscale at another s
+def test_other_mixed_counts_take_the_plain_branch(handed_over, X, X2, ls):
+    """Sample counts that the expansion cannot reconcile go to the plain
+    gram, as JAX's gate sends them to ``_rbf_jnp``."""
+    from mxfusion_tpu_torch.components.distributions.gp.kernels.rbf import \
+        _one_sample_count
+    ops = [torch.ones(shape, dtype=torch.float32)
+           for shape in (X, X2, ls, (1, 1))]
+    assert not ck.kernel_eligible(*_one_sample_count(*ops))
+    with pytest.raises(RuntimeError):
+        RBF(input_dim=3, ARD=True).K(*ops[:2], rbf_lengthscale=ops[2],
+                                     rbf_variance=ops[3])
+    assert handed_over == []
