@@ -15,8 +15,10 @@ SVGPs (binary and multi-class classification, Poisson and negative
 binomial counts) at B = 65536, M = 512, D = 32, whose grams are K1's,
 and the rest of the GP module family: the LMC multi-output SVGP, 2-layer
 deep GPs (regression and classification) and natural-gradient SVGP
-training, minibatch and full batch. In phases that each print one
-line:
+training, minibatch and full batch, and persistence at the training
+slice's configuration (a checkpointed run resumed, a saved inference
+loaded onto a rebuilt model, an exported predictor served by a process
+that builds no model). In phases that each print one line:
 
 1. device: needs CUDA (exits nonzero without it); prints the card's
    name and power limit (nvidia-smi) and the TF32 settings;
@@ -208,6 +210,30 @@ line:
    the collapsed bound (``SparseGPRegression``, float64) within 1e-6;
    then the same in float32 with K1, K2 and K3 on, its gap to the bound
    and the guard's trips printed (information).
+32. checkpoint/resume: phase 6's model, start and loop (B = 65536, Adam
+   at lr 3e-3) on the first 131072 rows, two epochs of two fused steps;
+   a run under ``CheckpointCallback`` snapshots every epoch (every 2
+   steps) and stops after epoch 1; a third run resumes from the step-2
+   snapshot through ``load_params`` and ``resume_state=``. K1/K2/K3
+   1/1/3 in every step of the three runs, and the resumed losses at
+   steps 3-4 equal the uninterrupted run's within 1e-6 relative;
+33. save/load: ``Inference.save`` of phase 6's trained inference, the
+   model rebuilt in code (fresh UUIDs), ``Inference.load`` onto it, and a
+   ``BatchedPredictor`` on the loaded store answering phase 5's
+   262144-row request (32 chunks, K1 twice a chunk) against phase 6's
+   live predictor at phase 4's serving tolerances (means 1e-4 relative,
+   variances 1e-4 absolute); the walls of save and load;
+34. export: ``BatchedPredictor.export`` of the live predictor, served by
+   ``load_exported_predictor`` in a subprocess that builds no model,
+   imports no JAX and sets ``torch.set_float32_matmul_precision
+   ("medium")``: the same request at the same tolerances, K1 twice a
+   chunk by the artifact's own count and, in a ``torch.profiler`` window
+   of one chunk, ``rbf_gram_kernel`` twice; the program holds K1 as two
+   operator nodes and every product as a tiered operator, no plain
+   matmul; the artifact and the live predictor timed alternately in this
+   process too; the walls of export and
+   load, the artifact's size, and rows/s and 128-row latency of the
+   artifact beside the live predictor (information).
 
 Any failed check raises and the script exits nonzero. The last three
 lines are the card (nvidia-smi), the kernels' JSON record (each with
@@ -383,6 +409,13 @@ NGD_N, NGD_D, NGD_B, NGD_M, NGD_GAMMA, NGD_LR = (
 # cond(P)·eps of its relative accuracy; the loss takes that at second
 # order (the step lands on a stationary point), and 1e-6 leaves room
 NGD_ORACLE_RTOL = 1e-6
+# persistence (phases 32-34) at phase 6's configuration: a resume restores
+# the float32 parameters and Adam's moments bit for bit and K2/K3 are
+# deterministic, so the resumed losses match the uninterrupted run's to
+# rounding; the loaded and the exported predictors serve phase 5's
+# 262144-row request (32 chunks) at the serving tolerances of phase 4
+RESUME_ROWS, RESUME_RTOL = 2 * TRAIN_B, 1e-6
+SMALL_ROWS, SMALL_REPS = 128, 9
 
 
 def check(ok, message):
@@ -2459,6 +2492,301 @@ def gp_family_phases(dev, card, seed, X, Y, labels, read_counts,
     return launches
 
 
+def headline_svgp(Z0):
+    """Phase 6's model: SVGP regression at M = 512, D = 32, RBF with
+    lengthscale sqrt(D) (at 1, every Kuf entry is about e^-42 and the
+    kernels would be checked on zeros), a learned noise variance; fresh
+    UUIDs at every call."""
+    from mxfusion_tpu_torch import Model, Variable
+    from mxfusion_tpu_torch.components.variables import \
+        PositiveTransformation
+    from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
+    from mxfusion_tpu_torch.modules import SVGPRegression
+    m = Model()
+    m.n = Variable()
+    m.X = Variable(shape=(m.n, D))
+    m.noise_var = Variable(transformation=PositiveTransformation(),
+                           initial_value=0.1)
+    m.Y = SVGPRegression.define_variable(
+        X=m.X, kernel=RBF(input_dim=D, variance=1.0,
+                          lengthscale=math.sqrt(D)),
+        noise_var=m.noise_var, shape=(m.n, 1),
+        inducing_inputs=Variable(shape=(M, D), initial_value=Z0))
+    return m
+
+
+SERVE_ARTIFACT = r"""
+import json, sys, time
+import numpy as np
+import torch
+torch.set_float32_matmul_precision("medium")
+sys.path.insert(0, {root!r})
+from mxfusion_tpu_torch.inference import load_exported_predictor
+from mxfusion_tpu_torch.ops import cuda_kernels
+
+t0 = time.perf_counter()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+cuda_init_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+served = load_exported_predictor({artifact!r})
+load_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+load_exported_predictor({artifact!r})
+load_again_s = time.perf_counter() - t0
+X = np.load({request!r})
+served.predict(X=X[:{chunk}])
+torch.cuda.synchronize()
+cuda_kernels.rbf_kernel_matrix.launches = 0
+t0 = time.perf_counter()
+mu, var = served.predict(X=X)[0]
+bulk_s = time.perf_counter() - t0
+launches = cuda_kernels.rbf_kernel_matrix.launches
+small_ms = []
+for _ in range({reps}):
+    t0 = time.perf_counter()
+    served.predict(X=X[:{small}])
+    small_ms.append(1e3 * (time.perf_counter() - t0))
+np.savez({out!r}, mu=mu, var=var)
+from torch.profiler import profile, ProfilerActivity
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    served.predict(X=X[:{chunk}])
+    torch.cuda.synchronize()
+k1 = sum(1 for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and "rbf_gram_kernel" in e.name)
+held = [k for k in sys.modules if k.split(".")[0] in
+        ("jax", "jaxlib", "mxfusion_tpu") and sys.modules[k] is not None]
+print(json.dumps({{"cuda_init_s": cuda_init_s, "load_s": load_s,
+                  "load_again_s": load_again_s,
+                  "bulk_s": bulk_s, "launches": launches,
+                  "small_ms": small_ms, "profile_k1": k1, "held": held,
+                  "precision": torch.get_float32_matmul_precision()}}))
+"""
+
+
+def persistence_phases(dev, card, Xtr, Ytr, bulk, tm, start_state,
+                       trained, pred, RecordingLoop, read_counts,
+                       zero_counts, sync):
+    """Phases 32-34 at phase 6's configuration; returns K1's launches by
+    the main path here (the loaded predictor's and the artifact's)."""
+    import torch
+    from mxfusion_tpu_torch.inference import GradBasedInference, MAP
+    from mxfusion_tpu_torch.ops import fused_gram
+    from mxfusion_tpu_torch.util import CheckpointCallback, load_params
+    from mxfusion_tpu_torch.inference import (BatchedPredictor,
+                                              load_exported_predictor)
+    t_phases = time.perf_counter()
+    alg = MAP(model=tm, observed=[tm.X, tm.Y])
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    per_step = {"K1": 1, "K2": 1, "K3": fused_gram.BWD_LAUNCHES, "K4": 0,
+                "K5": 0}
+
+    # ---- 32. checkpoint/resume: two epochs of two fused steps on the
+    # first 2·B rows (a snapshot every epoch is one every 2 steps), the
+    # second resumed from the step-2 snapshot
+    X2, Y2 = Xtr[:RESUME_ROWS], Ytr[:RESUME_ROWS]
+
+    def run(epochs, callback=None, resume=None, path=None):
+        loop = RecordingLoop(batch_size=TRAIN_B,
+                             rv_scaling={tm.Y: RESUME_ROWS / TRAIN_B})
+        inf = GradBasedInference(alg, grad_loop=loop, dtype="float32",
+                                 device=dev)
+        inf.params.update_params(
+            {k: v.clone() for k, v in start_state.items()})
+        state = None
+        if resume is not None:
+            state = load_params(inf.params, resume)
+        inf.run(X=X2, Y=Y2, max_iter=epochs, learning_rate=3e-3,
+                callback=callback(inf) if callback else None,
+                resume_state=state)
+        return loop, state
+
+    ckpt = str(build / "chip_smoke_checkpoint.npz")
+    whole, _ = run(2)
+    first, _ = run(1, callback=lambda inf: CheckpointCallback(
+        inf.params, ckpt, every=1))
+    resumed, state = run(2, resume=ckpt)
+    check(state.step == 1 and state.optimizer == "Adam",
+          "snapshot at epoch {} of {}; expected epoch 1 (step 2) of Adam"
+          .format(state.step, state.optimizer))
+    for label, loop, n in (("uninterrupted", whole, 4), ("first", first, 2),
+                           ("resumed", resumed, 2)):
+        check(len(loop.counts) == n and all(c == per_step
+                                            for c in loop.counts),
+              "{} run: {} steps launching {}; expected {} steps of {}"
+              .format(label, len(loop.counts), loop.counts, n, per_step))
+    whole_losses = [float(x) for x in whole.losses]
+    resumed_losses = [float(x) for x in resumed.losses]
+    check(all(math.isfinite(x) for x in whole_losses + resumed_losses),
+          "non-finite losses {} {}".format(whole_losses, resumed_losses))
+    first_rel = max(abs(a - b) / abs(b) for a, b in zip(
+        [float(x) for x in first.losses], whole_losses[:2]))
+    resume_rel = max(abs(a - b) / abs(b) for a, b in zip(
+        resumed_losses, whole_losses[2:]))
+    check(resume_rel <= RESUME_RTOL, "resumed losses {} vs uninterrupted "
+          "{}: max relative difference {} > {}".format(
+              resumed_losses, whole_losses[2:], resume_rel, RESUME_RTOL))
+    print("phase 32 checkpoint/resume ({}): {} rows, B={}, 2 epochs of 2 "
+          "fused steps, a snapshot every epoch (every 2 steps) | launches "
+          "per step {} in all 8 steps of the three runs | losses "
+          "uninterrupted {} | steps 1-2 of the checkpointed run max rel "
+          "{:.3e} | steps 3-4 resumed from the step-2 snapshot {}: max rel "
+          "{:.3e} (tol {:.0e})".format(
+              card, RESUME_ROWS, TRAIN_B, per_step, whole_losses, first_rel,
+              resumed_losses, resume_rel, RESUME_RTOL), flush=True)
+
+    # ---- 33. save, rebuild in code, load, serve 262144 rows
+    zpath = str(build / "chip_smoke_inference.zip")
+    sync()
+    t0 = time.perf_counter()
+    trained.save(zpath)
+    save_s = time.perf_counter() - t0
+    m2 = headline_svgp(np.zeros((M, D)))
+    inf2 = GradBasedInference(MAP(model=m2, observed=[m2.X, m2.Y]),
+                              dtype="float32", device=dev)
+    inf2.initialize(X=Xtr[:TRAIN_B], Y=Ytr[:TRAIN_B])
+    t0 = time.perf_counter()
+    inf2.load(zpath)
+    sync()
+    load_s = time.perf_counter() - t0
+    check(all(v.device == dev and v.dtype == torch.float32
+              for v in inf2.params.param_dict.values())
+          and len(inf2.params.param_dict) == len(trained.params.param_dict),
+          "loaded store: {} entries, devices/dtypes {}".format(
+              len(inf2.params.param_dict),
+              {(str(v.device), str(v.dtype))
+               for v in inf2.params.param_dict.values()}))
+    zero_counts()
+    live_out = pred.predict(X=bulk)[0]
+    live_k1 = read_counts()["K1"]
+    pred2 = BatchedPredictor(model=m2, infr_params=inf2.params,
+                             observed=[m2.X], target_variables=[m2.Y.uuid],
+                             chunk_size=CHUNK)
+    zero_counts()
+    mu2, var2 = pred2.predict(X=bulk)[0]
+    load_k1 = read_counts()["K1"]
+    chunks = -(-BULK_ROWS // CHUNK)
+    check(load_k1 == 2 * chunks, "the loaded predictor launched K1 {} "
+          "times for {} chunks; expected 2 per chunk".format(load_k1,
+                                                              chunks))
+
+    def against_live(mu, var, label):
+        check(mu.shape == var.shape == (1, BULK_ROWS, 1)
+              and np.isfinite(mu).all() and np.isfinite(var).all(),
+              "{}: shapes {} {} or non-finite".format(label, mu.shape,
+                                                      var.shape))
+        mean_rel = rel_err(mu, live_out[0])
+        var_abs = float(np.max(np.abs(var - live_out[1])))
+        check(mean_rel <= PLAIN_MEAN_RTOL and var_abs <= PLAIN_VAR_ATOL,
+              "{} vs the live predictor: mean rel {} (tol {}), variance "
+              "abs {} (tol {})".format(label, mean_rel, PLAIN_MEAN_RTOL,
+                                       var_abs, PLAIN_VAR_ATOL))
+        return mean_rel, var_abs
+
+    load_err = against_live(mu2, var2, "loaded predictor")
+    print("phase 33 save/load ({}): save {:.3f} s, rebuild + load {:.3f} s "
+          "({} entries onto fresh UUIDs) | {} rows in {} chunks: K1 {} (2 "
+          "per chunk) | vs the live predictor: mean rel {:.3e} (tol {:.0e}), "
+          "var abs {:.3e} (tol {:.0e})".format(
+              card, save_s, load_s, len(inf2.params.param_dict), BULK_ROWS,
+              chunks, load_k1, load_err[0], PLAIN_MEAN_RTOL, load_err[1],
+              PLAIN_VAR_ATOL), flush=True)
+
+    # ---- 34. export the live predictor; serve the artifact in a process
+    # that builds no model and set the float32 matmul precision "medium"
+    apath = build / "chip_smoke_predictor.zip"
+    request = build / "chip_smoke_request.npy"
+    served_out = build / "chip_smoke_served.npz"
+    for f in (apath, served_out):
+        if f.exists():
+            f.unlink()
+    np.save(request, bulk)
+    t0 = time.perf_counter()
+    pred.export(str(apath))
+    export_s = time.perf_counter() - t0
+    proc = subprocess.run(
+        [sys.executable, "-c", SERVE_ARTIFACT.format(
+            root=str(ROOT), artifact=str(apath), request=str(request),
+            out=str(served_out), chunk=CHUNK, small=SMALL_ROWS,
+            reps=SMALL_REPS)],
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, "serving the artifact failed:\n{}{}"
+          .format(proc.stdout[-4000:], proc.stderr[-4000:]))
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(not child["held"], "the serving process imported {}".format(
+        child["held"]))
+    check(child["precision"] == "medium", "the serving process runs at "
+          "{}".format(child["precision"]))
+    check(child["profile_k1"] == 2, "the profile of one chunk shows "
+          "rbf_gram_kernel {} times; expected 2 (Kuu, Kzx)".format(
+              child["profile_k1"]))
+    check(child["launches"] == 2 * chunks, "the artifact launched K1 {} "
+          "times for {} chunks; expected 2 per chunk".format(
+              child["launches"], chunks))
+    with np.load(served_out) as served:
+        export_err = against_live(served["mu"], served["var"],
+                                  "exported artifact")
+    # the artifact in this process too, alternated with the live
+    # predictor, so that the two differ by the program alone
+    here = load_exported_predictor(str(apath))
+    targets = [n.target for n in here._program.graph.nodes
+               if n.op == "call_function"]
+    ops = torch.ops.mxfusion_tpu_torch
+    plain = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+             torch.ops.aten.matmul.default, torch.ops.aten.einsum.default}
+    n_tiered = targets.count(ops.tiered_einsum.default)
+    check(targets.count(ops.rbf_gram.default) == 2 and n_tiered > 0
+          and not plain & set(targets), "the exported program holds {} K1 "
+          "nodes (expected 2), {} tiered products and plain products {}"
+          .format(targets.count(ops.rbf_gram.default), n_tiered,
+                  plain & set(targets)))
+    here.predict(X=bulk[:CHUNK])
+    timed = {"artifact": ([], []), "live": ([], [])}
+    zero_counts()
+    for which in ("live", "artifact", "artifact", "live"):
+        server = here if which == "artifact" else pred
+        sync()
+        t0 = time.perf_counter()
+        server.predict(X=bulk)
+        timed[which][0].append(BULK_ROWS / (time.perf_counter() - t0))
+        for _ in range(SMALL_REPS):
+            t0 = time.perf_counter()
+            server.predict(X=bulk[:SMALL_ROWS])
+            timed[which][1].append(1e3 * (time.perf_counter() - t0))
+    here_k1 = read_counts()["K1"]
+    print("phase 34 export ({}): export {:.3f} s, artifact {} bytes | "
+          "program: K1 2 nodes, {} tiered products, no plain product | "
+          "served in a process that builds no model, imports no JAX, at "
+          "float32 matmul precision {}: load_exported_predictor {:.3f} s "
+          "(a second load in that process {:.3f} s) | "
+          "{} rows: K1 {} (2 per chunk), a profiled chunk shows "
+          "rbf_gram_kernel {} times | vs the live predictor: mean rel "
+          "{:.3e}, var abs {:.3e} | there: {} rows/s {:.0f}, {}-row "
+          "latency ms median of {} {:.3f} (its first CUDA call took {:.3f} "
+          "s) | in this process, artifact and live predictor alternated: "
+          "rows/s artifact {}, live {}; {}-row latency ms median artifact "
+          "{:.3f}, live {:.3f} | phases 32-34 took {:.1f} s".format(
+              card, export_s, apath.stat().st_size, n_tiered,
+              child["precision"],
+              child["load_s"], child["load_again_s"], BULK_ROWS,
+              child["launches"],
+              child["profile_k1"], export_err[0], export_err[1], BULK_ROWS,
+              BULK_ROWS / child["bulk_s"], SMALL_ROWS, SMALL_REPS,
+              float(np.median(child["small_ms"])), child["cuda_init_s"],
+              [round(x) for x in timed["artifact"][0]],
+              [round(x) for x in timed["live"][0]], SMALL_ROWS,
+              float(np.median(timed["artifact"][1])),
+              float(np.median(timed["live"][1])),
+              time.perf_counter() - t_phases), flush=True)
+    trained_counts = {k: sum(c[k] for loop in (whole, first, resumed)
+                             for c in loop.counts) for k in per_step}
+    return {"K1": trained_counts["K1"] + live_k1 + load_k1
+            + child["launches"] + here_k1, "K2": trained_counts["K2"],
+            "K3": trained_counts["K3"]}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2807,19 +3135,7 @@ def main():
     # ---- 6. the training path: MAP + DeviceMinibatchLoop, fused and not
     trng = np.random.default_rng(args.seed + 2)
     Xtr, Ytr = make_training_data(trng)
-    tm = Model()
-    tm.n = Variable()
-    tm.X = Variable(shape=(tm.n, D))
-    tm.noise_var = Variable(transformation=PositiveTransformation(),
-                            initial_value=0.1)
-    # lengthscale sqrt(D): at 1, every Kuf entry is about e^-42 and the
-    # kernels would be checked on zeros
-    tm.Y = SVGPRegression.define_variable(
-        X=tm.X, kernel=RBF(input_dim=D, variance=1.0,
-                           lengthscale=math.sqrt(D)),
-        noise_var=tm.noise_var, shape=(tm.n, 1),
-        inducing_inputs=Variable(shape=(M, D), initial_value=trng.uniform(
-            0.0, BOX, (M, D))))
+    tm = headline_svgp(trng.uniform(0.0, BOX, (M, D)))
     alg = MAP(model=tm, observed=[tm.X, tm.Y])
     start = GradBasedInference(alg, dtype="float32", device=dev)
     start.initialize(X=Xtr[:TRAIN_B], Y=Ytr[:TRAIN_B],
@@ -3360,6 +3676,11 @@ def main():
     family = gp_family_phases(dev, card, args.seed, Xtr, Ytr, labels,
                               read_counts, zero_counts, sync, RecordingLoop)
 
+    # ---- 32-34. checkpoint/resume, save/load, export
+    persist = persistence_phases(dev, card, Xtr, Ytr, bulk, tm,
+                                 start_state, trained, pred, RecordingLoop,
+                                 read_counts, zero_counts, sync)
+
     check(not any(k == "jax" or k.startswith(("jax.", "mxfusion_tpu."))
                   or k == "mxfusion_tpu" for k in sys.modules),
           "JAX or the JAX package was imported")
@@ -3382,16 +3703,16 @@ def main():
             "mxfusion_tpu/ops/pallas_kernels.py:89",
             launches + train_launches["K1"] + exact_launches["K1"]
             + exact_serve["K1"] + sgp_launches["K1"] + sgp_serve["K1"]
-            + ng_k1 + family["K1"],
+            + ng_k1 + family["K1"] + persist["K1"],
             max_err, min(ms["kernel"]),
             min(ms["plain"]), ms["bound"], None),
         row("fused_gram_fwd", fused_src,
             "mxfusion_tpu/ops/pallas_fused_gram.py:93",
-            train_launches["K2"] + family["K2"],
+            train_launches["K2"] + family["K2"] + persist["K2"],
             fwd_err, min(fms["K2"]), min(fms["K2 plain"]), k2_bound, None),
         row("fused_gram_bwd", fused_src,
             "mxfusion_tpu/ops/pallas_fused_gram.py:109",
-            train_launches["K3"] + family["K3"],
+            train_launches["K3"] + family["K3"] + persist["K3"],
             bwd_err, min(fms["K3"]), min(fms["K3 plain"]), k3_bound, None),
         row("batched_cholesky", chol_src,
             "mxfusion_tpu/ops/pallas_batched_cholesky.py:111",

@@ -124,3 +124,9 @@ class Factor(ModelComponent):
         replica.input_names = list(self.input_names)
         replica.output_names = list(self.output_names)
         return replica
+
+    def as_json(self):
+        j = super().as_json()
+        j["input_names"] = self.input_names
+        j["output_names"] = self.output_names
+        return j

@@ -255,3 +255,15 @@ class ModelComponent:
                        for l, p in s._predecessors):
                 s._predecessors.append((label, replica))
         return replica
+
+    # ------------------------------------------------------------------
+    # serialization
+    # ------------------------------------------------------------------
+    def as_json(self):
+        return {
+            "uuid": self._uuid,
+            "name": self.name,
+            "type": type(self).__name__,
+            "attributes": [a.uuid for a in self.attributes
+                           if isinstance(a, ModelComponent)],
+        }

@@ -127,3 +127,10 @@ class Variable(ModelComponent):
         replica._constant_value = self._constant_value
         replica.isInherited = self.isInherited
         return replica
+
+    def as_json(self):
+        j = super().as_json()
+        j["shape"] = [s.uuid if isinstance(s, Variable) else int(s)
+                      for s in self.shape]
+        j["inherited"] = self.isInherited
+        return j

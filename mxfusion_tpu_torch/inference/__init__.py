@@ -23,4 +23,5 @@ from .forward_sampling import (
 from .expectation import (
     ExpectationAlgorithm, ExpectationScoreFunctionAlgorithm)
 from .prediction import ModulePredictionAlgorithm
-from .serving import BatchedPredictor
+from .serving import (BatchedPredictor, ExportedPredictor,
+                      load_exported_predictor)

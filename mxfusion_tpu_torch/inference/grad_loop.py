@@ -8,6 +8,7 @@ updates in place, and the key is a ``torch.Generator``.
 the loop code that calls it.
 """
 import copy
+import json
 from abc import ABC, abstractmethod
 
 import torch
@@ -15,14 +16,67 @@ import torch
 
 class TrainState:
     """Loop-internal state for a deterministic resume: the step (the
-    epoch, for the minibatch loops), the generator's state and the
-    optimizer's ``state_dict``. A loop resumed from it rebuilds the same
-    optimizer (same ``optimizer`` and ``learning_rate``) and loads them."""
+    epoch, for the minibatch loops), the generator's state, the
+    optimizer's ``state_dict`` and its class name. A loop resumed from it
+    rebuilds the same optimizer (same ``optimizer`` and
+    ``learning_rate``) and loads them; :meth:`restore` raises, before
+    the first step, where the state does not fit that optimizer."""
 
-    def __init__(self, step=0, generator_state=None, opt_state=None):
+    def __init__(self, step=0, generator_state=None, opt_state=None,
+                 optimizer=None):
         self.step = step
         self.generator_state = generator_state
         self.opt_state = opt_state
+        self.optimizer = optimizer
+
+    def restore(self, opt, generator):
+        """Load the optimizer state into ``opt`` and the generator state
+        into ``generator``. Raises ``ValueError`` when ``opt`` is another
+        optimizer than the one checkpointed (class or hyperparameters)
+        or a state tensor's shape differs from its parameter's."""
+        if self.optimizer is not None and \
+                self.optimizer != type(opt).__name__:
+            raise ValueError(
+                "TrainState was checkpointed with the {} optimizer but the "
+                "loop's optimizer is {}: resume must rebuild the same "
+                "optimizer (same optimizer= and learning_rate=) it was "
+                "checkpointed with.".format(self.optimizer,
+                                            type(opt).__name__))
+        if self.opt_state is not None:
+            saved = [_hyperparameters(g)
+                     for g in self.opt_state["param_groups"]]
+            fresh = [_hyperparameters(g) for g in opt.param_groups]
+            if saved != fresh:
+                raise ValueError(
+                    "TrainState's optimizer param groups {} differ from the "
+                    "loop's optimizer's {}: resume must rebuild the same "
+                    "optimizer (same optimizer= and learning_rate=) it was "
+                    "checkpointed with.".format(saved, fresh))
+            params = [p for g in opt.param_groups for p in g["params"]]
+            for i, state in self.opt_state["state"].items():
+                for name, value in state.items():
+                    if not isinstance(value, torch.Tensor) or \
+                            value.ndim == 0:
+                        continue
+                    if tuple(value.shape) != tuple(params[i].shape):
+                        raise ValueError(
+                            "TrainState optimizer state {!r} of parameter "
+                            "{} has shape {} but the parameter has shape "
+                            "{}: the checkpoint belongs to a different "
+                            "model/optimizer configuration.".format(
+                                name, i, tuple(value.shape),
+                                tuple(params[i].shape)))
+            opt.load_state_dict(self.opt_state)
+        if self.generator_state is not None:
+            generator.set_state(self.generator_state)
+
+
+def _hyperparameters(group):
+    """A param group's settings and parameter count, as JSON would hold
+    them (a checkpoint stores them so)."""
+    settings = {k: v for k, v in group.items() if k != "params"}
+    settings["n_params"] = len(group["params"])
+    return json.loads(json.dumps(settings, sort_keys=True))
 
 
 def make_optimizer(optimizer, learning_rate, params):
@@ -70,10 +124,7 @@ class GradLoop(ABC):
                 device=params.device).manual_seed(0)
         start = 0
         if resume_state is not None:
-            if resume_state.opt_state is not None:
-                opt.load_state_dict(resume_state.opt_state)
-            if resume_state.generator_state is not None:
-                generator.set_state(resume_state.generator_state)
+            resume_state.restore(opt, generator)
             start = int(resume_state.step or 0)
         return trainable, fixed, opt, generator, start
 
@@ -101,14 +152,16 @@ class GradLoop(ABC):
         """Write the loop's current trainable/fixed state back into the
         parameter store (copies, so later steps do not change it), and,
         when the optimizer is given, publish a :class:`TrainState` as
-        ``params.train_state``."""
+        ``params.train_state`` (the loops do so after their last step
+        too, callback or not)."""
         params.update_params({k: v.detach().clone()
                               for k, v in trainable.items()})
         params.update_params(fixed)
         if opt is not None:
             params.train_state = TrainState(
                 step=step, generator_state=generator.get_state(),
-                opt_state=copy.deepcopy(opt.state_dict()))
+                opt_state=copy.deepcopy(opt.state_dict()),
+                optimizer=type(opt).__name__)
 
     @abstractmethod
     def run(self, executor, params, data, optimizer="adam",

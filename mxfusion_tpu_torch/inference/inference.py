@@ -3,9 +3,14 @@
 Counterpart of ``mxfusion_tpu/inference/inference.py``. ``Inference``
 owns an algorithm plus :class:`InferenceParameters`; ``initialize``
 binds symbolic shapes from data and allocates parameters; ``run`` builds
-the executor and calls it once. Zip save/load comes later.
+the executor and calls it once. ``save``/``load`` write and read the
+JAX package's zip (graph skeletons as JSON, parameter npz, constants,
+configuration), restored onto freshly built graphs by reconciliation, so
+a zip saved by either package loads in the other.
 """
+import json
 import warnings
+import zipfile
 
 import numpy as np
 import torch
@@ -13,8 +18,13 @@ import torch
 from .inference_parameters import InferenceParameters
 from .inference_alg import (create_executor, create_sampling_executor,
                             SamplingAlgorithm)
+from ..models.factor_graph import FactorGraph
 from ..util.inference import discover_shape_constants, init_outcomes
-from ..common.exceptions import InferenceError
+from ..util.serialization import (
+    SERIALIZATION_VERSION, FILENAMES, make_numpy_zip_bytes,
+    read_numpy_zip_bytes)
+from ..common.exceptions import InferenceError, SerializationError
+from ..__version__ import __version__
 
 
 def _data_shapes(uuids, data):
@@ -51,6 +61,19 @@ class Inference:
     @property
     def graphs(self):
         return self._algorithm.graphs
+
+    def print_params(self):
+        """One line per parameter: its name, UUID prefix and value."""
+        out = []
+        for uuid, arr in self.params.param_dict.items():
+            name = None
+            for g in self.graphs:
+                if uuid in g.components:
+                    name = g.components[uuid].name
+                    break
+            out.append("{} ({}): {}".format(
+                name, uuid[:8], arr.detach().cpu().numpy()))
+        return "\n".join(out)
 
     def _fetch_observed(self, kwargs):
         missing = [n for n in self.observed_variable_names
@@ -100,6 +123,71 @@ class Inference:
             self.params.update_params(aux)
             self.params.fixed.update(aux.keys())
         return loss, loss_for_grad, aux
+
+
+    # ------------------------------------------------------------------
+    def get_serializable(self):
+        return self.params.get_serializable()
+
+    def save(self, zip_filename):
+        """Save to a single zip: graph skeletons, parameters, constants
+        and the configuration (observed variables, fixed UUIDs)."""
+        params, array_constants, prim_constants = self.get_serializable()
+        graphs_json = [g.as_json() for g in self.graphs]
+        config = {
+            "observed_names": self.observed_variable_names,
+            "observed_uuids": self.observed_variable_UUIDs,
+            # which parameter UUIDs are fixed (module caches, frozen
+            # carryover), restored through the uuid_map at load so that a
+            # resumed training run does not train cache state
+            "fixed_uuids": sorted(self.params.fixed),
+        }
+        with zipfile.ZipFile(zip_filename, "w") as zf:
+            zf.writestr(FILENAMES["version"], json.dumps(
+                {"serialization_version": SERIALIZATION_VERSION,
+                 "library_version": __version__}))
+            zf.writestr(FILENAMES["graphs"], json.dumps(graphs_json))
+            zf.writestr(FILENAMES["params"], make_numpy_zip_bytes(params))
+            zf.writestr(FILENAMES["array_constants"],
+                        make_numpy_zip_bytes(array_constants))
+            zf.writestr(FILENAMES["prim_constants"],
+                        json.dumps(prim_constants))
+            zf.writestr(FILENAMES["configuration"], json.dumps(config))
+
+    def load(self, zip_filename):
+        """Load a previous save into this (freshly rebuilt) inference.
+
+        The caller has rebuilt the model graphs in code first; the
+        loaded skeletons are matched onto them by name and topology, and
+        the parameters remapped through the UUID map onto this store's
+        device and dtype."""
+        with zipfile.ZipFile(zip_filename, "r") as zf:
+            version = json.loads(zf.read(FILENAMES["version"]))
+            if version["serialization_version"] != SERIALIZATION_VERSION:
+                raise SerializationError(
+                    "Serialization version mismatch: {} vs {}.".format(
+                        version["serialization_version"],
+                        SERIALIZATION_VERSION))
+            graphs_json = json.loads(zf.read(FILENAMES["graphs"]))
+            params = read_numpy_zip_bytes(zf.read(FILENAMES["params"]))
+            array_constants = read_numpy_zip_bytes(
+                zf.read(FILENAMES["array_constants"]))
+            prim_constants = json.loads(
+                zf.read(FILENAMES["prim_constants"]))
+            config = json.loads(zf.read(FILENAMES["configuration"]))
+        previous_graphs = FactorGraph.load_graphs_json(graphs_json)
+        uuid_map = FactorGraph.reconcile_graphs(
+            current_graphs=self.graphs,
+            primary_previous_graph=previous_graphs[0],
+            secondary_previous_graphs=previous_graphs[1:])
+        InferenceParameters.load_parameters(
+            uuid_map, params, array_constants, prim_constants,
+            current_params=self.params)
+        for prev_uuid in config.get("fixed_uuids", []):
+            cur = uuid_map.get(prev_uuid, prev_uuid)
+            if cur in self.params.param_dict:
+                self.params.fixed.add(cur)
+        self._initialized = True
 
 
 class TransferInference(Inference):

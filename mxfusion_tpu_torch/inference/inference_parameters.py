@@ -5,12 +5,14 @@ Counterpart of ``mxfusion_tpu/inference/inference_parameters.py``:
 applied when the env is built), a constants dict (python ints for
 symbolic shape dims plus numpy arrays), and a ``fixed`` set marking
 non-trainable entries (module caches, carried-over parameters). The
-store has one dtype and one device; every tensor in it lives there.
-Save/load comes later.
+store has one dtype and one device; every tensor in it lives there,
+loaded arrays included.
 """
+import numpy as np
 import torch
 
 from ..common.config import as_torch_dtype, resolve_device
+from ..common.exceptions import InferenceError
 from ..components.variables.variable import Variable
 from ..util.inference import realize_shape
 
@@ -50,6 +52,10 @@ class InferenceParameters:
     def update_params(self, new_values):
         """Overwrite entries: {uuid: unconstrained tensor}."""
         self._params.update(new_values)
+
+    def fix_all(self):
+        """Disable gradients for every parameter."""
+        self._fixed.update(self._params.keys())
 
     def as_tensor(self, value):
         """``value`` as a tensor of this store's dtype on its device."""
@@ -147,3 +153,47 @@ class InferenceParameters:
     def __contains__(self, variable):
         uuid = variable.uuid if isinstance(variable, Variable) else variable
         return uuid in self._params or uuid in self._constants
+
+    # ------------------------------------------------------------------
+    # serialization
+    # ------------------------------------------------------------------
+    def get_serializable(self):
+        """``(params, array_constants, prim_constants)``: the parameters
+        and the constants that have a shape as numpy arrays, the other
+        constants (shape dims, python scalars) as they are, keyed by
+        UUID: the JAX package's split."""
+        def host(v):
+            if isinstance(v, torch.Tensor):
+                return v.detach().cpu().numpy()
+            return np.asarray(v)
+
+        params = {k: host(v) for k, v in self._params.items()}
+        array_constants = {k: host(v) for k, v in self._constants.items()
+                           if hasattr(v, "shape")}
+        prim_constants = {k: v for k, v in self._constants.items()
+                          if not hasattr(v, "shape")}
+        return params, array_constants, prim_constants
+
+    @staticmethod
+    def load_parameters(uuid_map, params, array_constants, prim_constants,
+                        current_params=None, dtype=None, device=None):
+        """Remap loaded UUIDs through the reconciliation map into
+        ``current_params`` (or a new store of ``dtype`` on ``device``).
+        Parameters land on the store's device in its dtype; a parameter
+        with no reconciled match raises :class:`InferenceError`."""
+        ip = current_params if current_params is not None \
+            else InferenceParameters(dtype=dtype, device=device)
+        for prev_uuid, arr in params.items():
+            cur = uuid_map.get(prev_uuid)
+            if cur is None:
+                raise InferenceError(
+                    "Loaded parameter {} has no reconciled match.".format(
+                        prev_uuid))
+            ip._params[cur] = ip.as_tensor(np.array(arr))
+        for prev_uuid, arr in array_constants.items():
+            cur = uuid_map.get(prev_uuid, prev_uuid)
+            ip._constants[cur] = np.asarray(arr)
+        for prev_uuid, v in prim_constants.items():
+            cur = uuid_map.get(prev_uuid, prev_uuid)
+            ip._constants[cur] = v
+        return ip

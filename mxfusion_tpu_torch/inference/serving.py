@@ -10,16 +10,37 @@ built once and every chunk keeps the same shapes (the ground a later
 CUDA-graph capture stands on). A request is moved to the device once,
 chunked and merged there, and returned as numpy arrays.
 
-AOT export (``export``/``load_exported_predictor``) and the mesh-sharded
-path come later.
+``BatchedPredictor.export(path)`` captures the per-chunk call with
+``torch.export`` and writes it beside a parameter snapshot;
+``load_exported_predictor(path)`` serves it without the
+model-definition code or a graph rebuild, needing only this package
+(which registers the operators the program calls: K1's launch and the
+tiered products, each carrying its precision). The mesh-sharded path
+waits for the port's parallel slice.
+
+Both predictors run each chunk at IEEE float32 for every product that
+carries no tier of its own (the triangular solves and the Cholesky,
+whose cuBLAS/cuSOLVER calls follow ``torch.set_float32_matmul_precision``),
+so that what a request returns does not depend on the precision the
+serving process has set.
 """
+import io
+import json
+import zipfile
+
+import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
 from .inference import TransferInference
 from .inference_alg import create_sampling_executor, as_runtime_tensor
 from .prediction import ModulePredictionAlgorithm
+from ..common.config import resolve_device
 from ..common.exceptions import ModelSpecificationError
+# the operators an exported program calls, registered on import
+from ..ops import cuda_kernels, precision  # noqa: F401
+
+FORMAT_VERSION = "torch-1.0"
 
 
 def _leaf_data_axes(shape, C, spec=None):
@@ -180,12 +201,28 @@ class BatchedPredictor:
         """Fix the chunk size from the first request and build the
         executor (the counterpart of the JAX package's compile)."""
         self._chunk = min(self.chunk_size, data[0].shape[0])
-        self._infr.initialize(
-            **{n: d[:self._chunk] for n, d in zip(names, data)})
+        chunk0 = [d[:self._chunk] for d in data]
+        self._infr.initialize(**dict(zip(names, chunk0)))
         self._executor = create_sampling_executor(
             self._infr.inference_algorithm, self._infr.params)
+        self._chunk_specs = [(tuple(c.shape), c.dtype) for c in chunk0]
         if self.output_spec is None:
             self.output_spec = self._declared_output_spec()
+
+    def _request(self, kwargs):
+        """The named inputs as tensors of the store's dtype on its
+        device; builds the executor at the first request."""
+        names = self._infr.observed_variable_names
+        params = self._infr.params
+        data = [as_runtime_tensor(kwargs[n], params.dtype, params.device)
+                for n in names]
+        if data[0].shape[0] == 0:
+            raise ValueError(
+                "zero input rows; chunked serving needs at least one "
+                "row to fix the chunk shapes.")
+        if self._executor is None:
+            self._build(names, data)
+        return data
 
     def _declared_output_spec(self):
         """The module prediction algorithm's declared
@@ -221,22 +258,164 @@ class BatchedPredictor:
         default) with numpy leaves, chunk results concatenated on the
         data axis. ``generator``: the ``torch.Generator`` for any random
         draws (default: seeded with 0 on the serving device)."""
-        names = self._infr.observed_variable_names
         params = self._infr.params
         with torch.no_grad():
-            data = [as_runtime_tensor(kwargs[n], params.dtype,
-                                      params.device) for n in names]
-            if data[0].shape[0] == 0:
-                raise ValueError(
-                    "zero input rows; chunked serving needs at least one "
-                    "row to fix the chunk shapes.")
-            if self._executor is None:
-                self._build(names, data)
+            data = self._request(kwargs)
             if generator is None:
                 generator = torch.Generator(
                     device=params.device).manual_seed(0)
             trainable = params.trainable_params()
             fixed = params.fixed_params()
-            return _chunked_predict(
-                lambda chunk, g: self._executor(trainable, fixed, chunk, g),
-                self._chunk, data, generator, output_spec=self.output_spec)
+            with precision._matmul_precision("highest"):
+                return _chunked_predict(
+                    lambda chunk, g: self._executor(trainable, fixed, chunk,
+                                                    g),
+                    self._chunk, data, generator,
+                    output_spec=self.output_spec)
+
+    # ------------------------------------------------------------------
+    def export(self, path, **example_data):
+        """Write the per-chunk prediction program and a parameter
+        snapshot to ``path`` (a zip of ``program.pt2``, ``params.npz``
+        and ``meta.json``). Before the first ``predict``,
+        ``example_data`` (the same keyword arguments) fixes the chunk
+        shapes.
+
+        The program is ``torch.export`` of ``executor(trainable, fixed,
+        chunk)``, the parameters being program inputs. It is traced on
+        the store's device and runs only there. A prediction that draws
+        random numbers raises: the program has no generator input."""
+        params = self._infr.params
+        with torch.no_grad():
+            if self._executor is None:
+                if not example_data:
+                    raise ValueError(
+                        "export() before the first predict(): pass example "
+                        "data kwargs to fix the chunk shapes.")
+                self._request(example_data)
+            trainable = {k: v.detach()
+                         for k, v in params.trainable_params().items()}
+            fixed = {k: v.detach()
+                     for k, v in params.fixed_params().items()}
+            chunk0 = [torch.zeros(shape, dtype=dtype, device=params.device)
+                      for shape, dtype in self._chunk_specs]
+            generator = torch.Generator(device=params.device).manual_seed(0)
+            before = generator.get_state()
+            self._executor(trainable, fixed, chunk0, generator)
+            if not torch.equal(generator.get_state(), before):
+                raise NotImplementedError(
+                    "export() of a prediction that draws random numbers is "
+                    "not supported: the exported program has no generator "
+                    "input. Serve it through BatchedPredictor.predict.")
+            program = torch.export.export(
+                _ChunkProgram(self._executor, generator),
+                (trainable, fixed, chunk0))
+        # the parameters travel in params.npz and the chunk is zeros:
+        # keep the example inputs out of program.pt2
+        program.example_inputs = None
+        program_bytes = io.BytesIO()
+        torch.export.save(program, program_bytes)
+        arrays = {"t::" + k: v.cpu().numpy() for k, v in trainable.items()}
+        arrays.update({"f::" + k: v.cpu().numpy() for k, v in fixed.items()})
+        arrays_bytes = io.BytesIO()
+        np.savez(arrays_bytes, **arrays)
+        meta = {"names": list(self._infr.observed_variable_names),
+                "chunk": int(self._chunk),
+                "input_dtypes": [str(dt).replace("torch.", "")
+                                 for _, dt in self._chunk_specs],
+                "device": params.device.type,
+                "output_spec": ([list(t) for t in self.output_spec]
+                                if self.output_spec is not None else None),
+                # a spec derived from serving_data_axes is a structural
+                # guess: the loader restores its soft, per-leaf-validated
+                # semantics instead of treating it as a user declaration
+                "output_spec_derived": isinstance(self.output_spec,
+                                                  _DerivedSpec),
+                "format_version": FORMAT_VERSION}
+        with zipfile.ZipFile(path, "w") as zf:
+            zf.writestr("program.pt2", program_bytes.getvalue())
+            zf.writestr("params.npz", arrays_bytes.getvalue())
+            zf.writestr("meta.json", json.dumps(meta))
+        return path
+
+
+class _ChunkProgram(torch.nn.Module):
+    """The per-chunk call ``torch.export`` traces; the generator is one
+    that the call (checked before the trace) never draws from."""
+
+    def __init__(self, executor, generator):
+        super().__init__()
+        self.executor = executor
+        self.generator = generator
+
+    def forward(self, trainable, fixed, chunk):
+        return self.executor(trainable, fixed, chunk, self.generator)
+
+
+class ExportedPredictor:
+    """Serves a ``BatchedPredictor.export`` artifact: the same
+    ``predict`` contract, no model rebuild, no graph machinery."""
+
+    def __init__(self, program, trainable, fixed, names, chunk, dtypes,
+                 device, output_spec=None):
+        self._program = program
+        self._call = program.module()
+        self._trainable = trainable
+        self._fixed = fixed
+        self._names = names
+        self._chunk = chunk
+        self._dtypes = dtypes
+        self._device = device
+        self._output_spec = output_spec
+
+    def predict(self, **kwargs):
+        """Predict for the named inputs (numpy arrays or tensors, any
+        leading-axis length, cast to the dtypes the program was traced
+        with); numpy leaves, as ``BatchedPredictor.predict``."""
+        with torch.no_grad():
+            data = [torch.as_tensor(kwargs[n], device=self._device).to(dt)
+                    for n, dt in zip(self._names, self._dtypes)]
+            with precision._matmul_precision("highest"):
+                return _chunked_predict(
+                    lambda chunk, _: self._call(self._trainable, self._fixed,
+                                                chunk),
+                    self._chunk, data, None, output_spec=self._output_spec)
+
+
+def load_exported_predictor(path, device=None):
+    """Load a ``BatchedPredictor.export`` artifact to serve on ``device``
+    (default: the package's default device), which must be of the type
+    it was traced on. A JAX package artifact (``function.bin``) raises:
+    it is StableHLO, which this package does not run."""
+    device = resolve_device(device)
+    with zipfile.ZipFile(path) as zf:
+        if "function.bin" in zf.namelist():
+            raise ValueError(
+                "{} is an artifact of the JAX package (jax.export, "
+                "function.bin), which mxfusion_tpu_torch cannot serve; "
+                "export the predictor with mxfusion_tpu_torch's "
+                "BatchedPredictor.export.".format(path))
+        meta = json.loads(zf.read("meta.json"))
+        if meta.get("format_version") != FORMAT_VERSION:
+            raise ValueError("unsupported predictor artifact version: "
+                             "{}".format(meta.get("format_version")))
+        if meta["device"] != device.type:
+            raise ValueError(
+                "the artifact was traced on {} and cannot be served on {}: "
+                "export it from a predictor whose parameters live on {}."
+                .format(meta["device"], device, device.type))
+        program = torch.export.load(io.BytesIO(zf.read("program.pt2")))
+        arrays = np.load(io.BytesIO(zf.read("params.npz")),
+                         allow_pickle=False)
+        trainable = {k[3:]: torch.as_tensor(arrays[k], device=device)
+                     for k in arrays.files if k.startswith("t::")}
+        fixed = {k[3:]: torch.as_tensor(arrays[k], device=device)
+                 for k in arrays.files if k.startswith("f::")}
+    spec = [tuple(t) for t in meta["output_spec"]] \
+        if meta.get("output_spec") else None
+    if spec is not None and meta.get("output_spec_derived"):
+        spec = _DerivedSpec(spec)
+    return ExportedPredictor(
+        program, trainable, fixed, meta["names"], meta["chunk"],
+        [getattr(torch, d) for d in meta["input_dtypes"]], device,
+        output_spec=spec)

@@ -7,9 +7,12 @@ Counterpart of ``mxfusion_tpu/models/factor_graph.py``. A
 a UUID-keyed env of tensors.
 
 Graph surgery (remove/replace subgraph, extract_distribution_of),
-cloning with UUID preservation and Markov blankets are here; the JSON
-skeletons and graph reconciliation come with save/load.
+cloning with UUID preservation, Markov blankets, and the JSON skeletons
+with the name+topology graph reconciliation that save/load matches a
+loaded zip by are here.
 """
+import warnings
+
 import networkx as nx
 import torch
 
@@ -356,3 +359,137 @@ class FactorGraph:
         observed = set(observed)
         return [v for v in self.variables.values()
                 if v.type == VariableType.RANDVAR and v.uuid not in observed]
+
+    # ------------------------------------------------------------------
+    # serialization & reconciliation
+    # ------------------------------------------------------------------
+    def as_json(self):
+        """Skeleton: nodes (uuid/name/type) + labeled edges, in the JAX
+        package's layout."""
+        from ..modules.module import Module
+        nodes = []
+        for c in self.components_graph.nodes:
+            j = c.as_json()
+            if isinstance(c, Module):
+                j["module_graphs"] = c.internal_graphs_as_json()
+            nodes.append(j)
+        edges = [{"source": u.uuid, "target": v.uuid, "label": k}
+                 for u, v, k in self.components_graph.edges(keys=True)]
+        return {"name": self.name, "nodes": nodes, "edges": edges}
+
+    @staticmethod
+    def load_graphs_json(graphs_list):
+        """Rebuild skeleton graphs from JSON (bare ModelComponents)."""
+        out = []
+        for gj in graphs_list:
+            sk = FactorGraph(name=gj.get("name"))
+            by_uuid = {}
+            for nj in gj["nodes"]:
+                c = ModelComponent()
+                c._uuid = nj["uuid"]
+                c.name = nj.get("name")
+                c._skeleton_type = nj.get("type")
+                c._module_graphs_json = nj.get("module_graphs")
+                c._parent_graph = sk.components_graph
+                sk.components_graph.add_node(c)
+                by_uuid[c.uuid] = c
+            for ej in gj["edges"]:
+                sk.components_graph.add_edge(
+                    by_uuid[ej["source"]], by_uuid[ej["target"]],
+                    key=ej["label"])
+            out.append(sk)
+        return out
+
+    @staticmethod
+    def reconcile_graphs(current_graphs, primary_previous_graph,
+                         secondary_previous_graphs=None):
+        """Match loaded skeletons onto freshly built graphs.
+
+        Returns ``{previous_uuid: current_uuid}``. Seeds are components
+        with equal names and nodes an earlier graph already matched;
+        matching expands by BFS over identically labeled edges in both
+        directions.
+        """
+        previous_graphs = [primary_previous_graph] + \
+            list(secondary_previous_graphs or [])
+        uuid_map = {}
+        for prev_g, cur_g in zip(previous_graphs, current_graphs):
+            FactorGraph._reconcile_graph(uuid_map, prev_g, cur_g)
+        return uuid_map
+
+    @staticmethod
+    def _reconcile_graph(uuid_map, prev_g, cur_g):
+        from ..modules.module import Module
+        cur_nodes = list(cur_g.components_graph.nodes)
+        cur_by_name = {c.name: c for c in cur_nodes if c.name}
+        pairs = []
+        matched_prev = set()
+        matched_cur = set()
+
+        def match(p, c):
+            if p.uuid in matched_prev or c.uuid in matched_cur:
+                return
+            uuid_map[p.uuid] = c.uuid
+            matched_prev.add(p.uuid)
+            matched_cur.add(c.uuid)
+            pairs.append((p, c))
+            # recurse into module internal graphs
+            if isinstance(c, Module) and \
+                    getattr(p, "_module_graphs_json", None):
+                c.reconcile_with_module_json(uuid_map, p._module_graphs_json)
+
+        for p in prev_g.components_graph.nodes:
+            if p.name and p.name in cur_by_name:
+                match(p, cur_by_name[p.name])
+        # cross-graph identity seeds: posterior graphs replicate model
+        # variables keeping the UUID, so a node matched while reconciling
+        # an earlier graph anchors the BFS here even when this graph has
+        # no named nodes at all
+        cur_by_uuid = {c.uuid: c for c in cur_nodes}
+        for p in prev_g.components_graph.nodes:
+            mapped = uuid_map.get(p.uuid)
+            if mapped is not None and mapped in cur_by_uuid:
+                match(p, cur_by_uuid[mapped])
+
+        def _warn_if_ambiguous(label, anchor, plist, clist):
+            """Parallel same-label edges pair positionally (in networkx's
+            insertion order): when more than one still-unmatched, unnamed
+            candidate shares a label, the pairing is a guess; say so."""
+            amb_p = [pp for pp in plist
+                     if pp.uuid not in matched_prev and not pp.name]
+            amb_c = [cc for cc in clist
+                     if cc.uuid not in matched_cur and not cc.name]
+            if len(amb_p) > 1 and len(amb_c) > 1:
+                warnings.warn(
+                    "reconcile: {} unnamed components reach '{}' (a "
+                    "{}) through parallel '{}' edges; pairing them "
+                    "positionally. Name these components to make the "
+                    "match deterministic. Candidates (previous): {}; "
+                    "(current): {}.".format(
+                        len(amb_p), anchor.name or anchor.uuid,
+                        type(anchor).__name__, label,
+                        [pp.uuid for pp in amb_p],
+                        [cc.uuid for cc in amb_c]),
+                    stacklevel=2)
+
+        def expand(p, c, edges_of, end):
+            p_nbrs = {}
+            for e in edges_of(prev_g)(p, keys=True):
+                p_nbrs.setdefault(e[2], []).append(e[end])
+            c_nbrs = {}
+            for e in edges_of(cur_g)(c, keys=True):
+                c_nbrs.setdefault(e[2], []).append(e[end])
+            for k, plist in p_nbrs.items():
+                clist = c_nbrs.get(k, [])
+                _warn_if_ambiguous(k, p, plist, clist)
+                for pp, cc in zip(plist, clist):
+                    match(pp, cc)
+
+        # BFS expansion over labeled edges in both directions
+        i = 0
+        while i < len(pairs):
+            p, c = pairs[i]
+            i += 1
+            expand(p, c, lambda g: g.components_graph.in_edges, 0)
+            expand(p, c, lambda g: g.components_graph.out_edges, 1)
+        return uuid_map

@@ -287,3 +287,15 @@ class Module(Factor):
             v for g in replicant.internal_graphs
             for v in g.variables.values() if v.uuid in cache_uuids]
         return replicant
+
+    def internal_graphs_as_json(self):
+        return [g.as_json() for g in self.internal_graphs]
+
+    def reconcile_with_module_json(self, uuid_map, module_graphs_json):
+        """Recurse graph reconciliation into the module's internal
+        graphs."""
+        from ..models.factor_graph import FactorGraph
+        prev_graphs = FactorGraph.load_graphs_json(module_graphs_json)
+        for prev_g, cur_g in zip(prev_graphs, self.internal_graphs):
+            FactorGraph._reconcile_graph(uuid_map, prev_g, cur_g)
+        return uuid_map

@@ -20,6 +20,13 @@ that, as the JAX ``_rbf_bwd`` (``pallas_kernels.py:168-176``)
 recomputes through ``_rbf_jnp``. The JAX package has no backward kernel
 for this gram, so neither has the port.
 
+On the card the launch is the operator ``mxfusion_tpu_torch::rbf_gram``
+(``torch.ops``, a CUDA kernel only, with a fake implementation that
+gives the (s, N, M) float32 shape), so that ``torch.export`` records it
+as one node of an exported program instead of tracing into its ctypes
+call. The launch counter counts the operator's real launches, an
+exported program's included.
+
 The flag defaults to on. The JAX package turned its Pallas kernel off
 after a TPU measurement; that measurement says nothing about this card.
 """
@@ -171,7 +178,8 @@ class _RbfGram(torch.autograd.Function):
         ctx.save_for_backward(X, X2, lengthscale, variance)
         if X.device.type == "cpu":
             return _rbf_torch(X, X2, lengthscale, variance)
-        return _rbf_cuda(X, X2, lengthscale, variance)
+        return torch.ops.mxfusion_tpu_torch.rbf_gram(X, X2, lengthscale,
+                                                     variance)
 
     @staticmethod
     def backward(ctx, g):
@@ -205,3 +213,18 @@ def _rbf_cuda(X, X2, lengthscale, variance):
             lib.mxf_cuda_error_string(err).decode(), err))
     rbf_kernel_matrix.launches += 1
     return K
+
+
+_LIB_OPS = torch.library.Library("mxfusion_tpu_torch", "FRAGMENT")
+_LIB_OPS.define("rbf_gram(Tensor X, Tensor? X2, Tensor lengthscale, "
+                "Tensor variance) -> Tensor")
+# looked up at each call, so that a test can wrap the launch
+_LIB_OPS.impl("rbf_gram", lambda X, X2, lengthscale, variance: _rbf_cuda(
+    X, X2, lengthscale, variance), "CUDA")
+
+
+@torch.library.register_fake("mxfusion_tpu_torch::rbf_gram", lib=_LIB_OPS)
+def _rbf_gram_fake(X, X2, lengthscale, variance):
+    check_kernel_args(X, X2, lengthscale, variance)
+    M = (X if X2 is None else X2).shape[1]
+    return X.new_empty((X.shape[0], X.shape[1], M), dtype=torch.float32)

@@ -34,6 +34,16 @@ documented at the JAX counterpart (``precision.py:22-173``). The tiers
 are read when a product runs (PyTorch runs eagerly); the backward
 products use the tier that was set when their forward ran.
 
+Traced by ``torch.export`` (or ``torch.compile``), the forward product
+is the operator ``mxfusion_tpu_torch::tiered_einsum`` (``torch.ops``),
+which takes its tier as an argument and pins it inside; run eagerly, it
+is the same pinned einsum called directly. So the tier travels with each
+product into an exported program: the graph records one call per
+product, tier and all, and the program runs each product at its tier
+whatever precision the process that serves it has set. (A precision
+flipped around a plain einsum is a Python side effect, which an
+exported graph does not record.)
+
 The precision setting is process-wide: a thread that changes it while a
 product runs races with the product.
 """
@@ -65,6 +75,24 @@ def _pinned(tier, operand):
     # global "medium" (bf16 on some CPUs) out of the GP math
     return _matmul_precision(
         _CUDA_MATMUL[tier] if operand.is_cuda else "highest")
+
+
+def _pinned_einsum(equation, tier, A, B):
+    with _pinned(tier, A):
+        return torch.einsum(equation, A, B)
+
+
+_LIB = torch.library.Library("mxfusion_tpu_torch", "FRAGMENT")
+_LIB.define("tiered_einsum(Tensor A, Tensor B, str equation, str tier) "
+            "-> Tensor")
+_LIB.impl("tiered_einsum",
+          lambda A, B, equation, tier: _pinned_einsum(equation, tier, A, B),
+          "CompositeExplicitAutograd")
+
+
+@torch.library.register_fake("mxfusion_tpu_torch::tiered_einsum", lib=_LIB)
+def _tiered_einsum_fake(A, B, equation, tier):
+    return torch.einsum(equation, A, B)
 
 
 def _parse(equation):
@@ -111,8 +139,12 @@ class _TieredEinsum(torch.autograd.Function):
 
     @staticmethod
     def forward(equation, terms, fwd_tier, bwd_tier, A, B):
-        with _pinned(fwd_tier, A):
-            return torch.einsum(equation, A, B)
+        if torch.compiler.is_compiling():
+            # traced (torch.export, torch.compile): one operator node
+            # that carries its tier
+            return torch.ops.mxfusion_tpu_torch.tiered_einsum(
+                A, B, equation, fwd_tier)
+        return _pinned_einsum(equation, fwd_tier, A, B)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
