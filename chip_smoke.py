@@ -18,7 +18,10 @@ deep GPs (regression and classification) and natural-gradient SVGP
 training, minibatch and full batch, and persistence at the training
 slice's configuration (a checkpointed run resumed, a saved inference
 loaded onto a rebuilt model, an exported predictor served by a process
-that builds no model). In phases that each print one line:
+that builds no model), and networks in the graph (``NNFunction``): a
+deep-kernel SVGP trained and served at the training slice's
+configuration, and BASELINE config 5's Bayesian NN and VAE. In phases
+that each print one line:
 
 1. device: needs CUDA (exits nonzero without it); prints the card's
    name and power limit (nvidia-smi) and the TF32 settings;
@@ -233,7 +236,32 @@ that builds no model). In phases that each print one line:
    matmul; the artifact and the live predictor timed alternately in this
    process too; the walls of export and
    load, the artifact's size, and rows/s and 128-row latency of the
-   artifact beside the live predictor (information).
+   artifact beside the live predictor (information);
+35. deep-kernel training: a network Linear(32, 64) -> tanh ->
+   Linear(64, 32) (``NNFunction``) in front of phase 6's SVGP (RBF over
+   the features, M = 512, Z at the features of 512 rows), MAP +
+   ``DeviceMinibatchLoop`` at B = 65536 on phase 6's 262144 rows, one
+   epoch of 4 Adam steps, fused and materialized from one start: K1/K2/K3
+   1/1/3 in each fused step (K3's dXs is the network's gradient), the
+   two arms' losses within 1e-3, the first loss against float64 within
+   1e-3, every network weight's gradient at the start state, fused vs
+   materialized, within 5e-3 of its largest entry; the step wall's median
+   and quartiles beside phase 6's;
+36. deep-kernel serving: ``BatchedPredictor`` with ``X_raw`` observed on
+   262144 rows (the network runs on each chunk): K1 twice a chunk, kernel
+   vs plain path (means 1e-4 relative, variances 1e-4 absolute), 256 rows
+   vs a float64 store (1e-3); rows/s and the 128-row latency;
+37. BNN (BASELINE config 5a, benchmarks/bnn_vae_dp.py's widths): N =
+   8192, 8 -> 64 -> 64 -> 1 tanh with Normal(0, 1) priors over its 4801
+   weights, mean-field SVI at S = 4, 20 Adam steps: no launch of K1-K5,
+   the loss falls, the first loss on fixed draws float32 vs float64
+   within 1e-4, the step wall and the idle share of a 10-step profile;
+   then 4000 more steps (eight runs of 500) and 100 forward draws
+   (``VariationalPosteriorForwardSampling``) whose mean lies within 0.1
+   of sin(3 x0) on average;
+38. VAE (config 5b): N = 8192, D = 16, K = 4, decoder 4 -> 64 -> 16,
+   encoder 16 -> 64 -> (4, 4) in the posterior, SVI at S = 3: the checks
+   of phase 37 but the forward draws.
 
 Any failed check raises and the script exits nonzero. The last three
 lines are the card (nvidia-smi), the kernels' JSON record (each with
@@ -416,6 +444,22 @@ NGD_ORACLE_RTOL = 1e-6
 # 262144-row request (32 chunks) at the serving tolerances of phase 4
 RESUME_ROWS, RESUME_RTOL = 2 * TRAIN_B, 1e-6
 SMALL_ROWS, SMALL_REPS = 128, 9
+# functions and NN models (phases 35-38): a feature network in front of
+# phase 6's SVGP, and BASELINE config 5 at benchmarks/bnn_vae_dp.py's
+# widths
+DK_HIDDEN = 64
+# the network's gradient, fused arm vs materialized: K3 holds dXs to 2e-3
+# of its largest entry, and the tanh layer's Jacobian passes it on
+DK_GRAD_RTOL = 5e-3
+NN_STEPS = 20
+NN_F64_RTOL = 1e-4    # the mean-field tolerance (phases 18-19)
+BNN_N, BNN_IN, BNN_H, BNN_S, BNN_LR = 8192, 8, 64, 4, 0.03
+# the BNN's fit before its forward draws: runs of 500 steps, each with a
+# fresh Adam. The first steps' gradients, of a loss near 2e7, hold Adam's
+# second moment for thousands of steps: on an H100 one run of 3000 steps
+# left the predictive mean 0.57 off sin(3 x0), six runs of 500 0.079
+BNN_FIT_RUNS, BNN_FIT_STEPS, BNN_FS, BNN_FIT_ATOL = 8, 500, 100, 0.1
+VAE_N, VAE_D, VAE_K, VAE_H, VAE_S, VAE_LR = 8192, 16, 4, 64, 3, 1e-2
 
 
 def check(ok, message):
@@ -2787,6 +2831,406 @@ def persistence_phases(dev, card, Xtr, Ytr, bulk, tm, start_state,
             "K3": trained_counts["K3"]}
 
 
+def deep_kernel_model(Xz, seed, dev):
+    """Phase 35's model: ``X_raw`` (n, D) → Linear(D, 64) → tanh →
+    Linear(64, D) → ``SVGPRegression`` over the features (RBF, M = 512, a
+    learned noise variance). The network's weights come from
+    ``torch.manual_seed(seed)``; Z starts at the features of the M rows
+    ``Xz`` and the lengthscale at half their median distance (Kuu's
+    condition number about 1e3, phase 6's order)."""
+    import torch
+    from mxfusion_tpu_torch import Model, Variable
+    from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
+    from mxfusion_tpu_torch.components.functions import NNFunction
+    from mxfusion_tpu_torch.components.variables import \
+        PositiveTransformation
+    from mxfusion_tpu_torch.modules import SVGPRegression
+    torch.manual_seed(seed)
+    net = torch.nn.Sequential(torch.nn.Linear(D, DK_HIDDEN),
+                              torch.nn.Tanh(), torch.nn.Linear(DK_HIDDEN, D))
+    with torch.no_grad():
+        Z0 = net(torch.as_tensor(Xz)).double()
+    dist = torch.cdist(Z0, Z0)
+    lengthscale = float(dist[dist > 0].median()) / 2
+    m = Model()
+    m.n = Variable()
+    m.X_raw = Variable(shape=(m.n, D))
+    m.features = NNFunction(net, name="feat", input_shapes=[(TRAIN_B, D)],
+                            device=dev)(m.X_raw)
+    m.noise_var = Variable(transformation=PositiveTransformation(),
+                           initial_value=0.1)
+    m.Y = SVGPRegression.define_variable(
+        X=m.features, kernel=RBF(input_dim=D, variance=1.0,
+                                 lengthscale=lengthscale),
+        noise_var=m.noise_var, shape=(m.n, 1),
+        inducing_inputs=Variable(shape=(M, D), initial_value=Z0.numpy()))
+    return m
+
+
+def deep_kernel_phases(dev, card, seed, Xtr, Ytr, phase6_wall, read_counts,
+                       zero_counts, sync, RecordingLoop):
+    """Phases 35-36: the deep-kernel SVGP trained on phase 6's data and
+    configuration, where K3's dXs is the network's gradient, then served
+    with the raw inputs observed. Returns the launches of the main path
+    (training and serving)."""
+    from mxfusion_tpu_torch.inference import (BatchedPredictor,
+                                              GradBasedInference, MAP)
+    from mxfusion_tpu_torch.ops import cuda_kernels, fused_gram
+    from mxfusion_tpu_torch.util.carryover import (carryover_params,
+                                                   name_paths)
+    rng = np.random.default_rng(seed + 35)
+    m = deep_kernel_model(Xtr[rng.choice(TRAIN_N, M, replace=False)],
+                          seed + 35, dev)
+    alg = MAP(model=m, observed=[m.X_raw, m.Y])
+    start = GradBasedInference(alg, dtype="float32", device=dev)
+    start.initialize(X_raw=Xtr[:TRAIN_B], Y=Ytr[:TRAIN_B])
+    start_state = {k: v.clone() for k, v in start.params.param_dict.items()}
+    scaling = {m.Y.uuid: TRAIN_N / TRAIN_B}
+
+    def train(fused):
+        loop = RecordingLoop(batch_size=TRAIN_B,
+                             rv_scaling={m.Y: TRAIN_N / TRAIN_B})
+        inf = GradBasedInference(alg, grad_loop=loop, dtype="float32",
+                                 device=dev)
+        inf.params.update_params(
+            {k: v.clone() for k, v in start_state.items()})
+        with contextlib.nullcontext() if fused else fused_gram.disabled():
+            inf.run(X_raw=Xtr, Y=Ytr, max_iter=1, learning_rate=3e-3)
+        return loop, inf
+
+    # ---- 35. deep-kernel training: the main path is the fused epoch
+    zero_counts()
+    fused_loop, trained = train(True)
+    sync()
+    train_launches = read_counts()
+    per_step = {"K1": 1, "K2": 1, "K3": fused_gram.BWD_LAUNCHES, "K4": 0,
+                "K5": 0}
+    for i, counts in enumerate(fused_loop.counts):
+        check(counts == per_step, "deep-kernel step {} launched {}; "
+              "expected {}".format(i, counts, per_step))
+    check(len(fused_loop.counts) == TRAIN_STEPS, "deep kernel: {} steps, "
+          "expected {}".format(len(fused_loop.counts), TRAIN_STEPS))
+    plain_loop, _ = train(False)
+    fused_losses = [float(x) for x in fused_loop.losses]
+    plain_losses = [float(x) for x in plain_loop.losses]
+    check(all(math.isfinite(x) for x in fused_losses + plain_losses),
+          "deep kernel: non-finite loss: {} {}".format(fused_losses,
+                                                       plain_losses))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(fused_losses,
+                                                       plain_losses))
+    check(loss_rel <= TRAIN_LOSS_RTOL, "deep kernel: fused vs materialized "
+          "losses part by {}: {} vs {}".format(loss_rel, fused_losses,
+                                               plain_losses))
+    batch = fused_loop.first_batch
+    f64_loss = loss_and_grad_at(alg, start_state, batch, "float64", dev,
+                                grad=False, rv_scaling=scaling)[0]
+    f64_rel = abs(fused_losses[0] - f64_loss) / abs(f64_loss)
+    check(f64_rel <= F64_LOSS_RTOL, "deep kernel: first loss {} vs float64 "
+          "{}: relative {}".format(fused_losses[0], f64_loss, f64_rel))
+    # the network's gradient at the start state and the first batch: K3's
+    # dXs (fused) against autograd through the materialized Kuf
+    before = read_counts()
+    _, g_fused = loss_and_grad_at(alg, start_state, batch, "float32", dev,
+                                  rv_scaling=scaling)
+    k3 = read_counts()["K3"] - before["K3"]
+    check(k3 == fused_gram.BWD_LAUNCHES, "the fused gradient launched K3 "
+          "{} times".format(k3))
+    with fused_gram.disabled():
+        _, g_plain = loss_and_grad_at(alg, start_state, batch, "float32",
+                                      dev, rv_scaling=scaling)
+    paths = name_paths([m])
+    net_grads = {paths[k]: rel_err(g_fused[k], g_plain[k])
+                 for k in g_plain if paths[k].startswith("features.")}
+    check(len(net_grads) == 4, "network gradients: {}".format(
+        sorted(net_grads)))
+    grad_err = max(net_grads.values())
+    check(grad_err <= DK_GRAD_RTOL, "deep kernel: network gradients, fused "
+          "vs materialized, part by {} of their largest entry (tol {}): "
+          "{}".format(grad_err, DK_GRAD_RTOL, net_grads))
+    wall_s = []
+    for _round in range(STEP_WALL_ROUNDS):
+        for _epoch in range(2):
+            wall_s += train(True)[0].wall_s
+    q1, med, q3 = np.percentile(1e3 * np.asarray(wall_s), [25, 50, 75])
+    prof = profile_steps(
+        lambda loop: GradBasedInference(alg, grad_loop=loop,
+                                        dtype="float32", device=dev),
+        {"X_raw": Xtr[:TRAIN_B], "Y": Ytr[:TRAIN_B]}, PROFILE_STEPS, 3e-3,
+        ROOT / "build" / "chip_smoke_deep_kernel_trace.json")
+    print("phase 35 deep-kernel training ({}): {} rows, B={}, M={}, "
+          "Linear({}, {}) -> tanh -> Linear({}, {}) -> RBF SVGP, {} Adam "
+          "steps | per step launches {} | losses fused {} materialized {} "
+          "(max rel {:.3e}, tol {:.0e}) | first loss vs float64 {:.6f}: rel "
+          "{:.3e} (tol {:.0e}) | network gradients fused vs materialized, "
+          "of each one's largest entry: {} (max {:.3e}, tol {:.0e}) | step "
+          "wall ms: median {:.3f} (quartiles {:.3f}-{:.3f}) of {}, beside "
+          "phase 6's fused {} | profile of {} steps on B rows: {}".format(
+              card, TRAIN_N, TRAIN_B, M, D, DK_HIDDEN, DK_HIDDEN, D,
+              TRAIN_STEPS, fused_loop.counts[0], fused_losses, plain_losses,
+              loss_rel, TRAIN_LOSS_RTOL, f64_loss, f64_rel, F64_LOSS_RTOL,
+              {k: "{:.3e}".format(v) for k, v in sorted(net_grads.items())},
+              grad_err, DK_GRAD_RTOL, med, q1, q3, len(wall_s),
+              phase6_wall, PROFILE_STEPS,
+              profile_summary(prof, PROFILE_STEPS)), flush=True)
+
+    # ---- 36. deep-kernel serving: 262144 rows with X_raw observed
+    def predictor(params):
+        return BatchedPredictor(model=m, infr_params=params,
+                                observed=[m.X_raw],
+                                target_variables=[m.Y.uuid],
+                                chunk_size=CHUNK)
+
+    pred = predictor(trained.params)
+    pred.predict(X_raw=Xtr[:CHUNK])
+    sync()
+    zero_counts()
+    t0 = time.perf_counter()
+    mu, var = pred.predict(X_raw=Xtr)[0]
+    bulk_s = time.perf_counter() - t0
+    serve_launches = read_counts()
+    chunks = -(-TRAIN_N // CHUNK)
+    check(serve_launches["K1"] == 2 * chunks, "deep-kernel serving launched "
+          "K1 {} times for {} chunks; expected 2 a chunk".format(
+              serve_launches["K1"], chunks))
+    check(mu.shape == var.shape == (1, TRAIN_N, 1) and np.isfinite(mu).all()
+          and np.isfinite(var).all() and var.min() >= -VAR_ATOL,
+          "deep-kernel serving: shapes {} {}, min variance {}".format(
+              mu.shape, var.shape, var.min()))
+    small_ms = []
+    for _ in range(SMALL_REPS):
+        t0 = time.perf_counter()
+        pred.predict(X_raw=Xtr[:SMALL_ROWS])
+        small_ms.append(1e3 * (time.perf_counter() - t0))
+    cuda_kernels.set_use_kernel(False)
+    try:
+        mu_p, var_p = predictor(trained.params).predict(X_raw=Xtr)[0]
+    finally:
+        cuda_kernels.set_use_kernel(True)
+    mean_err = rel_err(mu, mu_p)
+    var_err = float(np.max(np.abs(var - var_p)))
+    check(mean_err <= PLAIN_MEAN_RTOL and var_err <= PLAIN_VAR_ATOL,
+          "deep-kernel serving, kernel vs plain: mean rel {}, variance abs "
+          "{}".format(mean_err, var_err))
+    state = {k: v.double().cpu().numpy() for k, v in
+             state_by_path(trained.params, trained.graphs).items()}
+    params64 = carryover_params(state, [m], dtype="float64", device=dev)
+    mu64, var64 = predictor(params64).predict(
+        X_raw=Xtr[:F64_ROWS].astype(np.float64))[0]
+    f64_mean = rel_err(mu[:, :F64_ROWS], mu64)
+    f64_var = rel_err(var[:, :F64_ROWS], var64)
+    check(f64_mean <= F64_RTOL and f64_var <= F64_RTOL, "deep-kernel "
+          "serving vs float64: mean rel {}, variance rel {} (tol {})".format(
+              f64_mean, f64_var, F64_RTOL))
+    print("phase 36 deep-kernel serving ({}): {} rows in chunks of {} | K1 "
+          "launches {} (2 a chunk) | vs plain: mean rel {:.3e}, var abs "
+          "{:.3e} | vs float64 on {} rows: mean rel {:.3e}, var rel {:.3e} "
+          "(tol {:.0e}) | {:.0f} rows/s ({:.3f} s) | {}-row latency ms: "
+          "median {:.3f} of {}".format(
+              card, TRAIN_N, CHUNK, serve_launches["K1"], mean_err, var_err,
+              F64_ROWS, f64_mean, f64_var, F64_RTOL, TRAIN_N / bulk_s,
+              bulk_s, SMALL_ROWS, float(np.median(small_ms)), SMALL_REPS),
+          flush=True)
+    return {k: train_launches[k] + serve_launches[k] for k in train_launches}
+
+
+def bnn_model(dtype, dev, seed):
+    """BASELINE config 5a (benchmarks/bnn_vae_dp.py:30-71): y = MLP(x),
+    8 → 64 → 64 → 1 with tanh, Normal(0, 1) priors over the 4801
+    weights, a learned noise variance; its mean-field posterior."""
+    import torch
+    from mxfusion_tpu_torch import Model, Variable
+    from mxfusion_tpu_torch.components.distributions import Normal
+    from mxfusion_tpu_torch.components.functions import NNFunction
+    from mxfusion_tpu_torch.components.functions.operators import \
+        broadcast_to
+    from mxfusion_tpu_torch.components.variables import \
+        PositiveTransformation
+    from mxfusion_tpu_torch.inference import create_Gaussian_meanfield
+    torch.manual_seed(seed)
+    net = torch.nn.Sequential(
+        torch.nn.Linear(BNN_IN, BNN_H), torch.nn.Tanh(),
+        torch.nn.Linear(BNN_H, BNN_H), torch.nn.Tanh(),
+        torch.nn.Linear(BNN_H, 1))
+    m = Model()
+    m.x = Variable(shape=(BNN_N, BNN_IN))
+    m.r = NNFunction(net, name="f", input_shapes=[(BNN_N, BNN_IN)],
+                     dtype=dtype, device=dev)(m.x)
+    for v in m.r.factor.function.parameters.values():
+        v.set_prior(Normal(mean=broadcast_to(Variable(value=0.), v.shape),
+                           variance=broadcast_to(Variable(value=1.),
+                                                 v.shape), dtype=dtype))
+    m.noise = Variable(transformation=PositiveTransformation(),
+                       initial_value=0.01)
+    m.y = Normal.define_variable(
+        mean=m.r, variance=broadcast_to(m.noise, (BNN_N, 1)),
+        shape=(BNN_N, 1), dtype=dtype)
+    q = create_Gaussian_meanfield(model=m, observed=[m.x, m.y], dtype=dtype)
+    return m, q, [m.x, m.y]
+
+
+def vae_model(dtype, dev, seed):
+    """BASELINE config 5b (benchmarks/bnn_vae_dp.py:74-123): a decoder
+    4 → 64 → 16 in the model and an encoder 16 → 64 → (4, 4) in the
+    posterior (mean, and a variance through exp)."""
+    import torch
+    from mxfusion_tpu_torch import Model, Posterior, Variable
+    from mxfusion_tpu_torch.components.distributions import Normal
+    from mxfusion_tpu_torch.components.functions import NNFunction
+    from mxfusion_tpu_torch.components.functions.operators import \
+        broadcast_to
+
+    class Encoder(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.hidden = torch.nn.Linear(VAE_D, VAE_H)
+            self.mean = torch.nn.Linear(VAE_H, VAE_K)
+            self.log_var = torch.nn.Linear(VAE_H, VAE_K)
+
+        def forward(self, x):
+            h = torch.tanh(self.hidden(x))
+            return self.mean(h), torch.exp(self.log_var(h)) + 1e-6
+
+    torch.manual_seed(seed)
+    decoder = torch.nn.Sequential(torch.nn.Linear(VAE_K, VAE_H),
+                                  torch.nn.Tanh(),
+                                  torch.nn.Linear(VAE_H, VAE_D))
+    m = Model()
+    m.z = Normal.define_variable(
+        mean=broadcast_to(Variable(value=0.), (VAE_N, VAE_K)),
+        variance=broadcast_to(Variable(value=1.), (VAE_N, VAE_K)),
+        shape=(VAE_N, VAE_K), dtype=dtype)
+    m.x_mean = NNFunction(decoder, name="dec",
+                          input_shapes=[(VAE_N, VAE_K)], dtype=dtype,
+                          device=dev)(m.z)
+    m.x = Normal.define_variable(
+        mean=m.x_mean,
+        variance=broadcast_to(Variable(value=0.01), (VAE_N, VAE_D)),
+        shape=(VAE_N, VAE_D), dtype=dtype)
+    q = Posterior(m)
+    q_mean, q_var = NNFunction(Encoder(), name="enc",
+                               input_shapes=[(VAE_N, VAE_D)], num_outputs=2,
+                               dtype=dtype, device=dev)(q.x)
+    q.z.set_prior(Normal(mean=q_mean, variance=q_var, dtype=dtype))
+    return m, q, [m.x]
+
+
+def nn_inference(build, S, dev, dtype="float32", grad_loop=None,
+                 noise=None):
+    """SVI over ``build``'s model and posterior, every posterior latent
+    drawing ``noise`` when it is given."""
+    from mxfusion_tpu_torch.components.distributions import \
+        FixedRandomGenerator
+    from mxfusion_tpu_torch.inference import (
+        GradBasedInference, StochasticVariationalInference)
+    m, q, observed = build(dtype, dev)
+    if noise is not None:
+        for v in posterior_latents(q):
+            v.factor._rand_gen = FixedRandomGenerator(noise)
+    return GradBasedInference(
+        StochasticVariationalInference(num_samples=S, model=m, posterior=q,
+                                       observed=observed),
+        grad_loop=grad_loop, dtype=dtype, device=dev)
+
+
+def nn_model_phases(dev, card, seed, read_counts, zero_counts, sync):
+    """Phases 37-38: BASELINE config 5 (a Bayesian NN and a VAE) at
+    benchmarks/bnn_vae_dp.py's widths. No kernel of K1-K5 lies on these
+    paths: each run must launch none."""
+    import torch
+    from mxfusion_tpu_torch.inference import \
+        VariationalPosteriorForwardSampling
+    none = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    rng = np.random.default_rng(seed + 37)
+    X = (rng.random((BNN_N, BNN_IN)) * 2 - 1).astype(np.float32)
+    Y = (np.sin(3 * X[:, :1]) + rng.standard_normal((BNN_N, 1)) * 0.05
+         ).astype(np.float32)
+    z_true = rng.standard_normal((VAE_N, VAE_K))
+    x_vae = (np.tanh(z_true @ rng.standard_normal((VAE_K, VAE_D)))
+             + rng.standard_normal((VAE_N, VAE_D)) * 0.05).astype(np.float32)
+    configs = {
+        37: ("BNN (config 5a): N={} {} -> {} -> {} -> 1 tanh, {} weights "
+             "under Normal(0, 1)".format(BNN_N, BNN_IN, BNN_H, BNN_H,
+                                         BNN_IN * BNN_H + BNN_H * BNN_H
+                                         + 2 * BNN_H + BNN_H + 1),
+             lambda dtype, dev: bnn_model(dtype, dev, seed + 37),
+             {"x": X, "y": Y}, BNN_S, BNN_LR),
+        38: ("VAE (config 5b): N={} D={} K={}, decoder {} -> {} -> {}, "
+             "encoder {} -> {} -> ({}, {})".format(
+                 VAE_N, VAE_D, VAE_K, VAE_K, VAE_H, VAE_D, VAE_D, VAE_H,
+                 VAE_K, VAE_K),
+             lambda dtype, dev: vae_model(dtype, dev, seed + 38),
+             {"x": x_vae}, VAE_S, VAE_LR)}
+    for phase, (label, build, data, S, lr) in configs.items():
+        zero_counts()
+        inf, loop, start = train_recorded(
+            lambda loop: nn_inference(build, S, dev, grad_loop=loop),
+            data, NN_STEPS, lr, dev, seed + phase, read_counts, sync)
+        sync()
+        launches = read_counts()
+        check(launches == none, "{}: launched {}; this path has no kernel"
+              .format(label, launches))
+        losses = loop.losses
+        check(len(losses) == NN_STEPS
+              and all(math.isfinite(v) for v in losses)
+              and losses[-1] < losses[0],
+              "{}: losses do not fall: {}".format(label, losses))
+        n_noise = S * max(int(np.prod(v.shape)) for v in posterior_latents(
+            inf.inference_algorithm.posterior))
+        noise = np.random.default_rng(seed + phase).standard_normal(n_noise)
+        l32 = loss_at(nn_inference(build, S, dev, "float32", noise=noise),
+                      start, data, dev)
+        l64 = loss_at(nn_inference(build, S, dev, "float64", noise=noise),
+                      start, data, dev)
+        rel = abs(l32 - l64) / abs(l64)
+        check(rel <= NN_F64_RTOL, "{}: first loss float32 {} vs float64 {}: "
+              "relative {}".format(label, l32, l64, rel))
+        prof = profile_steps(
+            lambda loop: nn_inference(build, S, dev, grad_loop=loop), data,
+            PROFILE_STEPS, lr,
+            ROOT / "build" / "chip_smoke_nn_{}_trace.json".format(phase),
+            generator=torch.Generator(dev).manual_seed(seed))
+        extra = ""
+        if phase == 37:
+            # the predictive mean of the trained posterior (example
+            # bnn_regression.py): more steps, then 100 forward draws
+            zero_counts()
+            t0 = time.perf_counter()
+            generator = torch.Generator(dev).manual_seed(seed)
+            for _run in range(BNN_FIT_RUNS):
+                inf.run(max_iter=BNN_FIT_STEPS, learning_rate=lr,
+                        generator=generator, **data)
+            sync()
+            fit_s = time.perf_counter() - t0
+            m = inf.graphs[0]
+            (draws,) = VariationalPosteriorForwardSampling(
+                num_samples=BNN_FS, observed=[m.x], inherited_inference=inf,
+                target_variables=[m.y]).run(
+                    x=X, generator=torch.Generator(dev).manual_seed(seed))
+            sync()
+            check(read_counts() == none, "BNN fit and forward sampling "
+                  "launched {}".format(read_counts()))
+            pred = draws.mean(dim=0)[:, 0].double().cpu().numpy()
+            fit_err = float(np.mean(np.abs(pred - np.sin(3 * X[:, 0]))))
+            check(tuple(draws.shape) == (BNN_FS, BNN_N, 1)
+                  and fit_err <= BNN_FIT_ATOL, "BNN: {} forward draws {}, "
+                  "predictive mean off sin(3 x0) by {} on average (tol {})"
+                  .format(BNN_FS, tuple(draws.shape), fit_err,
+                          BNN_FIT_ATOL))
+            extra = " | {} runs of {} more steps ({:.3f} s), loss {:.6g}; " \
+                "{} forward draws: predictive mean off sin(3 x0) by {:.4f} " \
+                "on average (tol {})".format(
+                    BNN_FIT_RUNS, BNN_FIT_STEPS, fit_s, loop.losses[-1],
+                    BNN_FS, fit_err, BNN_FIT_ATOL)
+        print("phase {} {}, S={}, {} Adam steps (lr {}) | launches {} | "
+              "losses {:.6g} -> {:.6g} | first loss on fixed draws float32 "
+              "{:.8g} vs float64 {:.8g}: rel {:.3e} (tol {:.0e}) | step "
+              "wall ms ({}): {} | profile of {} steps: {}{}".format(
+                  phase, label, S, NN_STEPS, lr, launches, losses[0],
+                  losses[NN_STEPS - 1], l32, l64, rel, NN_F64_RTOL, card,
+                  wall_summary(loop.wall_s[:NN_STEPS]), PROFILE_STEPS,
+                  profile_summary(prof, PROFILE_STEPS), extra), flush=True)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3681,6 +4125,15 @@ def main():
                                  start_state, trained, pred, RecordingLoop,
                                  read_counts, zero_counts, sync)
 
+    # ---- 35-36. deep-kernel SVGP: training (K3's dXs into the network)
+    # and serving
+    deep_kernel = deep_kernel_phases(dev, card, args.seed, Xtr, Ytr,
+                                     step_ms["fused"], read_counts,
+                                     zero_counts, sync, RecordingLoop)
+
+    # ---- 37-38. BASELINE config 5: Bayesian NN and VAE
+    nn_model_phases(dev, card, args.seed, read_counts, zero_counts, sync)
+
     check(not any(k == "jax" or k.startswith(("jax.", "mxfusion_tpu."))
                   or k == "mxfusion_tpu" for k in sys.modules),
           "JAX or the JAX package was imported")
@@ -3703,16 +4156,18 @@ def main():
             "mxfusion_tpu/ops/pallas_kernels.py:89",
             launches + train_launches["K1"] + exact_launches["K1"]
             + exact_serve["K1"] + sgp_launches["K1"] + sgp_serve["K1"]
-            + ng_k1 + family["K1"] + persist["K1"],
+            + ng_k1 + family["K1"] + persist["K1"] + deep_kernel["K1"],
             max_err, min(ms["kernel"]),
             min(ms["plain"]), ms["bound"], None),
         row("fused_gram_fwd", fused_src,
             "mxfusion_tpu/ops/pallas_fused_gram.py:93",
-            train_launches["K2"] + family["K2"] + persist["K2"],
+            train_launches["K2"] + family["K2"] + persist["K2"]
+            + deep_kernel["K2"],
             fwd_err, min(fms["K2"]), min(fms["K2 plain"]), k2_bound, None),
         row("fused_gram_bwd", fused_src,
             "mxfusion_tpu/ops/pallas_fused_gram.py:109",
-            train_launches["K3"] + family["K3"] + persist["K3"],
+            train_launches["K3"] + family["K3"] + persist["K3"]
+            + deep_kernel["K3"],
             bwd_err, min(fms["K3"]), min(fms["K3 plain"]), k3_bound, None),
         row("batched_cholesky", chol_src,
             "mxfusion_tpu/ops/pallas_batched_cholesky.py:111",

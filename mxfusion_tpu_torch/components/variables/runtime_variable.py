@@ -7,6 +7,36 @@ sampled" (shared across samples), size > 1 means per-sample values.
 import torch
 
 
+def add_sample_dimension(array):
+    """Prepend a size-1 sample axis."""
+    return torch.unsqueeze(torch.as_tensor(array), 0)
+
+
+def add_sample_dimension_to_arrays(arrays, out=None):
+    """Apply :func:`add_sample_dimension` to every array (tensor or
+    numpy array) in a dict.
+
+    Other values (python ints used as static shape constants) pass
+    through unchanged. If ``out`` is given, write into it.
+    """
+    target = out if out is not None else {}
+    for k, v in arrays.items():
+        if hasattr(v, "ndim"):
+            target[k] = add_sample_dimension(v)
+        else:
+            target[k] = v
+    return target
+
+
+def array_has_samples(array):
+    """True when the leading sample axis has size > 1."""
+    return array.shape[0] > 1
+
+
+def get_num_samples(array):
+    return array.shape[0]
+
+
 def as_samples(array, num_samples):
     """Broadcast the sample axis to ``num_samples`` (a view)."""
     if array.shape[0] == num_samples:

@@ -4,9 +4,9 @@ Counterpart of ``mxfusion_tpu/components/variables/variable.py``: typed
 variables whose type is *derived* from the attached factor, shapes that
 may contain other Variables (symbolic dimensions), constants
 auto-wrapped from python/numpy scalars and arrays, and priors via
-``set_prior``. Runtime values live outside the IR in a UUID-keyed
-environment of tensors. The arithmetic operator sugar comes with the
-operator library, which the serving path does not use.
+``set_prior``, and arithmetic sugar that builds operator factors
+(``m.a + m.b``). Runtime values live outside the IR in a UUID-keyed
+environment of tensors.
 """
 from enum import Enum
 
@@ -134,3 +134,50 @@ class Variable(ModelComponent):
                       for s in self.shape]
         j["inherited"] = self.isInherited
         return j
+
+    # ------------------------------------------------------------------
+    # operator sugar
+    # ------------------------------------------------------------------
+    def __add__(self, other):
+        from ..functions.operators import add
+        return add(self, other)
+
+    def __radd__(self, other):
+        from ..functions.operators import add
+        return add(other, self)
+
+    def __sub__(self, other):
+        from ..functions.operators import subtract
+        return subtract(self, other)
+
+    def __rsub__(self, other):
+        from ..functions.operators import subtract
+        return subtract(other, self)
+
+    def __mul__(self, other):
+        from ..functions.operators import multiply
+        return multiply(self, other)
+
+    def __rmul__(self, other):
+        from ..functions.operators import multiply
+        return multiply(other, self)
+
+    def __truediv__(self, other):
+        from ..functions.operators import divide
+        return divide(self, other)
+
+    def __rtruediv__(self, other):
+        from ..functions.operators import divide
+        return divide(other, self)
+
+    def __pow__(self, other):
+        from ..functions.operators import power
+        return power(self, other)
+
+    def __rpow__(self, other):
+        from ..functions.operators import power
+        return power(other, self)
+
+    def __neg__(self):
+        from ..functions.operators import multiply
+        return multiply(self, -1.0)

@@ -26,7 +26,11 @@ from ..util.inference import variables_to_UUID
 
 def as_runtime_tensor(value, dtype, device):
     """``value`` as a tensor on ``device``; floating values take
-    ``dtype``, other dtypes (integer labels) keep theirs."""
+    ``dtype``, other dtypes (integer labels) keep theirs. A python float
+    is made in ``dtype`` directly (through torch's float32 default it
+    would lose its float64 digits: 0.01 would become 0.0099999998)."""
+    if isinstance(value, float):
+        return torch.as_tensor(value, dtype=dtype, device=device)
     t = torch.as_tensor(value, device=device)
     if t.is_floating_point() and t.dtype != dtype:
         t = t.to(dtype)

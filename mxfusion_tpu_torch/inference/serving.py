@@ -284,8 +284,16 @@ class BatchedPredictor:
         The program is ``torch.export`` of ``executor(trainable, fixed,
         chunk)``, the parameters being program inputs. It is traced on
         the store's device and runs only there. A prediction that draws
-        random numbers raises: the program has no generator input."""
+        random numbers raises: the program has no generator input; so
+        does a graph that holds an ``NNFunction``."""
+        from ..components.functions import NNFunction
         params = self._infr.params
+        if any(isinstance(getattr(f, "function", None), NNFunction)
+               for f in self._infr.inference_algorithm.model.ordered_factors):
+            raise NotImplementedError(
+                "export() of a graph that holds an NNFunction is not "
+                "supported: the program would trace the network through "
+                "torch.func. Serve it through BatchedPredictor.predict.")
         with torch.no_grad():
             if self._executor is None:
                 if not example_data:

@@ -6,8 +6,10 @@ exact and collapsed GP modules, trains mean-field posteriors by SVI and
 by the score-function estimator, fits and serves an SVGP classifier
 and a Poisson SVGP, and fits and serves an LMC multi-output SVGP and
 2-layer deep GPs (regression and classification) and trains an SVGP by
-natural gradients, full batch and minibatch. Also: chip_smoke.py refuses
-to run without a GPU and without the rest of the repository."""
+natural gradients, full batch and minibatch, and trains networks in the
+graph (``NNFunction``: a Bayesian NN, a VAE and a deep-kernel SVGP,
+served). Also: chip_smoke.py refuses to run without a GPU and without
+the rest of the repository."""
 import os
 import shutil
 import subprocess
@@ -426,6 +428,151 @@ jaxy = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib",
 assert not jaxy, jaxy
 print("GPFAMILY", losses[-1])
 """
+
+
+NN_WITHOUT_JAX = r"""
+import sys
+sys.modules["jax"] = None          # any `import jax` now raises
+sys.path.insert(0, {root!r})
+import numpy as np
+import torch
+from mxfusion_tpu_torch import Model, Posterior, Variable
+from mxfusion_tpu_torch.common.config import set_default_device
+from mxfusion_tpu_torch.components.distributions import Normal
+from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
+from mxfusion_tpu_torch.components.functions import NNFunction
+from mxfusion_tpu_torch.components.functions.operators import (
+    broadcast_to, mean, sum, transpose)
+from mxfusion_tpu_torch.components.variables import (
+    PositiveTransformation, add_sample_dimension, get_num_samples)
+from mxfusion_tpu_torch.inference import (
+    MAP, BatchedPredictor, GradBasedInference,
+    StochasticVariationalInference, VariationalPosteriorForwardSampling,
+    create_Gaussian_meanfield)
+from mxfusion_tpu_torch.modules import SVGPRegression
+from mxfusion_tpu_torch.util.carryover import linear_stack_map
+
+set_default_device("cpu")
+torch.manual_seed(0)
+rng = np.random.default_rng(0)
+N = 64
+x = rng.random((N, 2)) * 2 - 1
+y = np.sin(3 * x[:, :1]) + 0.05 * rng.standard_normal((N, 1))
+
+def mlp(*w):
+    layers = []
+    for a, b in zip(w[:-1], w[1:]):
+        layers += [torch.nn.Linear(a, b), torch.nn.Tanh()]
+    return torch.nn.Sequential(*layers[:-1])
+
+# a Bayesian NN under mean-field SVI, then forward sampling
+net = NNFunction(mlp(2, 8, 1), name="f", input_shapes=[(N, 2)])
+m = Model()
+m.x = Variable(shape=(N, 2))
+m.r = net(m.x)
+for v in net.parameters.values():
+    v.set_prior(Normal(mean=broadcast_to(Variable(value=0.), v.shape),
+                       variance=broadcast_to(Variable(value=1.), v.shape)))
+m.noise = Variable(transformation=PositiveTransformation(), initial_value=0.1)
+m.y = Normal.define_variable(mean=m.r, variance=broadcast_to(m.noise, (N, 1)),
+                             shape=(N, 1))
+q = create_Gaussian_meanfield(model=m, observed=[m.x, m.y])
+bnn = GradBasedInference(StochasticVariationalInference(
+    num_samples=3, model=m, posterior=q, observed=[m.x, m.y]))
+losses = []
+bnn.run(x=x, y=y, max_iter=60, learning_rate=0.05,
+        callback=lambda i, l: losses.append(float(l)))
+assert np.all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+(draws,) = VariationalPosteriorForwardSampling(
+    num_samples=10, observed=[m.x], inherited_inference=bnn,
+    target_variables=[m.y]).run(x=x)
+assert tuple(draws.shape) == (10, N, 1)
+
+# a VAE: decoder in the model, two-headed encoder in the posterior
+class Encoder(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.h, self.mu, self.lv = (torch.nn.Linear(3, 8),
+                                    torch.nn.Linear(8, 2),
+                                    torch.nn.Linear(8, 2))
+    def forward(self, v):
+        h = torch.tanh(self.h(v))
+        return self.mu(h), torch.exp(self.lv(h)) + 1e-6
+
+xv = np.tanh(rng.standard_normal((N, 2)) @ rng.standard_normal((2, 3)))
+m = Model()
+m.z = Normal.define_variable(mean=broadcast_to(Variable(value=0.), (N, 2)),
+                             variance=broadcast_to(Variable(value=1.),
+                                                   (N, 2)), shape=(N, 2))
+m.x_mean = NNFunction(mlp(2, 8, 3), name="dec", input_shapes=[(N, 2)])(m.z)
+m.x = Normal.define_variable(
+    mean=m.x_mean, variance=broadcast_to(Variable(value=0.01), (N, 3)),
+    shape=(N, 3))
+q = Posterior(m)
+q_mean, q_var = NNFunction(Encoder(), name="enc", input_shapes=[(N, 3)],
+                           num_outputs=2)(q.x)
+q.z.set_prior(Normal(mean=q_mean, variance=q_var))
+vae = GradBasedInference(StochasticVariationalInference(
+    num_samples=2, model=m, posterior=q, observed=[m.x]))
+vae_losses = []
+vae.run(x=xv, max_iter=30, learning_rate=0.01,
+        callback=lambda i, l: vae_losses.append(float(l)))
+assert vae_losses[-1] < vae_losses[0], vae_losses
+
+# a deep-kernel SVGP, trained by MAP and served from the raw inputs
+feat = mlp(2, 8, 2)
+m = Model()
+m.n = Variable()
+m.X_raw = Variable(shape=(m.n, 2))
+m.features = NNFunction(feat, name="feat", input_shapes=[(N, 2)])(m.X_raw)
+m.noise_var = Variable(transformation=PositiveTransformation(),
+                       initial_value=0.05)
+m.Y = SVGPRegression.define_variable(
+    X=m.features, kernel=RBF(input_dim=2), noise_var=m.noise_var,
+    shape=(m.n, 1), inducing_inputs=Variable(
+        shape=(8, 2), initial_value=rng.standard_normal((8, 2)) * 0.5))
+dk = GradBasedInference(MAP(model=m, observed=[m.X_raw, m.Y]))
+dk_losses = []
+dk.run(X_raw=x, Y=y, max_iter=50, learning_rate=0.02,
+       callback=lambda i, l: dk_losses.append(float(l)))
+assert dk_losses[-1] < dk_losses[0], dk_losses
+mu, var = BatchedPredictor(model=m, infr_params=dk.params,
+                           observed=[m.X_raw], target_variables=[m.Y.uuid],
+                           chunk_size=16).predict(X_raw=x[:40])[0]
+assert mu.shape == var.shape == (1, 40, 1) and np.isfinite(mu).all()
+assert sorted(linear_stack_map("feat", feat)) == [
+    "feat_Dense_0_bias", "feat_Dense_0_kernel", "feat_Dense_1_bias",
+    "feat_Dense_1_kernel"]
+
+# the operators and the sugar
+m = Model()
+m.a = Variable(shape=(2, 3))
+m.b = sum(transpose(2.0 * m.a - 1.0), axis=0) + mean(-m.a, axis=1)
+a = add_sample_dimension(torch.ones(2, 3, dtype=torch.float64))
+assert get_num_samples(a) == 1
+env = {{m.a.uuid: a}}
+for v in m.get_constants():
+    env[v.uuid] = torch.tensor([float(v.constant)], dtype=torch.float64)
+out = m.draw_samples(env, torch.Generator())[m.b.uuid]
+assert torch.allclose(out, torch.full((1, 2), 2.0, dtype=torch.float64))
+jaxy = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib",
+                                                       "mxfusion_tpu", "flax")
+        and sys.modules[k] is not None]
+assert not jaxy, jaxy
+print("NN", losses[-1], vae_losses[-1], dk_losses[-1])
+"""
+
+
+def test_port_fits_nn_models_without_jax():
+    """A Bayesian NN (SVI, forward sampling), a VAE and a deep-kernel
+    SVGP (MAP, ``BatchedPredictor`` on the raw inputs) train through
+    ``NNFunction``, and the reductions, ``transpose`` and the operator
+    sugar evaluate, in an interpreter without JAX."""
+    proc = subprocess.run(
+        [sys.executable, "-c", NN_WITHOUT_JAX.format(root=str(ROOT))],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert "NN" in proc.stdout
 
 
 def test_port_fits_lmc_deep_gps_and_natural_gradients_without_jax():
