@@ -20,8 +20,11 @@ slice's configuration (a checkpointed run resumed, a saved inference
 loaded onto a rebuilt model, an exported predictor served by a process
 that builds no model), and networks in the graph (``NNFunction``): a
 deep-kernel SVGP trained and served at the training slice's
-configuration, and BASELINE config 5's Bayesian NN and VAE. In phases
-that each print one line:
+configuration, and BASELINE config 5's Bayesian NN and VAE, and the
+MCMC samplers (SGLD, HMC, parallel tempering, ChEES-HMC and SVGD) on
+benchmarks/mcmc_throughput.py's Bayesian linear regression and over a
+GP module, whose potential K1 builds. In phases that each print one
+line:
 
 1. device: needs CUDA (exits nonzero without it); prints the card's
    name and power limit (nvidia-smi) and the TF32 settings;
@@ -261,7 +264,34 @@ that each print one line:
    of sin(3 x0) on average;
 38. VAE (config 5b): N = 8192, D = 16, K = 4, decoder 4 -> 64 -> 16,
    encoder 16 -> 64 -> (4, 4) in the posterior, SVI at S = 3: the checks
-   of phase 37 but the forward draws.
+   of phase 37 but the forward draws;
+39. MCMC throughput: benchmarks/mcmc_throughput.py's Bayesian linear
+   regression (N = 100 000, D = 32, float32, 8 chains, data from
+   ``--seed``): SGLD (B = 1024, constant step), HMC (L = 8, eps0 =
+   0.01), parallel tempering (6 temperatures, L = 8) and ChEES-HMC, 200
+   warmup each, kept draws cut to fit (ChEES, whose proposals take
+   about 38 leapfrog steps here, to 100); each run twice, the second
+   timed: kept draws/s and potential-and-gradient evaluations/s, accept rate,
+   adapted step, ChEES's mean leapfrog steps, PT's swap acceptance,
+   max R-hat, and the idle share of a profiled window of 20 transitions;
+   the mean of w within 6 Monte-Carlo standard errors (by ESS) of the
+   float64 closed form (SGLD: 10, of its chains' average); the potential
+   evaluations each run counts as stated (1 + L a transition for HMC and
+   PT, one a step for SGLD); no launch of K1-K5; and the benchmark's own
+   SGLD step (1e-5) run for 300 steps beside this posterior's stability
+   limit;
+40. samplers over a GP module: tests/inference/test_mcmc_over_modules.py's
+   noise variance under Gamma(2, 20) in ``GPRegression`` on phase 14's
+   data (N = 1024, D = 4, noise 0.1): K1 against its plain version at one
+   potential and gradient of 4 chains (the exact GP's tolerances); HMC
+   (4 chains, L = 8, 150 + 150) and SVGD (16 particles, 150 iterations):
+   K1 once per potential evaluation (1 + 8 a transition, 1 an
+   iteration), the posterior means inside the JAX test's bands;
+41. a correlated posterior: ChEES-HMC on tests/inference/test_chees.py's
+   design scaled to N = 65536, D = 32 (mean leapfrog steps above 1.5,
+   beside phase 39's), and SVGD (16 particles, 50 iterations, float32)
+   on the card against the port on the CPU from the same particles,
+   within 1e-4 of the particles' largest entry.
 
 Any failed check raises and the script exits nonzero. The last three
 lines are the card (nvidia-smi), the kernels' JSON record (each with
@@ -460,6 +490,36 @@ BNN_N, BNN_IN, BNN_H, BNN_S, BNN_LR = 8192, 8, 64, 4, 0.03
 # left the predictive mean 0.57 off sin(3 x0), six runs of 500 0.079
 BNN_FIT_RUNS, BNN_FIT_STEPS, BNN_FS, BNN_FIT_ATOL = 8, 500, 100, 0.1
 VAE_N, VAE_D, VAE_K, VAE_H, VAE_S, VAE_LR = 8192, 16, 4, 64, 3, 1e-2
+# the MCMC samplers (phases 39-41): benchmarks/mcmc_throughput.py's
+# Bayesian linear regression (N = 100 000, D = 32, noise variance 0.25,
+# 8 chains; HMC and PT at L = 8 and eps0 = 0.01, PT at 6 temperatures,
+# SGLD at B = 1024 with a constant step), kept draws cut to fit
+MCMC_N, MCMC_D, MCMC_S2, MCMC_CHAINS = 100_000, 32, 0.25, 8
+MCMC_L, MCMC_EPS0, MCMC_WARMUP, PT_TEMPS = 8, 0.01, 200, 6
+HMC_DRAWS, PT_DRAWS, CHEES_DRAWS = 200, 200, 100
+# the benchmark's SGLD step 1e-5 exceeds 2/lambda_max (lambda_max of the
+# posterior precision is about N/0.25·(1 + sqrt(D/N))² = 4.1e5, so
+# 2/lambda_max = 4.8e-6) and the chain diverges; 2.5e-6 contracts by
+# about 0.5 a step, and 200 burn-in steps forget the prior draw
+SGLD_B, SGLD_BENCH_STEP, SGLD_DIVERGE_STEPS = 1024, 1e-5, 300
+SGLD_STEP, SGLD_BURNIN, SGLD_DRAWS = 2.5e-6, 200, 2000
+# the mean of w against the closed form, per coordinate, in Monte-Carlo
+# standard errors sd/sqrt(ESS). SGLD's are of its chains' average (they
+# share every minibatch) and its bound is looser: a constant step biases
+# its spread (by about eps·lambda/4 and the minibatch noise), and the ESS
+# of one series of 2000 draws is itself uncertain
+MCMC_SE, SGLD_SE = 6.0, 10.0
+PROFILE_TRANSITIONS = 20
+# phase 40: tests/inference/test_mcmc_over_modules.py:21-63's model on
+# phase 14's data
+GP_CHAINS, GP_WARMUP, GP_DRAWS, GP_L = 4, 150, 150, 8
+SVGD_PARTICLES, GP_SVGD_ITERS = 16, 150
+# phase 41: test_chees.py:49-86's design scaled to N = 65536, D = 32; SVGD
+# card vs CPU in float32 from the same particles. float32 against float64
+# on the CPU parted by 4.9e-7 at max |z| = 2.55 after 50 iterations, and
+# the card's sums differ from the CPU's by the same fp32 rounding
+CORR_N, CORR_WARMUP, CORR_DRAWS = 65536, 150, 50
+SVGD_CPU_ITERS, SVGD_CPU_RTOL = 50, 1e-4
 
 
 def check(ok, message):
@@ -1204,8 +1264,15 @@ def profile_steps(make_inference, data, steps, lr, trace_path,
     if not device:
         return None
     span = marks or device
-    t0 = min(e["ts"] for e in span)
-    t1 = max(e["ts"] + e["dur"] for e in span)
+    return device_busy(device, min(e["ts"] for e in span),
+                       max(e["ts"] + e["dur"] for e in span))
+
+
+def device_busy(device, t0, t1):
+    """From a Chrome trace's device events: the window's wall, the
+    device's busy time in it (the union of the events' intervals) and
+    the device time by kernel name, in ms, as :func:`profile_steps`
+    returns them."""
     busy, end = 0.0, t0
     by_name = {}
     for e in sorted(device, key=lambda e: e["ts"]):
@@ -1221,6 +1288,30 @@ def profile_steps(make_inference, data, steps, lr, trace_path,
         by_name[name] = by_name.get(name, 0.0) + e["dur"]
     return (t1 - t0) / 1e3, busy / 1e3, sorted(
         by_name.items(), key=lambda kv: -kv[1])
+
+
+def profile_window(fn, trace_path):
+    """``fn()`` under ``torch.profiler`` in one annotated range, the
+    device synchronized before the range closes: :func:`device_busy` over
+    that range, or None if the trace holds no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    Path(trace_path).parent.mkdir(parents=True, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("chip_smoke_window"):
+            fn()
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace_path))
+    events = [e for e in json.loads(Path(trace_path).read_text())[
+        "traceEvents"] if e.get("ph") == "X"]
+    (mark,) = [e for e in events if e.get("name") == "chip_smoke_window"
+               and e.get("cat") == "user_annotation"]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not device:
+        return None
+    return device_busy(device, mark["ts"], mark["ts"] + mark["dur"])
 
 
 def profile_ppca(dev, seed, steps, trace_path):
@@ -3231,6 +3322,409 @@ def nn_model_phases(dev, card, seed, read_counts, zero_counts, sync):
                   profile_summary(prof, PROFILE_STEPS), extra), flush=True)
 
 
+def blr_model(n, d, noise_var, symbolic=False, rand_gen=None):
+    """benchmarks/mcmc_throughput.py:31-48's Bayesian linear regression
+    in the port: w ~ N(0, I), y ~ N(Xw, noise_var·I); the data axis is a
+    symbolic dim (minibatch SGLD binds it to the batch) or ``n``."""
+    from mxfusion_tpu_torch import Model, Variable
+    from mxfusion_tpu_torch.components.distributions import Normal
+    from mxfusion_tpu_torch.components.functions.operators import (
+        broadcast_to, dot)
+    m = Model()
+    if symbolic:
+        m.n = Variable()
+        n = m.n
+    m.X = Variable(shape=(n, d))
+    m.w = Normal.define_variable(
+        mean=broadcast_to(Variable(value=0.), (d, 1)),
+        variance=broadcast_to(Variable(value=1.), (d, 1)), shape=(d, 1),
+        rand_gen=rand_gen)
+    m.f = dot(m.X, m.w)
+    m.y = Normal.define_variable(
+        mean=m.f, variance=broadcast_to(Variable(value=noise_var), (n, 1)),
+        shape=(n, 1))
+    return m
+
+
+def blr_data(rng, n, d, correlated=False):
+    """mcmc_throughput.py's ``_make_data`` (float32, noise sd 0.5); with
+    ``correlated``, tests/inference/test_chees.py:52-55's design
+    X·(I + 0.5·A)."""
+    X = rng.standard_normal((n, d))
+    if correlated:
+        X = X @ (np.eye(d) + 0.5 * rng.standard_normal((d, d)))
+    X = X.astype(np.float32)
+    w_true = rng.standard_normal((d, 1)).astype(np.float32)
+    y = (X @ w_true + 0.5 * rng.standard_normal((n, 1))).astype(np.float32)
+    return X, y
+
+
+def blr_posterior(X, y, noise_var):
+    """The float64 closed form μ and Σ = (XᵀX/σ² + I)⁻¹, and the
+    precision's largest eigenvalue."""
+    X = X.astype(np.float64)
+    H = X.T @ X / noise_var + np.eye(X.shape[1])
+    Sigma = np.linalg.inv(H)
+    return Sigma @ X.T @ y[:, 0].astype(np.float64) / noise_var, Sigma, \
+        float(np.linalg.eigvalsh(H)[-1])
+
+
+def counting(m):
+    """Counts ``m``'s potential evaluations (its ``log_pdf_terms`` calls,
+    each one batched potential-and-gradient over every chain) in
+    ``m.evaluations``."""
+    inner = m.log_pdf_terms
+
+    def log_pdf_terms(*args, **kwargs):
+        m.evaluations += 1
+        return inner(*args, **kwargs)
+    m.evaluations = 0
+    m.log_pdf_terms = log_pdf_terms
+    return m
+
+
+def mc_error(draws, mu):
+    """The largest |mean − μ| over the coordinates of draws (S, C, ...)
+    in units of the Monte-Carlo standard error sd/sqrt(ESS); and the
+    smallest ESS."""
+    from mxfusion_tpu_torch.inference import effective_sample_size
+    x = draws.reshape(draws.shape[0], draws.shape[1], -1)
+    ess = np.atleast_1d(effective_sample_size(x))
+    se = x.reshape(-1, x.shape[-1]).std(axis=0) / np.sqrt(ess)
+    return float(np.max(np.abs(x.mean(axis=(0, 1)) - mu) / se)), \
+        float(np.min(ess))
+
+
+def mcmc_runs(m_obs):
+    """Phase 39's four runs: name -> (symbolic data dim, algorithm
+    factory of (model, kept draws, warmup), inference class, standard errors
+    allowed, whether the error is of the chains' average, kept draws,
+    warmup). SGLD's chains share every minibatch, so their draws are not
+    independent: its standard error is that of their average, one
+    series, whose ESS the pooled estimator would overstate."""
+    from mxfusion_tpu_torch.inference import (
+        ChEESHMCAlgorithm, ChEESHMCInference, HMCAlgorithm, HMCInference,
+        ParallelTemperingAlgorithm, ParallelTemperingInference,
+        SGLDAlgorithm, SGLDInference)
+    return {
+        "SGLD": (True, lambda m, S, W: SGLDAlgorithm(
+            model=m, observed=m_obs(m), num_samples=S, num_burnin=W,
+            num_chains=MCMC_CHAINS, batch_size=SGLD_B, step_size=SGLD_STEP,
+            step_decay_gamma=0.0), SGLDInference, SGLD_SE, True,
+            SGLD_DRAWS, SGLD_BURNIN),
+        "HMC": (False, lambda m, S, W: HMCAlgorithm(
+            model=m, observed=m_obs(m), num_samples=S, num_warmup=W,
+            num_chains=MCMC_CHAINS, num_leapfrog=MCMC_L,
+            step_size=MCMC_EPS0), HMCInference, MCMC_SE, False, HMC_DRAWS,
+            MCMC_WARMUP),
+        "PT": (False, lambda m, S, W: ParallelTemperingAlgorithm(
+            model=m, observed=m_obs(m), num_samples=S, num_warmup=W,
+            num_chains=MCMC_CHAINS, num_temps=PT_TEMPS, num_leapfrog=MCMC_L,
+            step_size=MCMC_EPS0), ParallelTemperingInference, MCMC_SE,
+            False, PT_DRAWS, MCMC_WARMUP),
+        "ChEES": (False, lambda m, S, W: ChEESHMCAlgorithm(
+            model=m, observed=m_obs(m), num_samples=S, num_warmup=W,
+            num_chains=MCMC_CHAINS), ChEESHMCInference, MCMC_SE, False,
+            CHEES_DRAWS, MCMC_WARMUP)}
+
+
+def sampler_phases(dev, card, seed, Xe, Ye, read_counts, zero_counts,
+                   sync):
+    """Phases 39-41: the MCMC samplers. Returns K1's launches on their
+    main paths (phase 40's chain and particles)."""
+    import torch
+    from mxfusion_tpu_torch import Model, Variable
+    from mxfusion_tpu_torch.components.distributions import Gamma
+    from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
+    from mxfusion_tpu_torch.components.distributions.random_gen import \
+        FixedRandomGenerator
+    from mxfusion_tpu_torch.inference import (
+        ChEESHMCAlgorithm, ChEESHMCInference, HMCAlgorithm, HMCInference,
+        RuntimeContext, SGLDAlgorithm, SGLDInference, SVGDAlgorithm,
+        SVGDInference, create_sampling_executor)
+    from mxfusion_tpu_torch.inference import hmc
+    from mxfusion_tpu_torch.modules import GPRegression
+    from mxfusion_tpu_torch.ops import cuda_kernels
+    none = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+
+    def gen(k, device=dev):
+        return torch.Generator(device).manual_seed(seed + k)
+
+    # ---- 39. benchmarks/mcmc_throughput.py's configuration
+    t_phase = time.perf_counter()
+    X, y = blr_data(np.random.default_rng(seed), MCMC_N, MCMC_D)
+    mu, _, lam_max = blr_posterior(X, y, MCMC_S2)
+    # the benchmark's SGLD step against the stability limit 2/λmax of
+    # the Langevin drift: a few hundred steps show where it goes
+    m = blr_model(MCMC_N, MCMC_D, MCMC_S2, symbolic=True)
+    zero_counts()
+    bench = SGLDInference(SGLDAlgorithm(
+        model=m, observed=[m.X, m.y], num_samples=SGLD_DIVERGE_STEPS,
+        num_burnin=0, num_chains=MCMC_CHAINS, batch_size=SGLD_B,
+        step_size=SGLD_BENCH_STEP, step_decay_gamma=0.0), dtype="float32",
+        device=dev).run(X=X, y=y, generator=gen(38))[m.w.uuid]
+    bench_max = float(torch.nan_to_num(bench[-1].abs(), nan=float("inf"))
+                      .max())
+    check(read_counts() == none, "phase 39: the benchmark's SGLD step "
+          "launched {}".format(read_counts()))
+    lines, chees_L = [], None
+    for name, (symbolic, make, Infr, n_se, average, S, W) in mcmc_runs(
+            lambda m: [m.X, m.y]).items():
+        walls = []
+        for k in range(2):           # the second run is the timed one
+            m = counting(blr_model(MCMC_N, MCMC_D, MCMC_S2, symbolic))
+            infr = Infr(make(m, S, W), dtype="float32", device=dev)
+            zero_counts()
+            sync()
+            t0 = time.perf_counter()
+            draws = infr.run(X=X, y=y, generator=gen(39 + k))[m.w.uuid]
+            sync()
+            walls.append(time.perf_counter() - t0)
+            check(read_counts() == none, "phase 39 {}: launched {}; this "
+                  "path has no kernel".format(name, read_counts()))
+        d = infr.diagnostics
+        draws = draws.double().cpu().numpy()
+        check(draws.shape == (S, MCMC_CHAINS, MCMC_D, 1)
+              and np.isfinite(draws).all(), "phase 39 {}: draws {} are "
+              "not finite".format(name, draws.shape))
+        err, ess = mc_error(draws.mean(axis=1, keepdims=True) if average
+                            else draws, mu)
+        check(err <= n_se, "phase 39 {}: the mean of w lies {:.2f} "
+              "Monte-Carlo standard errors off the closed form (tol {})"
+              .format(name, err, n_se))
+        evals = m.evaluations
+        # the model runs once per leapfrog step (HMC, PT) and once per
+        # Langevin step, the carried potential once at the start
+        expected = {"HMC": 1 + MCMC_L * (W + S), "PT": 1 + MCMC_L * (W + S),
+                    "SGLD": W + S + 1}.get(name, evals)
+        check(evals == expected, "phase 39 {}: {} potential evaluations, "
+              "expected {}".format(name, evals, expected))
+        extra = ""
+        if "accept_rate" in d:
+            extra += ", accept rate {:.3f}, adapted eps {:.4e}".format(
+                float(np.mean(d["accept_rate"])), float(d["step_size"]))
+        if name == "ChEES":
+            chees_L = float(d["mean_leapfrog_steps"])
+            extra += ", T {:.4e}, mean leapfrog steps {:.3f}".format(
+                float(d["trajectory_length"]), chees_L)
+        if name == "PT":
+            extra += ", swap acceptance by pair {}".format(
+                [round(float(v), 3) for v in d["swap_accept_rate"]])
+        # the idle share of a window of 20 transitions (no warmup)
+        mp = blr_model(MCMC_N, MCMC_D, MCMC_S2, symbolic)
+        short = Infr(make(mp, PROFILE_TRANSITIONS, 0), dtype="float32",
+                     device=dev)
+        prof = profile_window(
+            lambda: short.run(X=X, y=y, generator=gen(41)),
+            ROOT / "build" / "chip_smoke_mcmc_{}_trace.json".format(name))
+        lines.append(
+            "{}: {:.1f} kept draws/s, {:.1f} potential-and-gradient "
+            "evaluations/s ({} evaluations over {} chains and {} kept draws "
+            "in {:.3f} s; first run {:.3f} s){}, max R-hat {:.4f}, mean of "
+            "w {:.2f} standard errors off (min ESS {:.1f}; tol {}) | "
+            "profile of {} transitions: {}".format(
+                name, S / walls[1], evals / walls[1], evals, MCMC_CHAINS, S,
+                walls[1], walls[0], extra, d["r_hat_max"], err, ess, n_se,
+                PROFILE_TRANSITIONS,
+                profile_summary(prof, PROFILE_TRANSITIONS)))
+    print("phase 39 mcmc ({}): benchmarks/mcmc_throughput.py's BLR, N={} "
+          "D={} float32, {} chains; cuts: kept draws SGLD {} (of 20000), "
+          "HMC {} (of 2000), PT {} and ChEES {} (of 1000), warmup {}; SGLD "
+          "at step {} (the benchmark's {} is above this posterior's "
+          "stability limit 2/lambda_max = {:.4e}: after {} of its steps "
+          "max |w| = {:.4e}) with {} burn-in steps | {} | wall {:.3f} s"
+          .format(card, MCMC_N, MCMC_D, MCMC_CHAINS, SGLD_DRAWS, HMC_DRAWS,
+                  PT_DRAWS, CHEES_DRAWS, MCMC_WARMUP, SGLD_STEP,
+                  SGLD_BENCH_STEP, 2.0 / lam_max, SGLD_DIVERGE_STEPS,
+                  bench_max, SGLD_BURNIN, " | ".join(lines),
+                  time.perf_counter() - t_phase), flush=True)
+
+    # ---- 40. HMC and SVGD over a GP module's noise variance: K1 builds
+    # Kxx in every potential evaluation
+    t_phase = time.perf_counter()
+
+    def gp_noise_model():
+        m = Model()
+        m.n = Variable()
+        m.X = Variable(shape=(m.n, EXACT_D))
+        m.noise_var = Gamma.define_variable(alpha=2.0, beta=20.0,
+                                            shape=(1,))
+        m.Y = GPRegression.define_variable(
+            X=m.X, kernel=RBF(input_dim=EXACT_D, variance=1.0,
+                              lengthscale=1.0),
+            noise_var=m.noise_var, shape=(m.n, 1))
+        return counting(m)
+
+    # K1 against its plain version at one potential and gradient
+    gm = gp_noise_model()
+    infr = HMCInference(HMCAlgorithm(model=gm, observed=[gm.X, gm.Y],
+                                     num_chains=GP_CHAINS),
+                        dtype="float32", device=dev)
+    infr.initialize(X=Xe, Y=Ye)
+    env = create_sampling_executor(infr.inference_algorithm,
+                                   infr.params).build_env(
+        infr.params.trainable_params(), infr.params.fixed_params(),
+        [Xe, Ye])
+    uuids = [gm.noise_var.uuid]
+    bij = hmc.make_support_transforms(gm, uuids)
+    z = {gm.noise_var.uuid: torch.log(torch.as_tensor(
+        np.random.default_rng(seed + 40).gamma(2.0, 1 / 20.0,
+                                               (GP_CHAINS, 1)),
+        dtype=torch.float32, device=dev))}
+    log_post = hmc.log_posterior(gm, hmc.detached_env(env),
+                                 RuntimeContext(gen(42)), bij,
+                                 torch.float32)
+    zero_counts()
+    lp_k, g_k = hmc.value_and_grad(log_post, z)
+    sync()
+    check_launches = read_counts()["K1"]
+    cuda_kernels.set_use_kernel(False)
+    try:
+        lp_p, g_p = hmc.value_and_grad(log_post, z)
+        sync()
+    finally:
+        cuda_kernels.set_use_kernel(True)
+    check(check_launches == 1 and read_counts()["K1"] == 1,
+          "phase 40: the potential launched K1 {} times, its plain "
+          "version {}".format(check_launches,
+                              read_counts()["K1"] - check_launches))
+    lp_rel = float(torch.max(torch.abs(lp_k - lp_p)) /
+                   torch.max(torch.abs(lp_p)))
+    (gk,), (gp,) = g_k.values(), g_p.values()
+    g_rel = float(torch.max(torch.abs(gk - gp)) / torch.max(torch.abs(gp)))
+    check(lp_rel <= EXACT_F64_RTOL and g_rel <= FAMILY_GRAD_RTOL,
+          "phase 40: K1 vs plain: log posterior relative {} (tol {}), "
+          "gradient {} of its largest entry (tol {})".format(
+              lp_rel, EXACT_F64_RTOL, g_rel, FAMILY_GRAD_RTOL))
+    # the main path: HMC (4 chains), then SVGD (16 particles)
+    zero_counts()
+    gm = gp_noise_model()
+    t0 = time.perf_counter()
+    hinf = HMCInference(HMCAlgorithm(
+        model=gm, observed=[gm.X, gm.Y], num_samples=GP_DRAWS,
+        num_warmup=GP_WARMUP, num_chains=GP_CHAINS, num_leapfrog=GP_L),
+        dtype="float32", device=dev)
+    (nv,) = hinf.run(X=Xe, Y=Ye, generator=gen(43)).values()
+    sync()
+    hmc_s = time.perf_counter() - t0
+    hmc_k1 = read_counts()
+    transitions = GP_WARMUP + GP_DRAWS
+    check(hmc_k1 == dict(none, K1=1 + GP_L * transitions)
+          and gm.evaluations == hmc_k1["K1"], "phase 40 HMC: launched {} "
+          "in {} potential evaluations; expected K1 = 1 + {}·{}".format(
+              hmc_k1, gm.evaluations, GP_L, transitions))
+    nv_mean = float(nv.mean())
+    check(tuple(nv.shape) == (GP_DRAWS, GP_CHAINS, 1)
+          and bool((nv > 0).all()) and 0.005 < nv_mean < 0.05
+          and hinf.diagnostics["accept_rate"].min() > 0.5,
+          "phase 40 HMC: noise variance draws {} of mean {} (band 0.005 "
+          "to 0.05), accept rates {}".format(
+              tuple(nv.shape), nv_mean, hinf.diagnostics["accept_rate"]))
+    zero_counts()
+    gs = gp_noise_model()
+    t0 = time.perf_counter()
+    (nvs,) = SVGDInference(SVGDAlgorithm(
+        model=gs, observed=[gs.X, gs.Y], num_particles=SVGD_PARTICLES,
+        num_iterations=GP_SVGD_ITERS, step_size=0.05), dtype="float32",
+        device=dev).run(X=Xe, Y=Ye, generator=gen(44)).values()
+    sync()
+    svgd_s = time.perf_counter() - t0
+    svgd_k1 = read_counts()
+    check(svgd_k1 == dict(none, K1=GP_SVGD_ITERS)
+          and gs.evaluations == GP_SVGD_ITERS, "phase 40 SVGD: launched {} "
+          "in {} evaluations; expected K1 = {}".format(
+              svgd_k1, gs.evaluations, GP_SVGD_ITERS))
+    nvs_mean = float(nvs.mean())
+    check(tuple(nvs.shape) == (SVGD_PARTICLES, 1)
+          and 0.003 < nvs_mean < 0.06, "phase 40 SVGD: particles {} of "
+          "mean {} (band 0.003 to 0.06)".format(tuple(nvs.shape),
+                                                 nvs_mean))
+    print("phase 40 samplers over a GP module ({}): noise variance under "
+          "Gamma(2, 20) in GPRegression(RBF({})) on phase 14's data (N={}, "
+          "noise 0.1) | K1 vs plain at one potential and gradient of {} "
+          "chains: log posterior rel {:.3e} (tol {:.0e}), gradient {:.3e} "
+          "of its largest entry (tol {:.0e}) | HMC {} chains, L={}, {} "
+          "warmup + {} kept (cut from the JAX test's 200 + 200 at 2 chains "
+          "to fit): K1 {} = 1 + {} per transition, noise variance mean "
+          "{:.5f} (band 0.005-0.05), accept rate {:.3f}, max R-hat {:.4f}, "
+          "{:.3f} s ({:.2f} ms per potential evaluation) | SVGD {} "
+          "particles, {} iterations: K1 {} = 1 per iteration, mean {:.5f} "
+          "(band 0.003-0.06), {:.3f} s | wall {:.3f} s".format(
+              card, EXACT_D, EXACT_N, GP_CHAINS, lp_rel, EXACT_F64_RTOL,
+              g_rel, FAMILY_GRAD_RTOL, GP_CHAINS, GP_L, GP_WARMUP, GP_DRAWS,
+              hmc_k1["K1"], GP_L, nv_mean,
+              float(np.mean(hinf.diagnostics["accept_rate"])),
+              hinf.diagnostics["r_hat_max"], hmc_s,
+              1e3 * hmc_s / gm.evaluations, SVGD_PARTICLES, GP_SVGD_ITERS,
+              svgd_k1["K1"], nvs_mean, svgd_s,
+              time.perf_counter() - t_phase), flush=True)
+
+    # ---- 41. ChEES on a correlated posterior; SVGD, card vs CPU
+    t_phase = time.perf_counter()
+    Xc, yc = blr_data(np.random.default_rng(seed + 41), CORR_N, MCMC_D,
+                      correlated=True)
+    _, Sigma_c, _ = blr_posterior(Xc, yc, MCMC_S2)
+    eig = np.linalg.eigvalsh(Sigma_c)
+    zero_counts()
+    mc = counting(blr_model(CORR_N, MCMC_D, MCMC_S2))
+    t0 = time.perf_counter()
+    cinf = ChEESHMCInference(ChEESHMCAlgorithm(
+        model=mc, observed=[mc.X, mc.y], num_samples=CORR_DRAWS,
+        num_warmup=CORR_WARMUP, num_chains=MCMC_CHAINS,
+        trajectory_length=0.05, step_size=0.05), dtype="float32",
+        device=dev)
+    cdraws = cinf.run(X=Xc, y=yc, generator=gen(45))[mc.w.uuid]
+    sync()
+    chees_s = time.perf_counter() - t0
+    check(read_counts() == none, "phase 41 ChEES: launched {}".format(
+        read_counts()))
+    d = cinf.diagnostics
+    corr_L = float(d["mean_leapfrog_steps"])
+    check(bool(torch.isfinite(cdraws).all()) and corr_L > 1.5,
+          "phase 41 ChEES: mean leapfrog steps {} (must exceed 1.5), "
+          "finite draws {}".format(corr_L,
+                                   bool(torch.isfinite(cdraws).all())))
+    init = np.random.default_rng(seed + 46).standard_normal(
+        SVGD_PARTICLES * MCMC_D)
+    particles = {}
+    for where in (dev, torch.device("cpu")):
+        ms = blr_model(CORR_N, MCMC_D, MCMC_S2,
+                       rand_gen=FixedRandomGenerator(init))
+        zero_counts()
+        particles[where.type] = SVGDInference(SVGDAlgorithm(
+            model=ms, observed=[ms.X, ms.y], num_particles=SVGD_PARTICLES,
+            num_iterations=SVGD_CPU_ITERS, step_size=0.1), dtype="float32",
+            device=where).run(X=Xc, y=yc, generator=gen(47, where))[
+                ms.w.uuid].double().cpu().numpy()
+        sync()
+        check(read_counts() == none, "phase 41 SVGD: launched {}".format(
+            read_counts()))
+    z_cpu = particles["cpu"]
+    svgd_err = float(np.max(np.abs(particles["cuda"] - z_cpu)))
+    check(np.isfinite(particles["cuda"]).all()
+          and svgd_err <= SVGD_CPU_RTOL * float(np.max(np.abs(z_cpu))),
+          "phase 41 SVGD: card vs CPU max |diff| {} against {} of max |z| "
+          "{}".format(svgd_err, SVGD_CPU_RTOL, np.max(np.abs(z_cpu))))
+    print("phase 41 correlated posterior ({}): ChEES on "
+          "tests/inference/test_chees.py:49-86's design at N={} D={} "
+          "(posterior sd {:.3e} to {:.3e}), {} chains, T0 0.05, eps0 0.05, "
+          "{} warmup + {} kept (cut from 500 + 500): mean leapfrog steps "
+          "{:.3f} (phase 39's {:.3f}; must exceed 1.5), T {:.4e}, eps "
+          "{:.4e}, accept rate {:.3f}, max R-hat {:.4f}, {} potential "
+          "evaluations in {:.3f} s | SVGD {} particles from fixed draws, {} "
+          "iterations, float32, card vs CPU: max |diff| {:.3e} (tol {:.0e} "
+          "of max |z| {:.4f}) | wall {:.3f} s".format(
+              card, CORR_N, MCMC_D, float(np.sqrt(eig[0])),
+              float(np.sqrt(eig[-1])), MCMC_CHAINS, CORR_WARMUP, CORR_DRAWS,
+              corr_L, chees_L, float(d["trajectory_length"]),
+              float(d["step_size"]), float(np.mean(d["accept_rate"])),
+              d["r_hat_max"], mc.evaluations, chees_s, SVGD_PARTICLES,
+              SVGD_CPU_ITERS, svgd_err, SVGD_CPU_RTOL,
+              float(np.max(np.abs(z_cpu))), time.perf_counter() - t_phase),
+          flush=True)
+    return hmc_k1["K1"] + svgd_k1["K1"]
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4134,6 +4628,10 @@ def main():
     # ---- 37-38. BASELINE config 5: Bayesian NN and VAE
     nn_model_phases(dev, card, args.seed, read_counts, zero_counts, sync)
 
+    # ---- 39-41. the MCMC samplers; K1 in every potential over a GP
+    sampler_k1 = sampler_phases(dev, card, args.seed, Xe, Ye, read_counts,
+                                zero_counts, sync)
+
     check(not any(k == "jax" or k.startswith(("jax.", "mxfusion_tpu."))
                   or k == "mxfusion_tpu" for k in sys.modules),
           "JAX or the JAX package was imported")
@@ -4156,7 +4654,8 @@ def main():
             "mxfusion_tpu/ops/pallas_kernels.py:89",
             launches + train_launches["K1"] + exact_launches["K1"]
             + exact_serve["K1"] + sgp_launches["K1"] + sgp_serve["K1"]
-            + ng_k1 + family["K1"] + persist["K1"] + deep_kernel["K1"],
+            + ng_k1 + family["K1"] + persist["K1"] + deep_kernel["K1"]
+            + sampler_k1,
             max_err, min(ms["kernel"]),
             min(ms["plain"]), ms["bound"], None),
         row("fused_gram_fwd", fused_src,

@@ -25,3 +25,10 @@ from .expectation import (
 from .prediction import ModulePredictionAlgorithm
 from .serving import (BatchedPredictor, ExportedPredictor,
                       load_exported_predictor)
+from .hmc import (HMCAlgorithm, HMCInference, potential_scale_reduction,
+                  effective_sample_size)
+from .sgld import SGLDAlgorithm, SGLDInference
+from .svgd import SVGDAlgorithm, SVGDInference
+from .chees import ChEESHMCAlgorithm, ChEESHMCInference
+from .tempering import (ParallelTemperingAlgorithm,
+                        ParallelTemperingInference)

@@ -261,10 +261,14 @@ def create_executor(algorithm, params, rv_scaling=None):
     return executor
 
 
-def create_sampling_executor(algorithm, params):
+def create_sampling_executor(algorithm, params, rv_scaling=None):
     """Executor for SamplingAlgorithms: ``executor(trainable, fixed,
-    data_list, generator)`` returns compute's output."""
-    build_env = _make_env_builder(algorithm, params)
+    data_list, generator)`` returns compute's output.
+
+    ``rv_scaling`` rescales the generating factors' log-pdfs exactly as
+    in :func:`create_executor`: a minibatch sampler (SGLD) passes the
+    N/B likelihood correction through it."""
+    build_env = _make_env_builder(algorithm, params, rv_scaling=rv_scaling)
 
     def executor(trainable, fixed, data_list, generator):
         env = build_env(trainable, fixed, data_list)

@@ -8,7 +8,7 @@ and a Poisson SVGP, and fits and serves an LMC multi-output SVGP and
 2-layer deep GPs (regression and classification) and trains an SVGP by
 natural gradients, full batch and minibatch, and trains networks in the
 graph (``NNFunction``: a Bayesian NN, a VAE and a deep-kernel SVGP,
-served). Also: chip_smoke.py refuses to run without a GPU and without
+served), and samples a conjugate posterior by HMC and SVGD. Also: chip_smoke.py refuses to run without a GPU and without
 the rest of the repository."""
 import os
 import shutil
@@ -561,6 +561,59 @@ jaxy = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib",
 assert not jaxy, jaxy
 print("NN", losses[-1], vae_losses[-1], dk_losses[-1])
 """
+
+
+SAMPLERS_WITHOUT_JAX = r"""
+import sys
+sys.modules["jax"] = None          # any `import jax` now raises
+sys.path.insert(0, {root!r})
+import numpy as np
+import torch
+torch.set_num_threads(1)           # small ops: threads only contend
+from mxfusion_tpu_torch.common.config import set_default_device
+set_default_device("cpu")
+from mxfusion_tpu_torch import Model
+from mxfusion_tpu_torch.components.distributions import Gamma, Exponential
+from mxfusion_tpu_torch.components.functions.operators import broadcast_to
+from mxfusion_tpu_torch.inference import (HMCAlgorithm, HMCInference,
+                                          SVGDAlgorithm, SVGDInference)
+
+# tau ~ Gamma(2, 2); y_i ~ Exp(tau): the posterior is Gamma(2+N, 2+sum y)
+N = 60
+y = np.random.default_rng(1).exponential(1.0 / 1.7, (N, 1))
+m = Model()
+m.tau = Gamma.define_variable(alpha=2.0, beta=2.0, shape=(1,))
+m.y = Exponential.define_variable(rate=broadcast_to(m.tau, (N, 1)),
+                                  shape=(N, 1))
+a, b = 2 + N, 2 + y.sum()
+infr = HMCInference(HMCAlgorithm(model=m, observed=[m.y], num_samples=200,
+                                 num_warmup=100, num_chains=4,
+                                 num_leapfrog=8))
+tau = infr.run(y=y, generator=torch.Generator().manual_seed(0))[m.tau.uuid]
+assert tuple(tau.shape) == (200, 4, 1) and bool((tau > 0).all())
+assert abs(float(tau.mean()) - a / b) < 0.1 * a / b, (float(tau.mean()), a / b)
+particles = SVGDInference(SVGDAlgorithm(
+    model=m, observed=[m.y], num_particles=16, num_iterations=20,
+    step_size=0.1)).run(y=y, generator=torch.Generator().manual_seed(1))
+assert tuple(particles[m.tau.uuid].shape) == (16, 1)
+assert bool(torch.isfinite(particles[m.tau.uuid]).all())
+jaxy = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib",
+                                                       "mxfusion_tpu")
+        and sys.modules[k] is not None]
+assert not jaxy, jaxy
+print("SAMPLERS", float(tau.mean()), a / b)
+"""
+
+
+def test_port_samples_by_hmc_and_svgd_without_jax():
+    """A Gamma-Exponential HMC chain lands on the conjugate posterior's
+    mean, and SVGD runs a few iterations, in an interpreter without
+    JAX."""
+    proc = subprocess.run(
+        [sys.executable, "-c", SAMPLERS_WITHOUT_JAX.format(root=str(ROOT))],
+        capture_output=True, text=True, timeout=60, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert "SAMPLERS" in proc.stdout
 
 
 def test_port_fits_nn_models_without_jax():
