@@ -23,8 +23,10 @@ deep-kernel SVGP trained and served at the training slice's
 configuration, and BASELINE config 5's Bayesian NN and VAE, and the
 MCMC samplers (SGLD, HMC, parallel tempering, ChEES-HMC and SVGD) on
 benchmarks/mcmc_throughput.py's Bayesian linear regression and over a
-GP module, whose potential K1 builds. In phases that each print one
-line:
+GP module, whose potential K1 builds, and the evidence and
+model-criticism layer (Laplace through K1, thermodynamic integration
+with K1 in every rung's potential, WAIC, PSIS-LOO, predictive checks)
+and observation masks. In phases that each print one line:
 
 1. device: needs CUDA (exits nonzero without it); prints the card's
    name and power limit (nvidia-smi) and the TF32 settings;
@@ -291,7 +293,38 @@ line:
    design scaled to N = 65536, D = 32 (mean leapfrog steps above 1.5,
    beside phase 39's), and SVGD (16 particles, 50 iterations, float32)
    on the card against the port on the CPU from the same particles,
-   within 1e-4 of the particles' largest entry.
+   within 1e-4 of the particles' largest entry;
+42. Laplace: (a) phase 39's BLR (N = 100 000, D = 32, float32) at the
+   float64 mode, Σ within 1e-4 of its largest entry and the log evidence
+   within 1e-5 of the float64 closed form, no launch; (b) phase 40's GP
+   after 500 MAP steps (K1 once a step), Laplace launching K1, its log
+   evidence and marginal variance within 1e-4 and 1e-3 of float64 on the
+   CPU at the same point; (c) phase 6's SVGP on 65536 rows with a Gamma
+   noise latent: 4 fused MAP steps (K1/K2/K3 1/1/3 a step), then Laplace
+   with the gate open launching K1 and neither K2 nor K3, its log
+   evidence within 1e-3 of float64 on the CPU;
+43. thermodynamic integration: (a) a power posterior over 42b's GP at its
+   MAP hyperparameters (2 chains x 16 rungs, L = 8, 100 + 200 sweeps):
+   at one potential over the 32 replicas K1 launches once at (32, 1024,
+   1024) and the potential, log likelihood and gradient agree with its
+   plain version (1e-4, 1e-4, 1e-3); on the run K1 launches once per
+   potential evaluation, every gram at (32, 1024, 1024) as the launches
+   record it, the evidence within 1 nat of 42b's Laplace, a profile of 5
+   sweeps; (b)
+   tests/inference/test_evidence.py's Gamma-Exponential oracle (150 +
+   200 sweeps): the closed form within 0.15, tau's mean within 5%, every
+   swap acceptance above 0.3;
+44. model comparison: SGLD on phase 39's BLR and on a misspecified model
+   that sees 16 of its 32 features (8 chains, 200 draws a chain, thin
+   10): the (1600, 100 000) pointwise log-likelihood in one evaluation,
+   WAIC and PSIS-LOO on the card, equal to the port's CPU evaluation on
+   4096 columns within 1e-9 (pointwise), the true model ahead on both,
+   Pareto k < 0.7 for more than 90% of the points, and a predictive
+   check of var(y) with p in (0.05, 0.95);
+45. observation masks: 20% of phase 39's y masked by an (N, 1) mask (and
+   set to 1e6): the masked objective at one state within 1e-6 of the
+   observed subset's, and 20 MAP steps on each from one start within
+   1e-5, step for step.
 
 Any failed check raises and the script exits nonzero. The last three
 lines are the card (nvidia-smi), the kernels' JSON record (each with
@@ -520,6 +553,40 @@ SVGD_PARTICLES, GP_SVGD_ITERS = 16, 150
 # the card's sums differ from the CPU's by the same fp32 rounding
 CORR_N, CORR_WARMUP, CORR_DRAWS = 65536, 150, 50
 SVGD_CPU_ITERS, SVGD_CPU_RTOL = 50, 1e-4
+# the evidence and model-criticism layer (phases 42-45). Laplace on
+# phase 39's BLR at the float64 mode: Σ within 1e-4 of its largest entry
+# (H's fp32 entries of about N/σ² = 4e5 carry some 1e-6 relative error,
+# which Σ = H⁻¹ takes at cond(H) ≈ 1.1), the log evidence, a float32 sum
+# over 10^5 points of about -7e4, within 1e-5 relative
+LAP_COV_TOL, LAP_BLR_RTOL = 1e-4, 1e-5
+# over phase 14's GP: MAP (Adam, lr 3e-2) to the mode, then Laplace; the
+# exact GP's agreement (cond(K + σ²I) ≈ 1e4 times fp32's eps) for the
+# evidence, 1e-3 for the marginal variance, a second derivative
+LAP_GP_STEPS, LAP_GP_LR, LAP_GP_RTOL, LAP_GP_VAR_RTOL = 500, 3e-2, 1e-4, 1e-3
+# over phase 6's SVGP on its first 65536 rows: 4 full-batch MAP steps
+# (the fused arm), then Laplace with the gate open; the SVGP's 1e-3
+LAP_SVGP_N, LAP_SVGP_STEPS, LAP_SVGP_RTOL = 65536, 4, 1e-3
+# thermodynamic integration over the GP: 2 chains x 16 rungs (c = 5),
+# L = 8, sweeps cut from test_evidence.py's 400 + 600 to fit. The bound
+# on |TI − Laplace|: the trapezoid's error on the steep part of the
+# integrand, E_β[log L] ≈ ℓ* − 1/(2β) for one parameter, is about
+# (h/β)³/12 ≈ (5/k)³/12 nats an interval from β_5 ≈ 4e-3 (where the
+# likelihood, curvature about N/2 in log σ², overtakes the Gamma(2, 20)
+# prior's 2) on: 0.07 + 0.04 + 0.02 + ... ≈ 0.2; the prior-dominated
+# intervals below add some tenths; Monte-Carlo error about 0.1
+TI_C, TI_K, TI_L, TI_WARMUP, TI_DRAWS, TI_ATOL = 2, 16, 8, 100, 200, 1.0
+# test_evidence.py:21-41's Gamma-Exponential oracle and tolerances on the
+# card, sweeps cut from 400 + 600
+TI_GE_WARMUP, TI_GE_DRAWS, TI_GE_ATOL, TI_GE_RTOL = 150, 200, 0.15, 0.05
+# model comparison on phase 39's BLR by SGLD (phase 39's step, B and
+# burn-in), thinned to 200 draws a chain; the card's WAIC/LOO vs the
+# port's own on the CPU on a column subset (float64 both)
+MC_THIN, MC_DRAWS, MC_SUBSET, MC_CPU_RTOL, MC_MIS_D = 10, 200, 4096, 1e-9, 16
+# masks on phase 39's BLR: 20% of y masked (set to 1e6); the masked and
+# the subset objective are float32 sums of the same 8e4 terms in another
+# order, and 20 Adam steps keep their losses within 1e-5
+MASK_SHARE, MASK_OBJ_RTOL, MASK_STEPS, MASK_LR, MASK_STEP_RTOL = (
+    0.2, 1e-6, 20, 1e-3, 1e-5)
 
 
 def check(ok, message):
@@ -3383,6 +3450,24 @@ def counting(m):
     return m
 
 
+def gp_noise_model():
+    """tests/inference/test_mcmc_over_modules.py:21-33's model at phase
+    14's width: the noise variance of ``GPRegression(RBF(EXACT_D))`` under
+    a Gamma(2, 20) prior, its potential evaluations counted."""
+    from mxfusion_tpu_torch import Model, Variable
+    from mxfusion_tpu_torch.components.distributions import Gamma
+    from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
+    from mxfusion_tpu_torch.modules import GPRegression
+    m = Model()
+    m.n = Variable()
+    m.X = Variable(shape=(m.n, EXACT_D))
+    m.noise_var = Gamma.define_variable(alpha=2.0, beta=20.0, shape=(1,))
+    m.Y = GPRegression.define_variable(
+        X=m.X, kernel=RBF(input_dim=EXACT_D, variance=1.0, lengthscale=1.0),
+        noise_var=m.noise_var, shape=(m.n, 1))
+    return counting(m)
+
+
 def mc_error(draws, mu):
     """The largest |mean − μ| over the coordinates of draws (S, C, ...)
     in units of the Monte-Carlo standard error sd/sqrt(ESS); and the
@@ -3433,9 +3518,6 @@ def sampler_phases(dev, card, seed, Xe, Ye, read_counts, zero_counts,
     """Phases 39-41: the MCMC samplers. Returns K1's launches on their
     main paths (phase 40's chain and particles)."""
     import torch
-    from mxfusion_tpu_torch import Model, Variable
-    from mxfusion_tpu_torch.components.distributions import Gamma
-    from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
     from mxfusion_tpu_torch.components.distributions.random_gen import \
         FixedRandomGenerator
     from mxfusion_tpu_torch.inference import (
@@ -3443,7 +3525,6 @@ def sampler_phases(dev, card, seed, Xe, Ye, read_counts, zero_counts,
         RuntimeContext, SGLDAlgorithm, SGLDInference, SVGDAlgorithm,
         SVGDInference, create_sampling_executor)
     from mxfusion_tpu_torch.inference import hmc
-    from mxfusion_tpu_torch.modules import GPRegression
     from mxfusion_tpu_torch.ops import cuda_kernels
     none = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
 
@@ -3542,18 +3623,6 @@ def sampler_phases(dev, card, seed, Xe, Ye, read_counts, zero_counts,
     # ---- 40. HMC and SVGD over a GP module's noise variance: K1 builds
     # Kxx in every potential evaluation
     t_phase = time.perf_counter()
-
-    def gp_noise_model():
-        m = Model()
-        m.n = Variable()
-        m.X = Variable(shape=(m.n, EXACT_D))
-        m.noise_var = Gamma.define_variable(alpha=2.0, beta=20.0,
-                                            shape=(1,))
-        m.Y = GPRegression.define_variable(
-            X=m.X, kernel=RBF(input_dim=EXACT_D, variance=1.0,
-                              lengthscale=1.0),
-            noise_var=m.noise_var, shape=(m.n, 1))
-        return counting(m)
 
     # K1 against its plain version at one potential and gradient
     gm = gp_noise_model()
@@ -3723,6 +3792,501 @@ def sampler_phases(dev, card, seed, Xe, Ye, read_counts, zero_counts,
               float(np.max(np.abs(z_cpu))), time.perf_counter() - t_phase),
           flush=True)
     return hmc_k1["K1"] + svgd_k1["K1"]
+
+
+def blr_evidence_f64(X, y, noise_var):
+    """log N(y | 0, XXᵀ + σ²I) in float64 through H = XᵀX/σ² + I:
+    log|σ²I + XXᵀ| = N log σ² + log|H| and yᵀ(σ²I + XXᵀ)⁻¹y =
+    (yᵀy − (Xᵀy)ᵀH⁻¹(Xᵀy)/σ²)/σ²."""
+    X, y = X.astype(np.float64), y[:, 0].astype(np.float64)
+    N = len(y)
+    H = X.T @ X / noise_var + np.eye(X.shape[1])
+    Xty = X.T @ y
+    quad = (y @ y - Xty @ np.linalg.solve(H, Xty) / noise_var) / noise_var
+    return float(-0.5 * N * math.log(2.0 * math.pi)
+                 - 0.5 * (N * math.log(noise_var)
+                          + np.linalg.slogdet(H)[1]) - 0.5 * quad)
+
+
+def svgp_gamma_noise(Z0):
+    """Phase 6's SVGP with its noise variance a Gamma(2, 20) latent."""
+    from mxfusion_tpu_torch import Model, Variable
+    from mxfusion_tpu_torch.components.distributions import Gamma
+    from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
+    from mxfusion_tpu_torch.modules import SVGPRegression
+    m = Model()
+    m.n = Variable()
+    m.X = Variable(shape=(m.n, D))
+    m.noise_var = Gamma.define_variable(alpha=2.0, beta=20.0, shape=(1,))
+    m.Y = SVGPRegression.define_variable(
+        X=m.X, kernel=RBF(input_dim=D, variance=1.0,
+                          lengthscale=math.sqrt(D)),
+        noise_var=m.noise_var, shape=(m.n, 1),
+        inducing_inputs=Variable(shape=(M, D), initial_value=Z0))
+    return m
+
+
+def at_float64_on_cpu(inf, data):
+    """A float64 CPU inference of ``inf``'s algorithm at its state."""
+    import torch
+    from mxfusion_tpu_torch.inference import GradBasedInference
+    out = GradBasedInference(inf.inference_algorithm, dtype="float64",
+                             device="cpu")
+    out.initialize(**data)
+    out.params.update_params({k: v.detach().to("cpu", torch.float64)
+                              for k, v in inf.params.param_dict.items()})
+    return out
+
+
+def evidence_phases(dev, card, seed, Xe, Ye, Xtr, Ytr, read_counts,
+                    zero_counts, sync):
+    """Phases 42-45: Laplace, thermodynamic integration, WAIC/PSIS-LOO
+    and the predictive check, observation masks. Returns the launches of
+    K1-K3 on their main paths (the MAP fits and the Laplace passes over
+    the GP and the SVGP, the power posterior over the GP)."""
+    import torch
+    from scipy.special import gammaln
+    from mxfusion_tpu_torch import Model
+    from mxfusion_tpu_torch.components.distributions import (Exponential,
+                                                             Gamma)
+    from mxfusion_tpu_torch.components.functions.operators import \
+        broadcast_to
+    from mxfusion_tpu_torch.inference import (
+        GradBasedInference, MAP, PowerPosteriorAlgorithm,
+        PowerPosteriorInference, RuntimeContext, SGLDAlgorithm,
+        SGLDInference, create_sampling_executor, laplace_approximation,
+        loo_psis, pointwise_log_likelihood, posterior_predictive_check,
+        waic)
+    from mxfusion_tpu_torch.inference import hmc
+    from mxfusion_tpu_torch.ops import cuda_kernels
+    none = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    main = dict(none)
+
+    def gen(k, device=dev):
+        return torch.Generator(device).manual_seed(seed + k)
+
+    def tally(counts):
+        for k, v in counts.items():
+            main[k] += v
+        return counts
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def map_inference(m, observed):
+        return GradBasedInference(MAP(model=m, observed=observed),
+                                  dtype="float32", device=dev)
+
+    # ---- 42. Laplace
+    t_phase = time.perf_counter()
+    # (a) BLR at phase 39's width, at the float64 mode
+    X, y = blr_data(np.random.default_rng(seed), MCMC_N, MCMC_D)
+    mu, Sigma, _ = blr_posterior(X, y, MCMC_S2)
+    m = blr_model(MCMC_N, MCMC_D, MCMC_S2)
+    inf = map_inference(m, [m.X, m.y])
+    inf.initialize(X=X, y=y)
+    inf.params[inf.inference_algorithm.posterior[m.w].factor.location] = \
+        mu.astype(np.float32)[:, None]
+    zero_counts()
+    lap, blr_s = timed(lambda: laplace_approximation(inf, X=X, y=y))
+    check(read_counts() == none, "phase 42a: Laplace on the BLR launched "
+          "{}".format(read_counts()))
+    cov = lap.marginal(m.w)[1].double().cpu().numpy()
+    cov_err = float(np.max(np.abs(cov - Sigma)) / np.max(np.abs(Sigma)))
+    exact = blr_evidence_f64(X, y, MCMC_S2)
+    blr_rel = abs(lap.log_evidence - exact) / abs(exact)
+    check(cov_err <= LAP_COV_TOL and blr_rel <= LAP_BLR_RTOL,
+          "phase 42a: Laplace on the BLR: Σ off the float64 closed form by "
+          "{} of its largest entry (tol {}), log evidence {} vs {}: "
+          "relative {} (tol {})".format(cov_err, LAP_COV_TOL,
+                                        lap.log_evidence, exact, blr_rel,
+                                        LAP_BLR_RTOL))
+    # (b) GPRegression at phase 14's N = 1024, D = 4, a Gamma noise latent
+    gm = gp_noise_model()
+    gloop = recording_batch_loop(read_counts, sync)
+    ginf = GradBasedInference(MAP(model=gm, observed=[gm.X, gm.Y]),
+                              grad_loop=gloop, dtype="float32", device=dev)
+    zero_counts()
+    _, gp_map_s = timed(lambda: ginf.run(
+        X=Xe, Y=Ye, max_iter=LAP_GP_STEPS, learning_rate=LAP_GP_LR,
+        generator=gen(42)))
+    gp_map = tally(read_counts())
+    check(gp_map == dict(none, K1=LAP_GP_STEPS), "phase 42b: {} MAP steps "
+          "launched {}; expected K1 once a step".format(LAP_GP_STEPS,
+                                                         gp_map))
+    gp_step_ms = 1e3 * np.percentile(gloop.wall_s[1:], [25, 50, 75])
+    zero_counts()
+    glap, gp_lap_s = timed(lambda: laplace_approximation(ginf, X=Xe, Y=Ye))
+    gp_lap = tally(read_counts())
+    check(gp_lap["K1"] >= 1 and gp_lap == dict(none, K1=gp_lap["K1"]),
+          "phase 42b: Laplace over the GP launched {}; K1 builds Kxx in "
+          "its passes".format(gp_lap))
+    glap64 = laplace_approximation(at_float64_on_cpu(ginf, {"X": Xe,
+                                                            "Y": Ye}),
+                                   X=Xe, Y=Ye)
+    gp_rel = abs(glap.log_evidence - glap64.log_evidence) / \
+        abs(glap64.log_evidence)
+    nv_var = float(glap.marginal(gm.noise_var)[1][0, 0])
+    nv_var64 = float(glap64.marginal(gm.noise_var)[1][0, 0])
+    var_rel = abs(nv_var - nv_var64) / abs(nv_var64)
+    nv = float(glap.marginal(gm.noise_var)[0][0])
+    check(gp_rel <= LAP_GP_RTOL and var_rel <= LAP_GP_VAR_RTOL,
+          "phase 42b: Laplace over the GP, float32 on the card vs float64 "
+          "on the CPU at the same MAP point: log evidence {} vs {} "
+          "(relative {}, tol {}), marginal variance {} vs {} (relative {}, "
+          "tol {})".format(glap.log_evidence, glap64.log_evidence, gp_rel,
+                           LAP_GP_RTOL, nv_var, nv_var64, var_rel,
+                           LAP_GP_VAR_RTOL))
+    # (c) phase 6's SVGP on 65536 rows with a Gamma noise latent
+    Xs, Ys = Xtr[:LAP_SVGP_N], Ytr[:LAP_SVGP_N]
+    sm = svgp_gamma_noise(np.random.default_rng(seed + 42).uniform(
+        0.0, BOX, (M, D)))
+    sinf = map_inference(sm, [sm.X, sm.Y])
+    zero_counts()
+    _, svgp_map_s = timed(lambda: sinf.run(
+        X=Xs, Y=Ys, max_iter=LAP_SVGP_STEPS, learning_rate=3e-3,
+        generator=gen(43)))
+    svgp_map = tally(read_counts())
+    check(svgp_map == dict(none, K1=LAP_SVGP_STEPS, K2=LAP_SVGP_STEPS,
+                           K3=3 * LAP_SVGP_STEPS),
+          "phase 42c: {} fused MAP steps launched {}; expected K1/K2/K3 "
+          "1/1/3 a step".format(LAP_SVGP_STEPS, svgp_map))
+    zero_counts()
+    slap, svgp_lap_s = timed(lambda: laplace_approximation(sinf, X=Xs,
+                                                           Y=Ys))
+    svgp_lap = tally(read_counts())
+    check(svgp_lap["K1"] >= 1 and svgp_lap == dict(none,
+                                                   K1=svgp_lap["K1"]),
+          "phase 42c: Laplace over the SVGP launched {}; expected K1 and "
+          "no K2/K3 (the fused arm off for the pass)".format(svgp_lap))
+    slap64 = laplace_approximation(at_float64_on_cpu(sinf, {"X": Xs,
+                                                            "Y": Ys}),
+                                   X=Xs, Y=Ys)
+    svgp_rel = abs(slap.log_evidence - slap64.log_evidence) / \
+        abs(slap64.log_evidence)
+    check(svgp_rel <= LAP_SVGP_RTOL, "phase 42c: Laplace over the SVGP: "
+          "log evidence {} vs float64 {} (relative {}, tol {})".format(
+              slap.log_evidence, slap64.log_evidence, svgp_rel,
+              LAP_SVGP_RTOL))
+    print("phase 42 laplace ({}): (a) BLR N={} D={} float32 at the float64 "
+          "mode: {:.3f} s, Σ off the closed form by {:.3e} of its largest "
+          "entry (tol {:.0e}), log evidence {:.6f} vs {:.6f} (rel {:.3e}, "
+          "tol {:.0e}), no launch | (b) GPRegression(RBF({})) N={}, noise "
+          "~ Gamma(2, 20): MAP {} steps {:.3f} s (K1 {}; step wall ms "
+          "quartiles after the first {}, losses {:.4f} -> {:.4f}), Laplace "
+          "{:.3f} s "
+          "(K1 {}), noise variance {:.6f} ± {:.3e}, log evidence {:.6f} vs "
+          "float64 on the CPU {:.6f} (rel {:.3e}, tol {:.0e}), marginal "
+          "variance rel {:.3e} (tol {:.0e}) | (c) SVGP M={} D={} on {} "
+          "rows, noise ~ Gamma(2, 20): {} fused MAP steps {:.3f} s ({}), "
+          "Laplace {:.3f} s ({}), log evidence {:.4f} vs float64 {:.4f} "
+          "(rel {:.3e}, tol {:.0e}) | wall {:.3f} s".format(
+              card, MCMC_N, MCMC_D, blr_s, cov_err, LAP_COV_TOL,
+              lap.log_evidence, exact, blr_rel, LAP_BLR_RTOL, EXACT_D,
+              EXACT_N, LAP_GP_STEPS, gp_map_s, gp_map["K1"],
+              [round(float(v), 3) for v in gp_step_ms], gloop.losses[0],
+              gloop.losses[-1], gp_lap_s,
+              gp_lap["K1"], nv, math.sqrt(nv_var), glap.log_evidence,
+              glap64.log_evidence, gp_rel, LAP_GP_RTOL, var_rel,
+              LAP_GP_VAR_RTOL, M, D, LAP_SVGP_N, LAP_SVGP_STEPS,
+              svgp_map_s, svgp_map, svgp_lap_s, svgp_lap,
+              slap.log_evidence, slap64.log_evidence, svgp_rel,
+              LAP_SVGP_RTOL, time.perf_counter() - t_phase), flush=True)
+
+    # ---- 43. thermodynamic integration
+    t_phase = time.perf_counter()
+    # (a) over 42b's GP, at its MAP kernel hyperparameters
+    def gp_ti_inference(warmup, draws):
+        ti = PowerPosteriorInference(PowerPosteriorAlgorithm(
+            model=gm, observed=[gm.X, gm.Y], num_samples=draws,
+            num_warmup=warmup, num_chains=TI_C, num_temps=TI_K,
+            num_leapfrog=TI_L), dtype="float32", device=dev)
+        ti.initialize(X=Xe, Y=Ye)
+        ti.params.update_params({u: v for u, v in
+                                 ginf.params.param_dict.items()
+                                 if u in ti.params.param_dict})
+        return ti
+
+    def gp_ti(warmup, draws, k):
+        ti = gp_ti_inference(warmup, draws)
+        ti.run(X=Xe, Y=Ye, generator=gen(k))
+        return ti
+
+    @contextlib.contextmanager
+    def k1_shapes():
+        """The shape of every gram K1 launches inside the block."""
+        shapes, launch = [], cuda_kernels._rbf_cuda
+
+        def recorded(X, X2, lengthscale, variance):
+            K = launch(X, X2, lengthscale, variance)
+            shapes.append(tuple(K.shape))
+            return K
+        cuda_kernels._rbf_cuda = recorded
+        try:
+            yield shapes
+        finally:
+            cuda_kernels._rbf_cuda = launch
+
+    # K1 against its plain version at one power-posterior potential and
+    # gradient over the C·K replicas
+    ti0 = gp_ti_inference(0, 1)
+    alg = ti0.inference_algorithm
+    env = create_sampling_executor(alg, ti0.params).build_env(
+        ti0.params.trainable_params(), ti0.params.fixed_params(), [Xe, Ye])
+    uuids = [gm.noise_var.uuid]
+    bij = hmc.make_support_transforms(gm, uuids)
+    parts = alg.potential_parts(hmc.detached_env(env),
+                                RuntimeContext(gen(43)), bij, torch.float32)
+    betas = alg.ladder(torch.float32, dev)
+    z = {gm.noise_var.uuid: torch.log(torch.as_tensor(
+        np.random.default_rng(seed + 43).gamma(2.0, 1 / 20.0,
+                                               (TI_C * TI_K, 1)),
+        dtype=torch.float32, device=dev))}
+    liks = []
+
+    def potential(q):
+        pri, lik = parts(q)
+        liks.append(lik.detach())
+        return -(pri + betas * lik)
+
+    zero_counts()
+    with k1_shapes() as check_shapes:
+        u_k, g_k = hmc.value_and_grad(potential, z)
+        sync()
+    check_launches = read_counts()["K1"]
+    cuda_kernels.set_use_kernel(False)
+    try:
+        u_p, g_p = hmc.value_and_grad(potential, z)
+        sync()
+    finally:
+        cuda_kernels.set_use_kernel(True)
+    gram = (TI_C * TI_K, EXACT_N, EXACT_N)
+    check(check_launches == 1 and read_counts()["K1"] == 1
+          and check_shapes == [gram], "phase 43a: the potential launched "
+          "K1 {} times at {}, its plain version {} (expected once at {})"
+          .format(check_launches, check_shapes,
+                  read_counts()["K1"] - check_launches, gram))
+    u_rel = float(torch.max(torch.abs(u_k - u_p)) /
+                  torch.max(torch.abs(u_p)))
+    lik_rel = float(torch.max(torch.abs(liks[0] - liks[1])) /
+                    torch.max(torch.abs(liks[1])))
+    (gk,), (gp,) = g_k.values(), g_p.values()
+    g_rel = float(torch.max(torch.abs(gk - gp)) / torch.max(torch.abs(gp)))
+    check(u_rel <= EXACT_F64_RTOL and lik_rel <= EXACT_F64_RTOL
+          and g_rel <= FAMILY_GRAD_RTOL,
+          "phase 43a: K1 vs plain over {} replicas: potential relative {}, "
+          "log likelihood {} (tol {}), gradient {} of its largest entry "
+          "(tol {})".format(TI_C * TI_K, u_rel, lik_rel, EXACT_F64_RTOL,
+                            g_rel, FAMILY_GRAD_RTOL))
+    # the main path
+    zero_counts()
+    with k1_shapes() as ti_shapes:
+        ti, ti_s = timed(lambda: gp_ti(TI_WARMUP, TI_DRAWS, 44))
+    ti_k1 = tally(read_counts())
+    evals = int(ti.diagnostics["potential_evaluations"])
+    sweeps = TI_WARMUP + TI_DRAWS
+    ti_grams = sorted(set(ti_shapes))
+    check(ti_k1 == dict(none, K1=evals) and evals == 1 + (TI_L + 1) * sweeps
+          and len(ti_shapes) == evals and ti_grams == [gram],
+          "phase 43a: the power posterior launched {} in {} potential "
+          "evaluations at grams {}; expected K1 once an evaluation, "
+          "1 + {}·{}, at {}".format(ti_k1, evals, ti_grams, TI_L + 1,
+                                    sweeps, gram))
+    ti_gap = abs(ti.log_evidence - glap.log_evidence)
+    check(math.isfinite(ti.log_evidence) and ti_gap <= TI_ATOL,
+          "phase 43a: TI log evidence {} vs Laplace {}: |diff| {} (bound "
+          "{})".format(ti.log_evidence, glap.log_evidence, ti_gap, TI_ATOL))
+    prof = profile_window(lambda: gp_ti(0, 5, 45), ROOT / "build" /
+                          "chip_smoke_ti_trace.json")
+    # (b) the Gamma-Exponential oracle of test_evidence.py:21-41
+    rng = np.random.default_rng(1)
+    n_ge = 60
+    y_ge = rng.exponential(1.0 / 1.7, (n_ge, 1))
+    me = Model()
+    me.tau = Gamma.define_variable(alpha=2.0, beta=2.0, shape=(1,))
+    me.y = Exponential.define_variable(rate=broadcast_to(me.tau, (n_ge, 1)),
+                                       shape=(n_ge, 1))
+    zero_counts()
+    ge = PowerPosteriorInference(PowerPosteriorAlgorithm(
+        model=me, observed=[me.y], num_samples=TI_GE_DRAWS,
+        num_warmup=TI_GE_WARMUP, num_chains=2, num_temps=16),
+        dtype="float32", device=dev)
+    (tau,), ge_s = timed(lambda: ge.run(y=y_ge, generator=gen(46)).values())
+    check(read_counts() == none, "phase 43b: launched {}".format(
+        read_counts()))
+    a = b = 2.0
+    ge_exact = (a * math.log(b) + gammaln(a + n_ge) - gammaln(a)
+                - (a + n_ge) * math.log(b + y_ge.sum()))
+    tau_mean, tau_exact = float(tau.mean()), (a + n_ge) / (b + y_ge.sum())
+    swap_min = float(ge.diagnostics["swap_accept_rate"].min())
+    check(abs(ge.log_evidence - ge_exact) <= TI_GE_ATOL
+          and abs(tau_mean - tau_exact) <= TI_GE_RTOL * tau_exact
+          and swap_min > 0.3, "phase 43b: TI {} vs closed form {} (tol {}), "
+          "tau mean {} vs {} (rtol {}), smallest swap acceptance {} (must "
+          "exceed 0.3)".format(ge.log_evidence, ge_exact, TI_GE_ATOL,
+                               tau_mean, tau_exact, TI_GE_RTOL, swap_min))
+    print("phase 43 thermodynamic integration ({}): (a) over 42b's GP at its "
+          "MAP hyperparameters, {} chains x {} rungs (c = 5), L={}, {} + {} "
+          "sweeps (cut from 400 + 600): {} potential evaluations ({} a "
+          "sweep), K1 {} at the measured grams {}, {:.3f} s, {:.1f} "
+          "evaluations/s; K1 vs plain at one potential over the {} "
+          "replicas: relative {:.3e}, log likelihood {:.3e}, gradient "
+          "{:.3e}; log evidence {:.4f} vs Laplace {:.4f}: |diff| {:.4f} (bound {}); "
+          "swap acceptance by pair {}; adapted eps at beta=1 {:.4e}; profile "
+          "of 5 sweeps: {} | (b) Gamma-Exponential (N={}), {} + {} sweeps "
+          "(of 400 + 600): {:.4f} vs closed form {:.4f} (tol {}), tau mean "
+          "{:.4f} vs {:.4f}, smallest swap acceptance {:.3f}, {:.3f} s | "
+          "wall {:.3f} s".format(
+              card, TI_C, TI_K, TI_L, TI_WARMUP, TI_DRAWS, evals, TI_L + 1,
+              ti_k1["K1"], ti_grams, ti_s, evals / ti_s, TI_C * TI_K, u_rel,
+              lik_rel, g_rel,
+              ti.log_evidence, glap.log_evidence, ti_gap, TI_ATOL,
+              [round(float(v), 3) for v in ti.diagnostics[
+                  "swap_accept_rate"]],
+              float(ti.diagnostics["step_size"][0]),
+              profile_summary(prof, 5), n_ge, TI_GE_WARMUP, TI_GE_DRAWS,
+              ge.log_evidence, ge_exact, TI_GE_ATOL, tau_mean, tau_exact,
+              swap_min, ge_s, time.perf_counter() - t_phase), flush=True)
+
+    # ---- 44. model comparison on phase 39's BLR by SGLD
+    t_phase = time.perf_counter()
+    results = {}
+    for label, d in (("true", MCMC_D), ("misspecified", MC_MIS_D)):
+        mm = blr_model(MCMC_N, d, MCMC_S2, symbolic=True)
+        Xd = np.ascontiguousarray(X[:, :d])
+        sg = SGLDInference(SGLDAlgorithm(
+            model=mm, observed=[mm.X, mm.y], num_samples=MC_DRAWS,
+            num_burnin=SGLD_BURNIN, thin=MC_THIN, num_chains=MCMC_CHAINS,
+            batch_size=SGLD_B, step_size=SGLD_STEP, step_decay_gamma=0.0),
+            dtype="float32", device=dev)
+        zero_counts()
+        _, sgld_s = timed(lambda: sg.run(X=Xd, y=y, generator=gen(47)))
+        ll, ll_s = timed(lambda: pointwise_log_likelihood(sg, X=Xd, y=y)[
+            "y"])
+        check(tuple(ll.shape) == (MC_DRAWS * MCMC_CHAINS, MCMC_N)
+              and ll.is_cuda and bool(torch.isfinite(ll).all()),
+              "phase 44 {}: pointwise log-likelihood {} on {}, finite {}"
+              .format(label, tuple(ll.shape), ll.device,
+                      bool(torch.isfinite(ll).all())))
+        check(sg.params.constants[mm.n.uuid] == SGLD_B, "phase 44 {}: the "
+              "data dim came back bound to {}".format(
+                  label, sg.params.constants[mm.n.uuid]))
+        w, waic_s = timed(lambda: waic(ll))
+        lo, loo_s = timed(lambda: loo_psis(ll))
+        check(read_counts() == none, "phase 44 {}: launched {}".format(
+            label, read_counts()))
+        results[label] = (sg, mm, Xd, ll, w, lo, sgld_s, ll_s, waic_s,
+                          loo_s)
+    sg, mm, _, ll, w, lo = results["true"][:6]
+    sub = ll[:, :MC_SUBSET].cpu()
+    w_cpu, lo_cpu = waic(sub), loo_psis(sub)
+    diffs = {}
+    for name, card_v, cpu_v in (
+            ("waic", w["pointwise"][:MC_SUBSET], w_cpu["pointwise"]),
+            ("loo", lo["pointwise"][:MC_SUBSET], lo_cpu["pointwise"]),
+            ("pareto_k", lo["pareto_k"][:MC_SUBSET], lo_cpu["pareto_k"])):
+        a_, b_ = card_v.cpu().numpy(), cpu_v.numpy()
+        diffs[name] = float(np.max(np.abs(a_ - b_) / np.maximum(
+            np.abs(b_), 1.0 if name == "pareto_k" else 1e-300)))
+    check(max(diffs.values()) <= MC_CPU_RTOL, "phase 44: WAIC/LOO on the "
+          "card vs the CPU on {} columns: largest relative difference {} "
+          "(tol {})".format(MC_SUBSET, diffs, MC_CPU_RTOL))
+    w_mis, lo_mis = results["misspecified"][4:6]
+    k_ok = float((lo["pareto_k"] < 0.7).double().mean())
+    check(w["elpd_waic"] > w_mis["elpd_waic"]
+          and lo["elpd_loo"] > lo_mis["elpd_loo"] and k_ok > 0.9,
+          "phase 44: elpd true vs misspecified: WAIC {} vs {}, LOO {} vs "
+          "{}; share of Pareto k < 0.7 {} (must exceed 0.9)".format(
+              w["elpd_waic"], w_mis["elpd_waic"], lo["elpd_loo"],
+              lo_mis["elpd_loo"], k_ok))
+    ppc, ppc_s = timed(lambda: posterior_predictive_check(
+        sg, lambda r: r.var(correction=0), "y", generator=gen(48),
+        X=results["true"][2], y=y))
+    check(0.05 < ppc["p_value"] < 0.95 and len(ppc["T_rep"]) ==
+          MC_DRAWS * MCMC_CHAINS, "phase 44: predictive check of var(y): "
+          "p = {} over {} replicates (band 0.05-0.95)".format(
+              ppc["p_value"], len(ppc["T_rep"])))
+    print("phase 44 model comparison ({}): phase 39's BLR (N={}), SGLD {} "
+          "chains at step {}, B={}, {} burn-in, thin {}, {} draws a chain, "
+          "against a misspecified model on the first {} of {} features | "
+          "{} | WAIC/LOO on the card vs the CPU on {} columns: relative "
+          "{} (tol {:.0e}) | Pareto k < 0.7 for {:.4f} of the points | "
+          "predictive check of var(y): p = {:.3f}, T_obs {:.4f}, {:.3f} s | "
+          "wall {:.3f} s".format(
+              card, MCMC_N, MCMC_CHAINS, SGLD_STEP, SGLD_B, SGLD_BURNIN,
+              MC_THIN, MC_DRAWS, MC_MIS_D, MCMC_D, " | ".join(
+                  "{}: SGLD {:.3f} s, pointwise ({}, {}) in {:.3f} s, "
+                  "elpd_waic {:.2f} (p_waic {:.2f}, se {:.2f}) in {:.3f} s, "
+                  "elpd_loo {:.2f} (p_loo {:.2f}) in {:.3f} s".format(
+                      label, r[6], r[3].shape[0], r[3].shape[1], r[7],
+                      r[4]["elpd_waic"], r[4]["p_waic"], r[4]["se"], r[8],
+                      r[5]["elpd_loo"], r[5]["p_loo"], r[9])
+                  for label, r in results.items()),
+              MC_SUBSET, {k: float("{:.3e}".format(v))
+                          for k, v in diffs.items()},
+              MC_CPU_RTOL, k_ok, ppc["p_value"], ppc["T_obs"], ppc_s,
+              time.perf_counter() - t_phase), flush=True)
+    del results, ll, sub
+
+    # ---- 45. observation masks on phase 39's BLR
+    t_phase = time.perf_counter()
+    mrng = np.random.default_rng(seed + 45)
+    mask = (mrng.random((MCMC_N, 1)) >= MASK_SHARE).astype(np.float32)
+    keep = mask[:, 0] > 0
+    y_masked = np.where(mask > 0, y, np.float32(1e6)).astype(np.float32)
+    mm = blr_model(MCMC_N, MCMC_D, MCMC_S2, symbolic=True)
+    start = map_inference(mm, [mm.X, mm.y])
+    start.initialize(X=X, y=y_masked, generator=gen(49))
+    state = {k: v.detach().clone() for k, v in
+             start.params.trainable_params().items()}
+    alg = start.inference_algorithm
+    zero_counts()
+    masked = loss_and_grad_at(alg, state, [X, y_masked], "float32", dev,
+                              grad=False, rv_scaling={mm.y.uuid: mask})[0]
+    subset = loss_and_grad_at(alg, state, [X[keep], y[keep]], "float32",
+                              dev, grad=False)[0]
+    obj_rel = abs(masked - subset) / abs(subset)
+    check(math.isfinite(masked) and obj_rel <= MASK_OBJ_RTOL,
+          "phase 45: masked objective {} vs the observed subset's {}: "
+          "relative {} (tol {})".format(masked, subset, obj_rel,
+                                        MASK_OBJ_RTOL))
+    losses = {}
+    for label, data, scaling in (
+            ("masked", {"X": X, "y": y_masked}, {mm.y: mask}),
+            ("subset", {"X": X[keep], "y": y[keep]}, None)):
+        loop = recording_batch_loop(read_counts, sync)
+        GradBasedInference(MAP(model=mm, observed=[mm.X, mm.y]),
+                           grad_loop=loop, dtype="float32", device=dev).run(
+            max_iter=MASK_STEPS, learning_rate=MASK_LR, generator=gen(49),
+            rv_scaling=scaling, **data)
+        losses[label] = (loop.losses, loop.start_state, loop.wall_s)
+    (lm, sm_, wm), (ls, ss, ws) = losses["masked"], losses["subset"]
+    # each run has its own MAP posterior, so the locations' uuids differ
+    check(len(sm_) == len(ss) and all(
+        torch.equal(a_, b_) for a_, b_ in zip(sm_.values(), ss.values())),
+        "phase 45: the two MAP runs start from different states")
+    step_rel = max(abs(a_ - b_) / abs(b_) for a_, b_ in zip(lm, ls))
+    check(len(lm) == len(ls) == MASK_STEPS and step_rel <= MASK_STEP_RTOL
+          and read_counts() == none, "phase 45: MAP on the masked data vs "
+          "the subset: per-step losses relative {} (tol {}), launches {}"
+          .format(step_rel, MASK_STEP_RTOL, read_counts()))
+    print("phase 45 masks ({}): phase 39's BLR (N={}, D={}), {:.0%} of y "
+          "masked by an (N, 1) mask and set to 1e6, {} kept | objective at "
+          "one state masked {:.6f} vs subset {:.6f}: rel {:.3e} (tol "
+          "{:.0e}) | MAP by Adam (lr {}) from one start, {} steps: largest "
+          "per-step relative difference {:.3e} (tol {:.0e}), losses {} -> "
+          "{}, step wall ms median masked {:.3f} subset {:.3f} | wall {:.3f} "
+          "s".format(card, MCMC_N, MCMC_D, MASK_SHARE, int(keep.sum()),
+                     masked, subset, obj_rel, MASK_OBJ_RTOL, MASK_LR,
+                     MASK_STEPS, step_rel, MASK_STEP_RTOL, round(lm[0], 3),
+                     round(lm[-1], 3), 1e3 * float(np.median(wm[1:])),
+                     1e3 * float(np.median(ws[1:])),
+                     time.perf_counter() - t_phase), flush=True)
+    return main
 
 
 def main():
@@ -4632,6 +5196,11 @@ def main():
     sampler_k1 = sampler_phases(dev, card, args.seed, Xe, Ye, read_counts,
                                 zero_counts, sync)
 
+    # ---- 42-45. Laplace, thermodynamic integration, WAIC/PSIS-LOO and
+    # the predictive check, observation masks
+    evidence = evidence_phases(dev, card, args.seed, Xe, Ye, Xtr, Ytr,
+                               read_counts, zero_counts, sync)
+
     check(not any(k == "jax" or k.startswith(("jax.", "mxfusion_tpu."))
                   or k == "mxfusion_tpu" for k in sys.modules),
           "JAX or the JAX package was imported")
@@ -4655,18 +5224,18 @@ def main():
             launches + train_launches["K1"] + exact_launches["K1"]
             + exact_serve["K1"] + sgp_launches["K1"] + sgp_serve["K1"]
             + ng_k1 + family["K1"] + persist["K1"] + deep_kernel["K1"]
-            + sampler_k1,
+            + sampler_k1 + evidence["K1"],
             max_err, min(ms["kernel"]),
             min(ms["plain"]), ms["bound"], None),
         row("fused_gram_fwd", fused_src,
             "mxfusion_tpu/ops/pallas_fused_gram.py:93",
             train_launches["K2"] + family["K2"] + persist["K2"]
-            + deep_kernel["K2"],
+            + deep_kernel["K2"] + evidence["K2"],
             fwd_err, min(fms["K2"]), min(fms["K2 plain"]), k2_bound, None),
         row("fused_gram_bwd", fused_src,
             "mxfusion_tpu/ops/pallas_fused_gram.py:109",
             train_launches["K3"] + family["K3"] + persist["K3"]
-            + deep_kernel["K3"],
+            + deep_kernel["K3"] + evidence["K3"],
             bwd_err, min(fms["K3"]), min(fms["K3 plain"]), k3_bound, None),
         row("batched_cholesky", chol_src,
             "mxfusion_tpu/ops/pallas_batched_cholesky.py:111",

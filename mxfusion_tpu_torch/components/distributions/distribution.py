@@ -6,7 +6,9 @@ Runtime contract:
 - ``log_pdf(env)`` fetches inputs and the output random variable from a
   UUID-keyed env of tensors, broadcasts them to a common sample count
   on axis 0, and calls ``log_pdf_impl``; the result is scaled by
-  ``log_pdf_scaling`` (minibatch rescaling).
+  ``log_pdf_scaling`` (minibatch rescaling) or, where the executor set
+  ``log_pdf_scaling_key``, by the env's array under that key (an
+  observation mask).
 - ``draw_samples(env, generator, num_samples)`` realizes the output
   variable's (possibly symbolic) shape against the env's shape
   constants and calls ``draw_samples_impl`` with an explicit
@@ -66,8 +68,15 @@ class Distribution(Factor):
         if self._elementwise:
             broadcast = align_sample_arrays(broadcast)
         named = dict(zip(inputs.keys(), broadcast[:-1]))
+        # an array rv_scaling (observation mask or per-point weights)
+        # rides the env; a scalar one is the attribute (the minibatch
+        # N/B correction)
+        scaling = self.log_pdf_scaling
+        scale_key = getattr(self, "log_pdf_scaling_key", None)
+        if scale_key is not None and scale_key in env:
+            scaling = env[scale_key]
         return self.log_pdf_impl(random_variable=broadcast[-1], **named) \
-            * self.log_pdf_scaling
+            * scaling
 
     def draw_samples(self, env, generator, num_samples=1):
         """Draw ``num_samples`` samples of the output variable."""

@@ -32,3 +32,7 @@ from .svgd import SVGDAlgorithm, SVGDInference
 from .chees import ChEESHMCAlgorithm, ChEESHMCInference
 from .tempering import (ParallelTemperingAlgorithm,
                         ParallelTemperingInference)
+from .laplace import LaplaceResult, laplace_approximation
+from .evidence import PowerPosteriorAlgorithm, PowerPosteriorInference
+from .model_comparison import (pointwise_log_likelihood, waic, loo_psis,
+                               posterior_predictive_check)

@@ -36,12 +36,15 @@ class GradBasedInference(Inference):
     def run(self, optimizer="adam", learning_rate=1e-3, max_iter=2000,
             verbose=False, generator=None, callback=None, rv_scaling=None,
             resume_state=None, **kwargs):
-        """Train. ``rv_scaling``: {variable or uuid: scalar} factors
-        multiplying a random variable's log-density (the minibatch loops
-        take theirs from the loop). Parameters already in the store (from
-        :meth:`initialize`, a carry-over or an earlier run) are kept;
-        ``generator`` (a ``torch.Generator``) draws the missing initial
-        values and the loop's random numbers."""
+        """Train. ``rv_scaling``: {variable or uuid: scalar or array}
+        factors multiplying a random variable's elementwise log-density
+        (the minibatch loops take theirs from the loop). An array of the
+        variable's event rank is an observation mask or per-point weight
+        (0 = a missing entry, whose placeholder value is then irrelevant);
+        module-generated variables take scalars only. Parameters already
+        in the store (from :meth:`initialize`, a carry-over or an earlier
+        run) are kept; ``generator`` (a ``torch.Generator``) draws the
+        missing initial values and the loop's random numbers."""
         data = self._fetch_observed(kwargs)
         if isinstance(self._grad_loop, MinibatchInferenceLoop):
             if rv_scaling is not None:

@@ -19,9 +19,46 @@ from abc import ABC, abstractmethod
 import numpy as np
 import torch
 
+from .inference_parameters import MASK_SUFFIX
 from ..common.exceptions import InferenceError
 from ..components.variables.variable import VariableType
 from ..util.inference import variables_to_UUID
+
+
+def _scaling_env_key(uuid):
+    """Env key carrying a RANDVAR's array rv_scaling (mask/weights)."""
+    return uuid + MASK_SUFFIX
+
+
+def _check_array_scaling(v, arr):
+    """Validate an array rv_scaling against the variable's declaration.
+
+    Broadcasting is right-aligned, so a rank-mismatched mask (e.g.
+    (N,) against an (N, 1) event) would silently blow the density up to
+    (s, N, N) and sum it: require the mask's rank to equal the event
+    rank and every statically declared dim to match (or be 1)."""
+    from ..modules.module import Module
+    if isinstance(v.factor, Module):
+        raise InferenceError(
+            "array rv_scaling is not supported for module-generated "
+            "variable '{}': module bounds scale their already-summed "
+            "data term, so only scalars compose correctly."
+            .format(v.name or v.uuid))
+    shape = tuple(np.shape(arr))
+    declared = tuple(v.shape)
+    if len(shape) != len(declared):
+        raise InferenceError(
+            "rv_scaling array for '{}' has rank {} but the variable's "
+            "event shape {} has rank {}; masks must match the event "
+            "rank exactly (add the trailing singleton dims)."
+            .format(v.name or v.uuid, len(shape), declared,
+                    len(declared)))
+    for d_arr, d_var in zip(shape, declared):
+        if isinstance(d_var, int) and d_arr not in (1, d_var):
+            raise InferenceError(
+                "rv_scaling array for '{}' has shape {} which does not "
+                "broadcast against the declared event shape {}."
+                .format(v.name or v.uuid, shape, declared))
 
 
 def as_runtime_tensor(value, dtype, device):
@@ -122,14 +159,11 @@ class InferenceAlgorithm(ABC):
         """Collect {uuid: transformation} for every unobserved parameter
         with a bijector, and set each random variable's generating factor
         to its scalar ``rv_scaling`` (the minibatch correction N/B), 1.0
-        where none is given. Array scalings (observation masks) are not
-        ported yet and raise."""
+        where none is given. An array scaling (an observation mask or
+        per-point weights) is validated here; the factor then reads it
+        from the env under ``log_pdf_scaling_key`` (see
+        :func:`_make_env_builder`)."""
         rv_scaling = rv_scaling if rv_scaling is not None else {}
-        for uuid, s in rv_scaling.items():
-            if np.ndim(s) > 0:
-                raise NotImplementedError(
-                    "array rv_scaling (an observation mask) for {} is not "
-                    "ported yet; pass a scalar.".format(uuid))
         excluded = set(self._observed_uuid)
         var_trans = {}
         for g in self.graphs:
@@ -139,8 +173,15 @@ class InferenceAlgorithm(ABC):
                         v.uuid not in excluded:
                     var_trans[v.uuid] = v.transformation
                 if v.type == VariableType.RANDVAR:
-                    v.factor.log_pdf_scaling = float(
-                        rv_scaling.get(v.uuid, 1.0))
+                    s = rv_scaling.get(v.uuid, 1.0)
+                    if np.ndim(s) > 0:
+                        _check_array_scaling(v, s)
+                        v.factor.log_pdf_scaling = 1.0
+                        v.factor.log_pdf_scaling_key = \
+                            _scaling_env_key(v.uuid)
+                    else:
+                        v.factor.log_pdf_scaling = float(s)
+                        v.factor.log_pdf_scaling_key = None
         return var_trans
 
     def set_parameter(self, ctx, variable, value):
@@ -202,6 +243,12 @@ def _make_env_builder(algorithm, params, rv_scaling=None):
     added), variable ties. Constants are converted to tensors once, here.
     """
     var_trans = algorithm.prepare_executor(rv_scaling=rv_scaling)
+    # an array rv_scaling (observation mask) joins the fixed parameters
+    # of every call as a tensor on the run's device, so it reaches the
+    # factor through the env like any other input; the store never holds
+    # it, and a ``fixed`` entry under its key replaces it for that call
+    masks = {_scaling_env_key(uuid): params.as_tensor(s)
+             for uuid, s in (rv_scaling or {}).items() if np.ndim(s) > 0}
     for g in algorithm.graphs:
         for m in g.modules.values():
             var_trans.update(m.collect_internal_transformations())
@@ -223,7 +270,7 @@ def _make_env_builder(algorithm, params, rv_scaling=None):
 
     def build_env(trainable, fixed, data_list):
         env = VariableEnv(constants)
-        for source in (fixed, trainable):
+        for source in ({**masks, **fixed}, trainable):
             for uuid, v in source.items():
                 t = var_trans.get(uuid)
                 tv = t.transform(v) if t is not None else v

@@ -17,6 +17,12 @@ from ..components.variables.variable import Variable
 from ..util.inference import realize_shape
 
 
+# suffix of the env key under which an array rv_scaling (an observation
+# mask) rides a run's fixed parameters; the JAX package's save writes it
+# into the zip beside the parameters
+MASK_SUFFIX = ":rv_scale"
+
+
 class InferenceParameters:
     def __init__(self, constants=None, dtype=None, device=None):
         self._params = {}
@@ -180,10 +186,14 @@ class InferenceParameters:
         """Remap loaded UUIDs through the reconciliation map into
         ``current_params`` (or a new store of ``dtype`` on ``device``).
         Parameters land on the store's device in its dtype; a parameter
-        with no reconciled match raises :class:`InferenceError`."""
+        with no reconciled match raises :class:`InferenceError`. An
+        observation mask that the JAX package's ``save`` wrote beside the
+        parameters is run data and is not loaded."""
         ip = current_params if current_params is not None \
             else InferenceParameters(dtype=dtype, device=device)
         for prev_uuid, arr in params.items():
+            if prev_uuid.endswith(MASK_SUFFIX):
+                continue
             cur = uuid_map.get(prev_uuid)
             if cur is None:
                 raise InferenceError(

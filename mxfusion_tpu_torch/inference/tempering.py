@@ -34,8 +34,10 @@ def _swap_pass(q, lp, glp, betas, t_idx, num_temps, parity, log_u):
     """Even/odd adjacent-pair swaps within each chain block, on explicit
     draws ``log_u`` (R,). Pair (t, t+1) with t ≡ parity (mod 2): the
     LOWER row of a pair proposes to swap with its +1 neighbour. ``lp``
-    and ``glp`` (the untempered log posterior and its gradient at q)
-    move with the states. Returns (q, lp, glp, do_swap, is_lower)."""
+    (the untempered log posterior at q; the power posterior's
+    log-likelihood) and the {name: tensor} ``glp`` (its gradient; the
+    power posterior's prior terms) move with the states. Returns (q, lp,
+    glp, do_swap, is_lower)."""
     lp_up = torch.roll(lp, -1)
     beta_up = torch.roll(betas, -1)
     is_lower = (t_idx % 2 == parity) & (t_idx < num_temps - 1)

@@ -8,8 +8,11 @@ and a Poisson SVGP, and fits and serves an LMC multi-output SVGP and
 2-layer deep GPs (regression and classification) and trains an SVGP by
 natural gradients, full batch and minibatch, and trains networks in the
 graph (``NNFunction``: a Bayesian NN, a VAE and a deep-kernel SVGP,
-served), and samples a conjugate posterior by HMC and SVGD. Also: chip_smoke.py refuses to run without a GPU and without
-the rest of the repository."""
+served), and samples a conjugate posterior by HMC and SVGD, and fits a
+masked MAP, approximates it by Laplace, scores HMC draws by WAIC,
+PSIS-LOO and a predictive check, and integrates a power posterior.
+Also: chip_smoke.py refuses to run without a GPU and without the rest of
+the repository."""
 import os
 import shutil
 import subprocess
@@ -603,6 +606,93 @@ jaxy = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib",
 assert not jaxy, jaxy
 print("SAMPLERS", float(tau.mean()), a / b)
 """
+
+
+EVIDENCE_WITHOUT_JAX = r"""
+import sys
+sys.modules["jax"] = None          # any `import jax` now raises
+sys.path.insert(0, {root!r})
+import numpy as np
+import torch
+torch.set_num_threads(1)           # small ops: threads only contend
+from mxfusion_tpu_torch.common.config import set_default_device
+set_default_device("cpu")
+from mxfusion_tpu_torch import Model, Variable
+from mxfusion_tpu_torch.components.distributions import (Gamma, Exponential,
+                                                         Normal)
+from mxfusion_tpu_torch.components.functions.operators import broadcast_to
+from mxfusion_tpu_torch.inference import (
+    GradBasedInference, HMCAlgorithm, HMCInference, MAP,
+    PowerPosteriorAlgorithm, PowerPosteriorInference, laplace_approximation,
+    loo_psis, pointwise_log_likelihood, posterior_predictive_check, waic)
+
+N = 40
+rng = np.random.default_rng(0)
+y = rng.standard_normal((N, 1)) + 2.0
+mask = (rng.random((N, 1)) < 0.8).astype(np.float64)
+
+def normal_mean():
+    m = Model()
+    m.mu = Normal.define_variable(mean=0., variance=100., shape=(1,))
+    m.y = Normal.define_variable(
+        mean=broadcast_to(m.mu, (N, 1)),
+        variance=broadcast_to(Variable(value=1.0), (N, 1)), shape=(N, 1))
+    return m
+
+# masked MAP, then Laplace: the conjugate posterior of the kept points
+m = normal_mean()
+infr = GradBasedInference(MAP(model=m, observed=[m.y]), dtype="float64")
+infr.run(y=np.where(mask > 0, y, 1e6), max_iter=300, learning_rate=0.1,
+         rv_scaling={{m.y: mask}})
+lap = laplace_approximation(infr, y=y)
+mean, cov = lap.marginal(m.mu)
+k = mask.sum()
+post_var = 1.0 / (k + 0.01)
+assert abs(float(mean[0]) - (y * mask).sum() * post_var) < 1e-3
+# all N points: Laplace drops the run's mask, as the JAX package does
+assert abs(float(cov[0, 0]) - 1.0 / (N + 0.01)) < 1e-12
+# HMC draws, then WAIC, PSIS-LOO and a predictive check
+m = normal_mean()
+hinf = HMCInference(HMCAlgorithm(model=m, observed=[m.y], num_samples=100,
+                                 num_warmup=50, num_chains=2,
+                                 num_leapfrog=4))
+hinf.run(y=y, generator=torch.Generator().manual_seed(0))
+ll = pointwise_log_likelihood(hinf, y=y)["y"]
+assert tuple(ll.shape) == (200, N)
+w, lo = waic(ll), loo_psis(ll)
+assert abs(w["elpd_waic"] - lo["elpd_loo"]) < 2.0 and 0.2 < w["p_waic"] < 3.0
+ppc = posterior_predictive_check(hinf, lambda r: r.var(correction=0), "y",
+                                 y=y)
+assert 0.0 <= ppc["p_value"] <= 1.0
+# thermodynamic integration on a short ladder
+y2 = rng.exponential(1.0 / 1.7, (N, 1))
+m = Model()
+m.tau = Gamma.define_variable(alpha=2.0, beta=2.0, shape=(1,))
+m.y = Exponential.define_variable(rate=broadcast_to(m.tau, (N, 1)),
+                                  shape=(N, 1))
+ti = PowerPosteriorInference(PowerPosteriorAlgorithm(
+    model=m, observed=[m.y], num_samples=20, num_warmup=20, num_chains=2,
+    num_temps=4, num_leapfrog=4))
+ti.run(y=y2, generator=torch.Generator().manual_seed(1))
+assert np.isfinite(ti.log_evidence)
+assert ti.diagnostics["potential_evaluations"] == 1 + 5 * 40
+jaxy = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib",
+                                                       "mxfusion_tpu")
+        and sys.modules[k] is not None]
+assert not jaxy, jaxy
+print("EVIDENCE", lap.log_evidence, w["elpd_waic"], ti.log_evidence)
+"""
+
+
+def test_port_computes_evidence_and_criticism_without_jax():
+    """A masked MAP fit and its Laplace approximation, WAIC, PSIS-LOO and
+    a predictive check on HMC draws, and thermodynamic integration run in
+    an interpreter without JAX."""
+    proc = subprocess.run(
+        [sys.executable, "-c", EVIDENCE_WITHOUT_JAX.format(root=str(ROOT))],
+        capture_output=True, text=True, timeout=60, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert "EVIDENCE" in proc.stdout
 
 
 def test_port_samples_by_hmc_and_svgd_without_jax():

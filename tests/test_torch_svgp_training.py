@@ -372,9 +372,13 @@ def test_device_loop_batches_are_device_permutations():
 
 
 def test_array_rv_scaling_raises_until_masks_are_ported():
+    """Observation masks are ported; on the SVGP's module-generated Y an
+    array rv_scaling raises, as in JAX (the module bound scales its
+    already-summed data term, so only a scalar composes)."""
+    from mxfusion_tpu_torch.common.exceptions import InferenceError
     X, Y, Z0 = _data(6, 30, 2, 4)
     _, tinf = _pair(X, Y, Z0)
-    with pytest.raises(NotImplementedError, match="mask"):
+    with pytest.raises(InferenceError, match="module-generated"):
         create_executor(tinf.inference_algorithm, tinf.params,
                         rv_scaling={tinf.graphs[0].Y.uuid: np.ones((30, 1))})
 
