@@ -26,7 +26,11 @@ benchmarks/mcmc_throughput.py's Bayesian linear regression and over a
 GP module, whose potential K1 builds, and the evidence and
 model-criticism layer (Laplace through K1, thermodynamic integration
 with K1 in every rung's potential, WAIC, PSIS-LOO, predictive checks)
-and observation masks. In phases that each print one line:
+and observation masks, and the state-space slice (the Kalman filter and
+RTS smoother, sequential and parallel in time, ``LinearGaussianSSM`` by
+MAP, ``GaussianAR1`` under HMC for stochastic volatility, and PILCO,
+whose GP dynamics K1 builds in every fit step and rollout step). In
+phases that each print one line:
 
 1. device: needs CUDA (exits nonzero without it); prints the card's
    name and power limit (nvidia-smi) and the TF32 settings;
@@ -324,7 +328,35 @@ and observation masks. In phases that each print one line:
 45. observation masks: 20% of phase 39's y masked by an (N, 1) mask (and
    set to 1e6): the masked objective at one state within 1e-6 of the
    observed subset's, and 20 MAP steps on each from one start within
-   1e-5, step for step.
+   1e-5, step for step;
+46. kalman: a D = 4, E = 2 system (benchmarks/NOTES.md:356-375's shape):
+   the log-likelihood of the parallel filter at T = 1024, 8192 and 65536
+   and of the sequential one at T = 1024 and 8192, float32 on the card
+   against float64 on the CPU within 1e-5 relative; the walls forward
+   and forward+backward (into A, Q and R), the sequential one's at
+   T = 1024 with its host cost a step; at T = 8192 one batched
+   sequential run filters the series and a 30%-masked copy of it
+   (placeholders 1e6), each against float64; the RTS smoothers,
+   sequential against parallel, at T = 8192 (1e-5 of the largest entry);
+   no host sync in the sequential filter, its backward and the smoother
+   (``torch.cuda.set_sync_debug_mode("error")``); a profile of each
+   filter's forward (idle share); no launch of K1-K5;
+47. SSM MAP: the golden_ssm_map model at D = 4, E = 2 on phase 46's
+   data, 20 Adam steps with the parallel filter at T = 65536 and 2 with
+   the sequential one at T = 1024 (cut from 10 for time): the losses
+   fall, the first loss against float64 within 1e-5, the step walls;
+48. stochastic volatility: examples/stochastic_volatility.py's model at
+   T = 2520, HMC with 2 chains and L = 16, 100 + 100 transitions: the
+   posterior mean's correlation with the true path above 0.5 and the 90%
+   band's coverage above 0.75 (the example's asserts); evaluations/s;
+49. PILCO: examples/pilco/pilco_example.py's configuration (dynamics and
+   policy fits cut to 100 and 40 steps): the cost falls and the gain is
+   negative; then a 4-state, 1-action linear system at the cart-pole
+   widths (N = 1024, an RBF over 5 inputs, Y (1024, 4), horizon 25, 64
+   samples, 20 dynamics and 5 policy steps): K1 once a dynamics step and
+   once a rollout step, one rollout's cost and policy gradient with K1
+   against its plain version (1e-4, 1e-3), the step walls and the idle
+   share of two profiled policy steps.
 
 Any failed check raises and the script exits nonzero. The last three
 lines are the card (nvidia-smi), the kernels' JSON record (each with
@@ -587,6 +619,48 @@ MC_THIN, MC_DRAWS, MC_SUBSET, MC_CPU_RTOL, MC_MIS_D = 10, 200, 4096, 1e-9, 16
 # order, and 20 Adam steps keep their losses within 1e-5
 MASK_SHARE, MASK_OBJ_RTOL, MASK_STEPS, MASK_LR, MASK_STEP_RTOL = (
     0.2, 1e-6, 20, 1e-3, 1e-5)
+# the state-space slice (phases 46-49). The Kalman ops at
+# benchmarks/NOTES.md:356-375's shape: D = 4 latent states, E = 2
+# observations, a stable A (0.9·I plus 0.05 N(0, 1) entries from the
+# seed, its spectral radius checked below 1), Q = 0.05·I + 0.01,
+# R = 0.1·I
+KF_D, KF_E = 4, 2
+KF_T_SHORT, KF_T_LONG, KF_T_PAR = 1024, 8192, 65536
+KF_MASK_SHARE, KF_PAR_ROUNDS, KF_PROFILE_T = 0.3, 3, 256
+# the sequential filter is host-bound (about 1.2 ms a step forward and
+# 4.5 forward+backward on an H100's host): its forward+backward wall is
+# taken at T = 1024 only, and at T = 8192 one batched forward filters
+# the series and its masked copy together (the batch axis)
+# float32 on the card against float64: the log-likelihood is a sum of T
+# terms of about -1.5 nats, all of one sign. fp32's unit roundoff u =
+# 6e-8 gives each term about cond(S)·u ≈ 1e-6 relative (S = H P Hᵀ + R
+# is 2×2 with cond about 10); the filter forgets an error at the rate of
+# A (ρ = 0.94), so the terms' errors do not pile up over time, and they
+# are of both signs; the sum's own rounding is at most log2(T)·u ≈ 1e-6
+# at T = 65536 (a tree reduction). 1e-5 leaves a margin of ten. The
+# parallel filter's combines solve (I + CJ) systems of cond about 10 at
+# log2(T) levels: the same order. The smoothers, sequential against
+# parallel, within 1e-5 of the largest entry, by the same count.
+KF_LL_RTOL, KF_SMOOTH_RTOL = 1e-5, 1e-5
+# phase 47: the golden_ssm_map model (tests/goldens/configs.py:236-265,
+# A a parameter from 0.5·I, MAP by Adam at lr 0.05) at phase 46's D = 4,
+# E = 2 and data; the first loss against float64 at KF_LL_RTOL
+SSM_PAR_T, SSM_PAR_STEPS, SSM_SEQ_T, SSM_SEQ_STEPS, SSM_LR = (
+    65536, 20, 1024, 2, 0.05)
+# phase 48: examples/stochastic_volatility.py's model at T = 2520 (ten
+# years of daily returns), HMC with 2 chains and L = 16; warmup and
+# draws cut from 500 + 500
+SV_T, SV_CHAINS, SV_L, SV_WARMUP, SV_DRAWS = 2520, 2, 16, 100, 100
+# phase 49: examples/pilco/pilco_example.py's configuration (n = 80,
+# horizon 10, 4 samples), its fits cut from 300 and 150 steps; then a
+# 4-state, 1-action linear system at the cart-pole widths of Deisenroth &
+# Rasmussen 2011 (ICML): N = 1024 transitions, GPRegression with an RBF
+# over the 5 inputs and Y (1024, 4), horizon 25, 64 samples. K1 against
+# its plain version over one rollout at the exact GP's tolerances
+PILCO_EX_N, PILCO_EX_DYN, PILCO_EX_POLICY, PILCO_EX_H, PILCO_EX_S = (
+    80, 100, 40, 10, 4)
+PILCO_N, PILCO_DS, PILCO_H, PILCO_S = 1024, 4, 25, 64
+PILCO_DYN_STEPS, PILCO_POLICY_STEPS, PILCO_LR = 20, 5, 0.05
 
 
 def check(ok, message):
@@ -4289,6 +4363,494 @@ def evidence_phases(dev, card, seed, Xe, Ye, Xtr, Ytr, read_counts,
     return main
 
 
+def kalman_system(rng):
+    """Phase 46's system, float64 numpy: (A, H, Q, R, m0, P0)."""
+    A = 0.9 * np.eye(KF_D) + 0.05 * rng.standard_normal((KF_D, KF_D))
+    H = rng.standard_normal((KF_E, KF_D))
+    Q = 0.05 * np.eye(KF_D) + 0.01 * np.ones((KF_D, KF_D))
+    return A, H, Q, 0.1 * np.eye(KF_E), np.zeros(KF_D), np.eye(KF_D)
+
+
+def kalman_data(rng, system, T):
+    """T observations of ``system`` (float64), simulated in numpy."""
+    A, H, Q, R, m0, P0 = system
+    w = rng.standard_normal((T, KF_D)) @ np.linalg.cholesky(Q).T
+    x = np.zeros((T, KF_D))
+    x[0] = m0 + np.linalg.cholesky(P0) @ rng.standard_normal(KF_D)
+    for t in range(1, T):
+        x[t] = A @ x[t - 1] + w[t]
+    return x @ H.T + rng.standard_normal((T, KF_E)) @ \
+        np.linalg.cholesky(R).T
+
+
+def kalman_loglik_np(y, mask, system):
+    """The log-likelihood of ``y`` under ``system`` with the steps where
+    ``mask`` is 0 skipped, by a sequential filter in float64 numpy: an
+    oracle independent of the port, as
+    tests/components/distributions/test_ssm.py's ``_np_filter_masked``."""
+    A, H, Q, R, m, P = system
+    ll = 0.0
+    for t in range(len(y)):
+        if t > 0:
+            m, P = A @ m, A @ P @ A.T + Q
+        if mask[t] > 0:
+            S = H @ P @ H.T + R
+            innov = y[t] - H @ m
+            ll -= 0.5 * (len(innov) * math.log(2 * math.pi)
+                         + np.linalg.slogdet(S)[1]
+                         + innov @ np.linalg.solve(S, innov))
+            K = np.linalg.solve(S, H @ P).T
+            m, P = m + K @ innov, P - K @ H @ P
+    return ll
+
+
+def ssm_model(system, T, parallel):
+    """tests/goldens/configs.py:236-265's model at phase 46's widths: A a
+    parameter from 0.5·I, the rest of ``system`` constants."""
+    from mxfusion_tpu_torch import Model, Variable
+    from mxfusion_tpu_torch.components.distributions import \
+        LinearGaussianSSM
+    _, H, Q, R, m0, P0 = system
+    m = Model()
+    m.A = Variable(shape=(KF_D, KF_D), initial_value=np.eye(KF_D) * 0.5)
+    m.y = LinearGaussianSSM.define_variable(
+        A=m.A, H=Variable(value=H), trans_cov=Variable(value=Q),
+        obs_cov=Variable(value=R), initial_mean=Variable(value=m0),
+        initial_cov=Variable(value=P0), shape=(T, KF_E),
+        parallel_filter=parallel, dtype="float32")
+    return m
+
+
+def sv_data(rng, T):
+    """examples/stochastic_volatility.py's simulation: a log-volatility
+    AR(1) path (phi 0.95, sd 0.25) and returns y_t ~ N(0, exp(x_t))."""
+    x = np.zeros(T)
+    x[0] = -1.0 + 0.5 * rng.standard_normal()
+    for t in range(1, T):
+        x[t] = 0.95 * x[t - 1] + 0.25 * rng.standard_normal()
+    return x, np.exp(x / 2) * rng.standard_normal(T)
+
+
+def sv_model(T):
+    """examples/stochastic_volatility.py's model."""
+    from mxfusion_tpu_torch import Model, Variable
+    from mxfusion_tpu_torch.components.distributions import (GaussianAR1,
+                                                             Normal)
+    from mxfusion_tpu_torch.components.functions.operators import exp
+    m = Model()
+    m.x = GaussianAR1.define_variable(
+        phi=Variable(value=0.95), noise_var=Variable(value=0.25 ** 2),
+        init_mean=Variable(value=-1.0), init_var=Variable(value=1.0),
+        shape=(T,))
+    m.y = Normal.define_variable(mean=Variable(value=np.zeros(T)),
+                                 variance=exp(m.x), shape=(T,))
+    return m
+
+
+def pilco_dynamics(d_in, d_out):
+    """examples/pilco/pilco_example.py's dynamics model: GPRegression
+    with an RBF over the state-action inputs."""
+    from mxfusion_tpu_torch import Model, Variable
+    from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
+    from mxfusion_tpu_torch.components.variables import \
+        PositiveTransformation
+    from mxfusion_tpu_torch.modules import GPRegression
+    m = Model()
+    m.N = Variable()
+    m.X = Variable(shape=(m.N, d_in))
+    m.noise_var = Variable(transformation=PositiveTransformation(),
+                           initial_value=0.01)
+    m.Y = GPRegression.define_variable(
+        X=m.X, kernel=RBF(input_dim=d_in, variance=1., lengthscale=1.),
+        noise_var=m.noise_var, shape=(m.N, d_out))
+    return m
+
+
+def pilco_inference(m, dyn, horizon, s0, loop, dev):
+    """The example's PILCO: a linear policy a = s·w (w from 0), the cost
+    Σ s², rolled out from the states ``s0`` over ``horizon`` steps."""
+    import torch
+    from mxfusion_tpu_torch import Variable
+    from mxfusion_tpu_torch.inference import (GradTransferInference,
+                                              PILCOAlgorithm)
+    m.policy_w = Variable(shape=(s0.shape[1], 1),
+                          initial_value=np.zeros((s0.shape[1], 1)))
+    s0 = torch.as_tensor(s0, dtype=torch.float32, device=dev)
+
+    def policy(s, env):
+        return torch.einsum("...i,ij->...j", s, env[m.policy_w.uuid][0])
+
+    def cost(s, a, env):
+        return torch.sum(torch.square(s))
+
+    alg = PILCOAlgorithm(model=m, observed=[], cost_function=cost,
+                         policy=policy, n_time_steps=horizon,
+                         initial_state_generator=lambda k: s0[:k],
+                         num_samples=s0.shape[0])
+    return GradTransferInference(inference_algorithm=alg,
+                                 infr_params=dyn.params, grad_loop=loop,
+                                 dtype="float32", device=dev)
+
+
+def state_space_phases(dev, card, seed, read_counts, zero_counts, sync):
+    """Phases 46-49: the Kalman ops, SSM MAP, stochastic volatility by
+    HMC and PILCO. Returns K1's launches on the main paths (phase 49's
+    dynamics fits and policy steps)."""
+    import warnings
+    import torch
+    from mxfusion_tpu_torch.inference import (
+        GradBasedInference, HMCAlgorithm, HMCInference, MAP,
+        create_executor)
+    from mxfusion_tpu_torch.ops import cuda_kernels, kalman
+    none = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+
+    def gen(k, device=dev):
+        return torch.Generator(device).manual_seed(seed + k)
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    # ---- 46. the Kalman ops
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 46)
+    system = kalman_system(rng)
+    rho = float(np.max(np.abs(np.linalg.eigvals(system[0]))))
+    check(rho < 1.0, "phase 46: A's spectral radius {}".format(rho))
+    y = kalman_data(rng, system, KF_T_PAR)
+    mask = (rng.random(KF_T_LONG) >= KF_MASK_SHARE).astype(np.float64)
+    # the masked steps' placeholders are far off: the filter skips them
+    y_masked = np.where(mask[:, None] > 0, y[:KF_T_LONG], 1e6)
+
+    def on(T, dtype=torch.float32, device=dev, data=None, grad=False):
+        a = [torch.as_tensor(v, dtype=dtype, device=device)
+             for v in (y[:T] if data is None else data,) + system]
+        for i in (1, 3, 4):          # A, Q and R
+            a[i].requires_grad_(grad)
+        return a
+
+    def run(filt, args, grad=False, **kw):
+        """The filter's outputs and the wall of one evaluation (and of
+        its backward into A, Q and R with ``grad``)."""
+        sync()
+        t0 = time.perf_counter()
+        out = filt(*args, **kw)
+        if grad:
+            out["loglik"].backward()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def ll_rel(out, ref, label):
+        ll = out["loglik"].detach().double().cpu().numpy()
+        err = float(np.max(np.abs(ll - ref) / np.abs(ref)))
+        check(err <= KF_LL_RTOL, "phase 46: {}: float32 log-likelihood {} "
+              "vs float64 {}: relative {} (tol {})".format(
+                  label, ll, ref, err, KF_LL_RTOL))
+        return err
+
+    seq, par = kalman.kalman_filter, kalman.kalman_filter_parallel
+    zero_counts()
+    for filt in (seq, par):          # warm-up: handles, kernels, allocator
+        run(filt, on(64, grad=True), grad=True)
+    # no step of the sequential filter (forward, backward, masked) and
+    # of the smoother waits for the host
+    small = on(256, grad=True)
+    mask_small = torch.as_tensor(mask[:256], dtype=torch.float32,
+                                 device=dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = seq(*small, mask=mask_small)
+        out["loglik"].backward()
+        kalman.rts_smoother(out["filtered_means"], out["filtered_covs"],
+                            out["pred_means"], out["pred_covs"], small[1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    with warnings.catch_warnings(record=True) as par_syncs:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            par(*small)["loglik"].backward()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sync()
+    # float64 on the CPU: the port's parallel filter, and a numpy filter
+    # (it agrees with the first at T = 1024) for the masked series
+    refs = {T: float(par(*on(T, torch.float64, "cpu"))["loglik"])
+            for T in (KF_T_SHORT, KF_T_LONG, KF_T_PAR)}
+    ref_np = kalman_loglik_np(y[:KF_T_SHORT], np.ones(KF_T_SHORT), system)
+    check(rel(ref_np, refs[KF_T_SHORT]) <= 1e-9, "phase 46: float64 on "
+          "the CPU, numpy's sequential filter {} vs the port's parallel one "
+          "{} at T={}".format(ref_np, refs[KF_T_SHORT], KF_T_SHORT))
+    ref_masked = kalman_loglik_np(y_masked, mask, system)
+    walls, errs = {}, {}
+    for T in (KF_T_SHORT, KF_T_LONG, KF_T_PAR):
+        fwd = [run(par, on(T)) for _ in range(KF_PAR_ROUNDS)]
+        both = [run(par, on(T, grad=True), grad=True)
+                for _ in range(KF_PAR_ROUNDS)]
+        errs["parallel", T] = max(ll_rel(o, refs[T], "parallel filter at "
+                                         "T={}".format(T)) for o, _ in
+                                  fwd + both)
+        walls["parallel", T] = (float(np.median([w for _, w in fwd])),
+                                float(np.median([w for _, w in both])))
+    out, t_fwd = run(seq, on(KF_T_SHORT))
+    out_b, t_both = run(seq, on(KF_T_SHORT, grad=True), grad=True)
+    errs["sequential", KF_T_SHORT] = max(
+        ll_rel(o, refs[KF_T_SHORT], "sequential filter at T={}".format(
+            KF_T_SHORT)) for o in (out, out_b))
+    walls["sequential", KF_T_SHORT] = (t_fwd, t_both)
+    # the series and its masked copy (placeholders 1e6) in one batched run
+    pair = on(KF_T_LONG, data=np.stack([y[:KF_T_LONG], y_masked]))
+    pair_mask = torch.as_tensor(np.stack([np.ones(KF_T_LONG), mask]),
+                                dtype=torch.float32, device=dev)
+    out, t_pair = run(seq, pair, mask=pair_mask)
+    errs["sequential", KF_T_LONG] = ll_rel(
+        {"loglik": out["loglik"][0]}, refs[KF_T_LONG],
+        "sequential filter at T={}".format(KF_T_LONG))
+    err_masked = ll_rel({"loglik": out["loglik"][1]}, ref_masked,
+                        "{:.0%}-masked sequential filter at T={}".format(
+                            KF_MASK_SHARE, KF_T_LONG))
+    walls["sequential", KF_T_LONG] = (t_pair, None)
+    # the smoothers on the float32 filter's outputs (the unmasked series),
+    # sequential against parallel
+    A32 = torch.as_tensor(system[0], dtype=torch.float32, device=dev)
+    smooth_args = tuple(out[k][0] for k in (
+        "filtered_means", "filtered_covs", "pred_means", "pred_covs")) + \
+        (A32,)
+    (ms_seq, Ps_seq), t_sm_seq = run(
+        lambda *a: kalman.rts_smoother(*a), smooth_args)
+    (ms_par, Ps_par), t_sm_par = run(
+        lambda *a: kalman.rts_smoother_parallel(*a), smooth_args)
+    m_err = float((ms_seq - ms_par).abs().max() / ms_seq.abs().max())
+    P_err = float((Ps_seq - Ps_par).abs().max() / Ps_seq.abs().max())
+    check(m_err <= KF_SMOOTH_RTOL and P_err <= KF_SMOOTH_RTOL
+          and bool(torch.isfinite(Ps_par).all()),
+          "phase 46: smoothers at T={}, sequential vs parallel: means {} "
+          "and covariances {} of their largest entry (tol {})".format(
+              KF_T_LONG, m_err, P_err, KF_SMOOTH_RTOL))
+    prof_seq = profile_window(lambda: seq(*on(KF_PROFILE_T)), ROOT / "build"
+                              / "chip_smoke_kalman_seq_trace.json")
+    prof_par = profile_window(lambda: par(*on(KF_T_PAR)), ROOT / "build"
+                              / "chip_smoke_kalman_par_trace.json")
+    check(read_counts() == none, "phase 46: launched {}".format(
+        read_counts()))
+    rows = []
+    for (name, T), (f, b) in walls.items():
+        rows.append("{} T={}: forward {:.3f} ms{}{}, rel {:.3e}".format(
+            name, T, 1e3 * f, "" if b is None else
+            ", forward+backward {:.3f} ms".format(1e3 * b),
+            " ({:.4f} ms a step{})".format(
+                1e3 * f / T, "" if b is None else
+                ", {:.4f} with the backward".format(1e3 * b / T))
+            if name == "sequential" else "", errs[name, T]))
+    print("phase 46 kalman ({}): D={} E={}, float32 vs float64 on the CPU "
+          "(tol {:.0e}), float64 {} | {} | the sequential run at T={} "
+          "filters the series and its {:.0%}-masked copy (placeholders 1e6) "
+          "as a batch of 2: masked rel {:.3e} | smoothers at T={}: "
+          "sequential {:.3f} ms, parallel {:.3f} ms, means {:.3e} and "
+          "covariances {:.3e} of their largest entry apart (tol {:.0e}) | "
+          "no host sync in the sequential filter, its backward and the "
+          "smoother; the parallel filter's sync warnings: {} | profile, "
+          "sequential forward at T={}: {} | parallel forward at T={}: {} | "
+          "wall {:.3f} s".format(
+              card, KF_D, KF_E, KF_LL_RTOL,
+              {T: round(v, 6) for T, v in refs.items()}, " | ".join(rows),
+              KF_T_LONG, KF_MASK_SHARE, err_masked, KF_T_LONG,
+              1e3 * t_sm_seq, 1e3 * t_sm_par, m_err, P_err, KF_SMOOTH_RTOL,
+              len(par_syncs), KF_PROFILE_T, profile_summary(prof_seq, 1),
+              KF_T_PAR, profile_summary(prof_par, 1),
+              time.perf_counter() - t_phase), flush=True)
+
+    # ---- 47. SSM MAP: the golden_ssm_map model at D = 4, E = 2
+    t_phase = time.perf_counter()
+    rows = []
+    for label, T, parallel, steps in (
+            ("parallel", SSM_PAR_T, True, SSM_PAR_STEPS),
+            ("sequential", SSM_SEQ_T, False, SSM_SEQ_STEPS)):
+        m = ssm_model(system, T, parallel)
+        loop = recording_batch_loop(read_counts, sync)
+        inf = GradBasedInference(MAP(model=m, observed=[m.y]),
+                                 grad_loop=loop, dtype="float32", device=dev)
+        zero_counts()
+        inf.run(y=y[:T], max_iter=steps, learning_rate=SSM_LR,
+                generator=gen(47))
+        check(read_counts() == none, "phase 47 {}: launched {}".format(
+            label, read_counts()))
+        first64, _ = loss_and_grad_at(
+            MAP(model=m, observed=[m.y]),
+            {k: v.cpu() for k, v in loop.start_state.items()}, [y[:T]],
+            "float64", "cpu", grad=False)
+        first_rel = rel(loop.losses[0], first64)
+        check(len(loop.losses) == steps and np.all(np.isfinite(loop.losses))
+              and loop.losses[-1] < loop.losses[0]
+              and first_rel <= KF_LL_RTOL, "phase 47 {}: losses {}, first "
+              "loss vs float64 {}: relative {} (tol {})".format(
+                  label, loop.losses, first64, first_rel, KF_LL_RTOL))
+        rows.append("{} filter at T={}: {} Adam steps (lr {}), losses "
+                    "{:.4f} -> {:.4f}, first loss vs float64 {:.4f}: rel "
+                    "{:.3e}, step wall ms {}".format(
+                        label, T, steps, SSM_LR, loop.losses[0],
+                        loop.losses[-1], first64, first_rel,
+                        wall_summary(loop.wall_s, listed=False)))
+    print("phase 47 ssm MAP ({}): A ({}x{}) from 0.5·I | {} | no launch | "
+          "wall {:.3f} s".format(card, KF_D, KF_D, " | ".join(rows),
+                                 time.perf_counter() - t_phase), flush=True)
+
+    # ---- 48. stochastic volatility by HMC
+    t_phase = time.perf_counter()
+    x_true, y_sv = sv_data(np.random.default_rng(seed + 48), SV_T)
+    m = counting(sv_model(SV_T))
+    infr = HMCInference(HMCAlgorithm(
+        model=m, observed=[m.y], num_samples=SV_DRAWS, num_chains=SV_CHAINS,
+        num_warmup=SV_WARMUP, num_leapfrog=SV_L), dtype="float32",
+        device=dev)
+    zero_counts()
+    sync()
+    t0 = time.perf_counter()
+    xs = infr.run(y=y_sv, generator=gen(48))[m.x.uuid]
+    sync()
+    sv_s = time.perf_counter() - t0
+    xs = xs.double().cpu().numpy()                   # (S, C, T)
+    x_post = xs.mean(axis=(0, 1))
+    lo, hi = np.percentile(xs, [5, 95], axis=(0, 1))
+    corr = float(np.corrcoef(x_post, x_true)[0, 1])
+    cover = float(((x_true >= lo) & (x_true <= hi)).mean())
+    accept = infr.diagnostics["accept_rate"]
+    check(xs.shape == (SV_DRAWS, SV_CHAINS, SV_T) and np.isfinite(xs).all()
+          and corr > 0.5 and cover > 0.75 and read_counts() == none,
+          "phase 48: draws {}, posterior mean's correlation with the true "
+          "path {} (must exceed 0.5), 90% band coverage {} (must exceed "
+          "0.75), launches {}".format(xs.shape, corr, cover, read_counts()))
+    print("phase 48 stochastic volatility ({}): T={}, HMC {} chains, L={}, "
+          "{} + {} transitions (cut from 500 + 500): {} potential "
+          "evaluations in {:.3f} s, {:.1f} evaluations/s; accept rates {}, "
+          "posterior mean's correlation with the true path {:.4f} (> 0.5), "
+          "90% band coverage {:.4f} (> 0.75); no launch | wall {:.3f} s"
+          .format(card, SV_T, SV_CHAINS, SV_L, SV_WARMUP, SV_DRAWS,
+                  m.evaluations, sv_s, m.evaluations / sv_s,
+                  [round(float(a), 3) for a in accept], corr, cover,
+                  time.perf_counter() - t_phase), flush=True)
+
+    # ---- 49. PILCO: K1 in every dynamics step and every rollout step
+    t_phase = time.perf_counter()
+    main_k1, lines = 0, []
+    # (a) the example: s' = 0.9 s + 0.4 a
+    rng = np.random.default_rng(seed + 49)
+    S = rng.standard_normal((PILCO_EX_N, 1)) * 1.5
+    U = rng.uniform(-1, 1, (PILCO_EX_N, 1))
+    Y = 0.9 * S + 0.4 * U + rng.standard_normal((PILCO_EX_N, 1)) * 0.01
+    for label, X_, Y_, dyn_steps, policy_steps, horizon, s0, lr in (
+            ("example", np.concatenate([S, U], -1), Y, PILCO_EX_DYN,
+             PILCO_EX_POLICY, PILCO_EX_H, np.ones((PILCO_EX_S, 1)), 0.1),
+            ("wide",) + pilco_wide_data(rng) + (
+                PILCO_DYN_STEPS, PILCO_POLICY_STEPS, PILCO_H,
+                rng.standard_normal((PILCO_S, PILCO_DS)), PILCO_LR)):
+        m = pilco_dynamics(X_.shape[1], Y_.shape[1])
+        dyn_loop = recording_batch_loop(read_counts, sync)
+        dyn = GradBasedInference(MAP(model=m, observed=[m.X, m.Y]),
+                                 grad_loop=dyn_loop, dtype="float32",
+                                 device=dev)
+        zero_counts()
+        dyn.run(max_iter=dyn_steps, learning_rate=0.05, X=X_, Y=Y_,
+                generator=gen(49))
+        dyn_counts = read_counts()
+        check(dyn_counts == dict(none, K1=dyn_steps) and all(
+            c == dict(none, K1=1) for c in dyn_loop.counts),
+            "phase 49 {}: {} dynamics steps launched {}; expected K1 once a "
+            "step".format(label, dyn_steps, dyn_counts))
+        loop = recording_batch_loop(read_counts, sync)
+        pinf = pilco_inference(m, dyn, horizon, s0, loop, dev)
+        check_kernel = None
+        if label == "wide":
+            # K1 against its plain version over one rollout at the start
+            pinf.initialize()
+            ex = create_executor(pinf.inference_algorithm, pinf.params)
+            w_uuid = m.policy_w.uuid
+
+            def cost_and_grad():
+                tr = {u: v.detach().clone().requires_grad_(u == w_uuid)
+                      for u, v in pinf.params.trainable_params().items()}
+                c = ex(tr, pinf.params.fixed_params(), [], gen(50))[0]
+                g, = torch.autograd.grad(c, [tr[w_uuid]])
+                sync()
+                return float(c.detach()), g.double().cpu().numpy()
+
+            zero_counts()
+            c_k, g_k = cost_and_grad()
+            k_launches = read_counts()["K1"]
+            cuda_kernels.set_use_kernel(False)
+            try:
+                c_p, g_p = cost_and_grad()
+            finally:
+                cuda_kernels.set_use_kernel(True)
+            check_kernel = (k_launches, read_counts()["K1"] - k_launches,
+                            rel(c_k, c_p), rel_err(g_k, g_p))
+            check(check_kernel[:2] == (horizon, 0)
+                  and check_kernel[2] <= EXACT_F64_RTOL
+                  and check_kernel[3] <= FAMILY_GRAD_RTOL,
+                  "phase 49: one rollout, K1 vs plain: launches {} and {} "
+                  "(expected {} and 0), cost relative {} (tol {}), policy "
+                  "gradient {} of its largest entry (tol {})".format(
+                      check_kernel[0], check_kernel[1], horizon,
+                      check_kernel[2], EXACT_F64_RTOL, check_kernel[3],
+                      FAMILY_GRAD_RTOL))
+        zero_counts()
+        pinf.run(max_iter=policy_steps, learning_rate=lr, generator=gen(51))
+        policy_counts = read_counts()
+        check(policy_counts == dict(none, K1=policy_steps * horizon)
+              and all(c == dict(none, K1=horizon) for c in loop.counts),
+              "phase 49 {}: {} policy steps launched {}; expected K1 once a "
+              "rollout step, {} a policy step".format(
+                  label, policy_steps, policy_counts, horizon))
+        main_k1 += dyn_counts["K1"] + policy_counts["K1"]
+        w = pinf.params[m.policy_w].double().cpu().numpy().ravel()
+        check(np.all(np.isfinite(loop.losses)) and np.isfinite(w).all(),
+              "phase 49 {}: losses {}, policy weight {}".format(
+                  label, loop.losses, w))
+        if label == "example":
+            check(loop.losses[-1] < loop.losses[0] and w[0] < 0.0,
+                  "phase 49: the example's cost {} -> {} must fall and its "
+                  "gain {} be negative".format(loop.losses[0],
+                                               loop.losses[-1], w[0]))
+        ck = check_kernel
+        lines.append(
+            "{}: X {} Y {}, dynamics {} MAP steps (K1 1 a step, step wall "
+            "ms {}), policy {} steps of horizon {} over {} samples (K1 {} a "
+            "step, step wall ms {}), cost {:.5g} -> {:.5g}, gain {}{}"
+            .format(label, X_.shape, Y_.shape, dyn_steps,
+                    wall_summary(dyn_loop.wall_s, listed=False),
+                    policy_steps, horizon, s0.shape[0], horizon,
+                    wall_summary(loop.wall_s, listed=False), loop.losses[0],
+                    loop.losses[-1], np.round(w, 4).tolist(),
+                    "" if ck is None else "; one rollout K1 vs plain: "
+                    "launches {} / {}, cost rel {:.3e} (tol {:.0e}), policy "
+                    "gradient {:.3e} of its largest entry (tol {:.0e})"
+                    .format(ck[0], ck[1], ck[2], EXACT_F64_RTOL, ck[3],
+                            FAMILY_GRAD_RTOL)))
+        if label == "wide":
+            prof = profile_window(
+                lambda: pinf.run(max_iter=2, learning_rate=lr,
+                                 generator=gen(52)),
+                ROOT / "build" / "chip_smoke_pilco_trace.json")
+            lines.append("profile of 2 wide policy steps: "
+                         + profile_summary(prof, 2))
+    print("phase 49 pilco ({}): {} | K1 on the main paths {} | wall {:.3f} "
+          "s".format(card, " | ".join(lines), main_k1,
+                     time.perf_counter() - t_phase), flush=True)
+    return main_k1
+
+
+def pilco_wide_data(rng):
+    """Phase 49's wider configuration: N transitions of a damped 4-state,
+    1-action linear system s' = F s + g a (F = 0.9·I plus 0.05 N(0, 1)
+    entries), random actions: (X (N, 5), Y (N, 4))."""
+    F = 0.9 * np.eye(PILCO_DS) + 0.05 * rng.standard_normal(
+        (PILCO_DS, PILCO_DS))
+    g = 0.5 * rng.standard_normal((PILCO_DS, 1))
+    S = rng.standard_normal((PILCO_N, PILCO_DS))
+    U = rng.uniform(-1, 1, (PILCO_N, 1))
+    Y = S @ F.T + U @ g.T + 0.01 * rng.standard_normal((PILCO_N, PILCO_DS))
+    return np.concatenate([S, U], -1), Y
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5201,6 +5763,11 @@ def main():
     evidence = evidence_phases(dev, card, args.seed, Xe, Ye, Xtr, Ytr,
                                read_counts, zero_counts, sync)
 
+    # ---- 46-49. the Kalman ops, SSM MAP, stochastic volatility by HMC,
+    # PILCO (K1 in its dynamics fits and rollouts)
+    state_space_k1 = state_space_phases(dev, card, args.seed, read_counts,
+                                        zero_counts, sync)
+
     check(not any(k == "jax" or k.startswith(("jax.", "mxfusion_tpu."))
                   or k == "mxfusion_tpu" for k in sys.modules),
           "JAX or the JAX package was imported")
@@ -5224,7 +5791,7 @@ def main():
             launches + train_launches["K1"] + exact_launches["K1"]
             + exact_serve["K1"] + sgp_launches["K1"] + sgp_serve["K1"]
             + ng_k1 + family["K1"] + persist["K1"] + deep_kernel["K1"]
-            + sampler_k1 + evidence["K1"],
+            + sampler_k1 + evidence["K1"] + state_space_k1,
             max_err, min(ms["kernel"]),
             min(ms["plain"]), ms["bound"], None),
         row("fused_gram_fwd", fused_src,

@@ -7,14 +7,16 @@ never ``jax``. Kernels written by hand for NVIDIA Hopper (sm_90a) live
 in ``csrc/`` and are built on first use (see ``ops/cuda_build.py``).
 
 Ported so far: the model IR and the elementwise operators, the
-distribution library (but the state-space ones), the GP distributions
+distribution library (the state-space ones with the Kalman filter and
+smoother in ``ops.kalman``), the GP distributions
 and the GP kernel family, SVGP regression, exact and collapsed GP
 regression, the non-Gaussian SVGPs (binary and multi-class
 classification, Poisson and negative-binomial counts), training by MAP
 or SVI through the batch, minibatch and device loops, mean-field,
 score-function and importance-weighted VI, serving through
-``BatchedPredictor``, forward sampling, and the hand-written kernels of
-the paths they run (the RBF gram, the fused L⁻¹·Kuf gram and its
+``BatchedPredictor``, forward sampling, the samplers, the evidence and
+criticism layer, PILCO, and the hand-written kernels of the paths they
+run (the RBF gram, the fused L⁻¹·Kuf gram and its
 backward, the batched Cholesky).
 """
 from .__version__ import __version__

@@ -21,5 +21,7 @@ from .lognormal import LogNormal
 from .logitnormal import LogitNormal
 from .stickbreaking_normal import StickBreakingNormal
 from .negative_binomial import NegativeBinomial
+from .ssm import LinearGaussianSSM
+from .ar1 import GaussianAR1
 from .gp import GaussianProcess, ConditionalGaussianProcess
 from .gp import kernels as gp_kernels

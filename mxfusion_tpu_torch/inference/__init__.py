@@ -25,6 +25,7 @@ from .expectation import (
 from .prediction import ModulePredictionAlgorithm
 from .serving import (BatchedPredictor, ExportedPredictor,
                       load_exported_predictor)
+from .pilco_alg import PILCOAlgorithm
 from .hmc import (HMCAlgorithm, HMCInference, potential_scale_reduction,
                   effective_sample_size)
 from .sgld import SGLDAlgorithm, SGLDInference

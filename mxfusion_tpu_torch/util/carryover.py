@@ -33,6 +33,15 @@ They are matched by *name path* instead:
   are ``Y.p(F_0).rbf_lengthscale``, ``Y.p(F_1).rbf_lengthscale`` (of the
   factors a variable feeds, the one whose path sorts first).
 
+The state-space models carry as any distribution does: a
+``LinearGaussianSSM``'s system matrices and noise covariances by their
+names or, unnamed, as ``p(y).A``, ``p(y).trans_cov`` and
+``p(y).obs_cov`` (the inputs of an operator that builds one, such as a
+variance times I, as ``p(y).trans_cov.x``); a ``GaussianAR1``'s as
+``p(x).phi`` and ``p(x).noise_var``. A PILCO inference carries its
+policy weight by name beside the GP dynamics' state, the posterior
+cache that the rollout reads included (``Y.X``, ``Y.L``, ``Y.LinvY``).
+
 The walk reads only what the graph classes of both packages share
 (``components_graph``, ``name``, ``uuid``, ``successors``, ``outputs``,
 ``internal_graphs``, ``random_variable`` and a posterior's ``model``),

@@ -10,9 +10,10 @@ natural gradients, full batch and minibatch, and trains networks in the
 graph (``NNFunction``: a Bayesian NN, a VAE and a deep-kernel SVGP,
 served), and samples a conjugate posterior by HMC and SVGD, and fits a
 masked MAP, approximates it by Laplace, scores HMC draws by WAIC,
-PSIS-LOO and a predictive check, and integrates a power posterior.
-Also: chip_smoke.py refuses to run without a GPU and without the rest of
-the repository."""
+PSIS-LOO and a predictive check, and integrates a power posterior, and
+fits a linear-Gaussian state-space model and an AR(1) coefficient and
+rolls PILCO out over GP dynamics. Also: chip_smoke.py refuses to run
+without a GPU and without the rest of the repository."""
 import os
 import shutil
 import subprocess
@@ -682,6 +683,103 @@ jaxy = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib",
 assert not jaxy, jaxy
 print("EVIDENCE", lap.log_evidence, w["elpd_waic"], ti.log_evidence)
 """
+
+
+STATE_SPACE_WITHOUT_JAX = r"""
+import sys
+sys.modules["jax"] = None          # any `import jax` now raises
+sys.path.insert(0, {root!r})
+import numpy as np
+import torch
+torch.set_num_threads(1)           # small ops: threads only contend
+from mxfusion_tpu_torch.common.config import set_default_device
+set_default_device("cpu")
+from mxfusion_tpu_torch import Model, Variable
+from mxfusion_tpu_torch.components.variables import PositiveTransformation
+from mxfusion_tpu_torch.components.distributions import (GaussianAR1,
+                                                         LinearGaussianSSM)
+from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
+from mxfusion_tpu_torch.modules import GPRegression
+from mxfusion_tpu_torch.inference import (GradBasedInference,
+                                          GradTransferInference, MAP,
+                                          PILCOAlgorithm)
+from mxfusion_tpu_torch.ops.kalman import (
+    kalman_filter, kalman_filter_parallel, lgssm_sample, rts_smoother,
+    rts_smoother_parallel)
+
+# an SSM fitted by MAP through the sequential filter
+A = torch.tensor([[0.9, 0.2], [0.0, 0.7]], dtype=torch.float64)
+H = torch.tensor([[1.0, 0.5]], dtype=torch.float64)
+Q, R = torch.eye(2, dtype=torch.float64) * 0.05, \
+    torch.eye(1, dtype=torch.float64) * 0.1
+m0, P0 = torch.zeros(2, dtype=torch.float64), torch.eye(2, dtype=torch.float64)
+_, y = lgssm_sample(torch.Generator().manual_seed(0), 60, A, H, Q, R, m0, P0)
+m = Model()
+m.A = Variable(shape=(2, 2), initial_value=np.eye(2) * 0.5)
+m.y = LinearGaussianSSM.define_variable(
+    A=m.A, H=Variable(value=H.numpy()), trans_cov=Variable(value=Q.numpy()),
+    obs_cov=Variable(value=R.numpy()), initial_mean=Variable(value=np.zeros(2)),
+    initial_cov=Variable(value=np.eye(2)), shape=(60, 1), dtype="float64")
+losses = []
+infr = GradBasedInference(MAP(model=m, observed=[m.y]), dtype="float64")
+infr.run(y=y.numpy(), max_iter=10, learning_rate=0.05,
+         callback=lambda i, l: losses.append(float(l)))
+assert losses[-1] < losses[0], losses
+# the parallel filter and smoother agree with the sequential ones
+seq, par = (f(y, A, H, Q, R, m0, P0) for f in (kalman_filter,
+                                               kalman_filter_parallel))
+assert abs(float(seq["loglik"] - par["loglik"])) < 1e-9
+s1, s2 = (f(seq["filtered_means"], seq["filtered_covs"], seq["pred_means"],
+            seq["pred_covs"], A) for f in (rts_smoother, rts_smoother_parallel))
+assert torch.allclose(s1[0], s2[0], atol=1e-10)
+# an AR(1) coefficient fitted by MAP
+m2 = Model()
+m2.phi = Variable(shape=(1,), initial_value=0.5)
+m2.x = GaussianAR1.define_variable(phi=m2.phi, noise_var=Variable(value=0.1),
+                                   shape=(30,))
+ar = GradBasedInference(MAP(model=m2, observed=[m2.x]), dtype="float64")
+ar.run(x=0.9 ** np.arange(30.0), max_iter=20, learning_rate=0.05)
+assert float(ar.params[m2.phi][0]) > 0.5
+# one PILCO rollout over GP dynamics
+rng = np.random.default_rng(0)
+S, U = rng.standard_normal((30, 1)), rng.uniform(-1, 1, (30, 1))
+X, Y = np.concatenate([S, U], -1), 0.8 * S + 0.5 * U
+g = Model()
+g.N = Variable()
+g.X = Variable(shape=(g.N, 2))
+g.noise_var = Variable(transformation=PositiveTransformation(),
+                       initial_value=0.01)
+g.Y = GPRegression.define_variable(X=g.X, kernel=RBF(input_dim=2),
+                                   noise_var=g.noise_var, shape=(g.N, 1))
+dyn = GradBasedInference(MAP(model=g, observed=[g.X, g.Y]))
+dyn.run(max_iter=10, learning_rate=0.05, X=X, Y=Y)
+g.w = Variable(shape=(1, 1), initial_value=np.zeros((1, 1)))
+alg = PILCOAlgorithm(
+    model=g, observed=[], n_time_steps=5, num_samples=3,
+    cost_function=lambda s, a: torch.sum(torch.square(s)),
+    policy=lambda s, env: torch.einsum("...i,ij->...j", s, env[g.w][0]),
+    initial_state_generator=lambda k: torch.ones((k, 1)))
+cost = GradTransferInference(inference_algorithm=alg,
+                             infr_params=dyn.params).run(max_iter=1)
+assert np.isfinite(cost)
+jaxy = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib",
+                                                       "mxfusion_tpu")
+        and sys.modules[k] is not None]
+assert not jaxy, jaxy
+print("STATESPACE", losses[0], losses[-1], float(cost))
+"""
+
+
+def test_port_fits_state_space_models_and_pilco_without_jax():
+    """A LinearGaussianSSM fitted by MAP, the parallel filter and smoother
+    against the sequential ones, and a PILCO rollout over GP dynamics, in
+    an interpreter without JAX."""
+    proc = subprocess.run(
+        [sys.executable, "-c", STATE_SPACE_WITHOUT_JAX.format(
+            root=str(ROOT))],
+        capture_output=True, text=True, timeout=60, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert "STATESPACE" in proc.stdout
 
 
 def test_port_computes_evidence_and_criticism_without_jax():
