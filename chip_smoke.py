@@ -356,7 +356,35 @@ phases that each print one line:
    samples, 20 dynamics and 5 policy steps): K1 once a dynamics step and
    once a rollout step, one rollout's cost and policy gradient with K1
    against its plain version (1e-4, 1e-3), the step walls and the idle
-   share of two profiled policy steps.
+   share of two profiled policy steps;
+50. native batcher: the library builds on this host
+   (``native_available()``), ``shuffled_indices(10^6, e)`` is a
+   permutation and, at N = 4097, equals a pure-Python splitmix64
+   Fisher-Yates (the plain version), and ``gather_rows`` equals numpy
+   indexing on the 10^6 x 9 table of phase 51;
+51. the north star's host path: benchmarks/svgp_1m.py's data and model
+   (N = 10^6, d = 8, M = 256, B = 4096, N/B scaling, MAP, Adam) through
+   ``MinibatchInferenceLoop``, one epoch each at ``batches_per_call`` 1,
+   5 (the same 245 batches: epoch losses within 1e-5) and 20 (260 steps,
+   15 wrapped; JAX's setting): the epoch walls, one host-to-device copy
+   a call, K1/K2/K3 once/once/three times a step, and the idle share of
+   a k = 20 epoch traced through ``util.profiling.trace``;
+52. remat: one step with and without ``create_executor(remat=True)`` at
+   one state, batch and generator seed, at the headline SVGP step
+   (B = 65536, M = 512, D = 32) and at phase 18's mean-field SVI: equal
+   losses, the generator where the plain step leaves it, gradients within
+   1e-6 of each largest entry (bit-equality reported), the peak memory
+   both ways, K2 twice under remat;
+53. data parallel over a world of one: ``initialize_distributed`` (one
+   process: a no-op) and ``make_mesh()`` (NCCL), then
+   ``DataParallelMinibatchLoop(batches_per_call=5)`` at phase 51's
+   configuration (the epoch loss within 1e-6 of phase 51's k = 5),
+   ``DataParallelBatchLoop`` on BASELINE config 5 (the BNN and the VAE
+   at phases 37-38's widths, 20 steps, within 1e-5 of
+   ``BatchInferenceLoop``'s), ``BatchedPredictor(mesh=)`` on 262144 rows
+   against the plain predictor, and HMC on phase 39's BLR over
+   ``shard_data`` against the unsharded chain; the step walls, and the
+   process group torn down.
 
 Any failed check raises and the script exits nonzero. The last three
 lines are the card (nvidia-smi), the kernels' JSON record (each with
@@ -368,6 +396,7 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
 """
 import argparse
 import contextlib
+import importlib
 import json
 import math
 import re
@@ -532,6 +561,22 @@ NGD_N, NGD_D, NGD_B, NGD_M, NGD_GAMMA, NGD_LR = (
 # cond(P)·eps of its relative accuracy; the loss takes that at second
 # order (the step lands on a stationary point), and 1e-6 leaves room
 NGD_ORACLE_RTOL = 1e-6
+# phases 50-53 on the north star's configuration (benchmarks/svgp_1m.py,
+# the NGD_ widths and its Adam lr 3e-3): the plain splitmix64 shuffle's
+# size; k = 5 against k = 1 take the same 245 batches and steps, so their
+# epoch losses differ only by the order of the mean over the epoch
+SPLITMIX_N, NS_K5_RTOL = 4097, 1e-5
+# remat recomputes the same kernels on the same inputs: the gradients may
+# differ only where a reduction's order does (the fused K3 sums in a fixed
+# order, the cuBLAS products may not), relative to each largest entry
+REMAT_GRAD_TOL = 1e-6
+# data parallel over a world of one: the minibatch epoch against phase
+# 51's k = 5, BASELINE config 5 against BatchInferenceLoop, serving against
+# the plain predictor (relative to the largest entry), HMC over shard_data
+# against the unsharded chain
+DP_RTOL, DP_NN_STEPS, DP_NN_RTOL = 1e-6, 20, 1e-5
+DP_SERVE_ROWS, DP_SERVE_TOL, DP_HMC_DRAWS, DP_HMC_ATOL = (
+    262144, 1e-6, 50, 1e-5)
 # persistence (phases 32-34) at phase 6's configuration: a resume restores
 # the float32 parameters and Adam's moments bit for bit and K2/K3 are
 # deterministic, so the resumed losses match the uninterrupted run's to
@@ -1325,8 +1370,9 @@ def recording_batch_loop(read_counts, sync):
             before = read_counts()
             sync()
             t0 = time.perf_counter()
-            out = BatchInferenceLoop._step(executor, opt, trainable, fixed,
-                                           batch, generator, grad_norm)
+            out = BatchInferenceLoop._step(self, executor, opt, trainable,
+                                           fixed, batch, generator,
+                                           grad_norm)
             sync()
             self.wall_s.append(time.perf_counter() - t0)
             after = read_counts()
@@ -1383,7 +1429,7 @@ def profile_steps(make_inference, data, steps, lr, trace_path,
 
     class SteppingLoop(BatchInferenceLoop):
         def _step(self, *args, **kwargs):
-            out = BatchInferenceLoop._step(*args, **kwargs)
+            out = BatchInferenceLoop._step(self, *args, **kwargs)
             prof.step()
             return out
 
@@ -4851,6 +4897,429 @@ def pilco_wide_data(rng):
     return np.concatenate([S, U], -1), Y
 
 
+def splitmix_shuffle(n, seed):
+    """The plain version of ``fast_batcher.cpp``'s ``shuffled_indices``:
+    the splitmix64 Fisher-Yates in pure Python."""
+    mask, gamma = (1 << 64) - 1, 0x9E3779B97F4A7C15
+    idx = list(range(n))
+    x = (seed + gamma) & mask
+    for i in range(n - 1, 0, -1):
+        x = (x + gamma) & mask
+        z = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & mask
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & mask
+        j = (z ^ (z >> 31)) % (i + 1)
+        idx[i], idx[j] = idx[j], idx[i]
+    return np.asarray(idx)
+
+
+def north_star_data(seed):
+    """benchmarks/svgp_1m.py:38-48's data and inducing start (10^6 rows,
+    d = 8, M = 256), from its generator."""
+    rng = np.random.default_rng(seed)
+    X = rng.random((NGD_N, NGD_D)).astype(np.float32) * 4
+    f = np.sin(X[:, :1] * 2.0) + 0.3 * np.cos(X[:, 1:2] * 3.0)
+    Y = (f + rng.standard_normal((NGD_N, 1)).astype(np.float32) * 0.1
+         ).astype(np.float32)
+    return X, Y, rng.random((NGD_M, NGD_D)) * 4
+
+
+def north_star_model(Z0):
+    """benchmarks/svgp_1m.py:41-48's SVGP: RBF(d) at variance and
+    lengthscale 1, noise 0.5, fresh UUIDs at every call."""
+    from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
+    from mxfusion_tpu_torch.modules import SVGPRegression
+    m, alg = gp_model(SVGPRegression, RBF(input_dim=NGD_D, variance=1.0,
+                                           lengthscale=1.0), NGD_D,
+                      noise=0.5, inducing_inputs=_variable(
+                          shape=(NGD_M, NGD_D), initial_value=Z0))
+    return m, alg
+
+
+def _variable(**kw):
+    from mxfusion_tpu_torch import Variable
+    return Variable(**kw)
+
+
+def traced_idle(fn, log_dir):
+    """``fn()`` inside ``util.profiling.trace`` and one ``annotate``d
+    range, the device synchronized before the range closes: the idle
+    share of that range from the trace the module wrote."""
+    import torch
+    from mxfusion_tpu_torch.util.profiling import annotate, trace
+    with trace(str(log_dir)):
+        with annotate("chip_smoke_epoch"):
+            fn()
+            torch.cuda.synchronize()
+    path = sorted(Path(log_dir).glob("trace_*.json"),
+                  key=lambda p: p.stat().st_mtime)[-1]
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    (mark,) = [e for e in events if e.get("name") == "chip_smoke_epoch"
+               and e.get("cat") == "user_annotation"]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    check(device, "util.profiling.trace recorded no device event")
+    return device_busy(device, mark["ts"], mark["ts"] + mark["dur"])
+
+
+def loop_options_phases(dev, card, seed, Xtr, Ytr, x_ppca, W0, read_counts,
+                        zero_counts, sync):
+    """Phases 50-53: the native batcher, the north star's host loop at
+    batches_per_call 1, 5 and 20, remat, and data parallelism over a
+    world of one (NCCL). Returns K1-K3's launches on their main paths."""
+    import torch
+    import torch.distributed as dist
+    from mxfusion_tpu_torch.inference import (
+        MAP, BatchInferenceLoop, BatchedPredictor, GradBasedInference,
+        HMCAlgorithm, Inference, MinibatchInferenceLoop,
+        StochasticVariationalInference, create_executor,
+        create_sampling_executor)
+    from mxfusion_tpu_torch.native import (gather_rows, native_available,
+                                           shuffled_indices)
+    from mxfusion_tpu_torch.parallel import (
+        DataParallelBatchLoop, DataParallelMinibatchLoop, data_shardings,
+        initialize_distributed, make_mesh, shard_data)
+    launches = {"K1": 0, "K2": 0, "K3": 0}
+
+    def add_launches():
+        for k in launches:
+            launches[k] += read_counts()[k]
+
+    # ---- 50. the native batcher on the card's host
+    t_phase = time.perf_counter()
+    check(native_available(), "the native batcher did not build on this "
+          "host: the loops would shuffle by numpy, unlike JAX's")
+    X, Y, Z0 = north_star_data(seed)
+    perms = []
+    for e in range(3):
+        p = shuffled_indices(NGD_N, seed=e)
+        check(np.array_equal(np.sort(p), np.arange(NGD_N)),
+              "shuffled_indices({}, {}) is not a permutation".format(NGD_N, e))
+        perms.append(p)
+    check(not np.array_equal(perms[0], perms[1]), "epochs 0 and 1 shuffle "
+          "alike")
+    small = [np.array_equal(shuffled_indices(SPLITMIX_N, e),
+                            splitmix_shuffle(SPLITMIX_N, e)) for e in range(3)]
+    check(all(small), "shuffled_indices at N={} differs from the plain "
+          "splitmix64 Fisher-Yates: {}".format(SPLITMIX_N, small))
+    table = np.concatenate([X, Y], axis=1)
+    idx = perms[0][:NGD_B * 20]
+    t0 = time.perf_counter()
+    got = gather_rows(table, idx)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = table[idx]
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(got, want), "gather_rows differs from numpy "
+          "indexing on the ({}, {}) table".format(*table.shape))
+    print("phase 50 native batcher ({}): native_available True | "
+          "shuffled_indices(10^6, e) a permutation for e = 0, 1, 2 | equal "
+          "to the plain splitmix64 Fisher-Yates at N={} for e = 0, 1, 2 | "
+          "gather_rows of {} rows x {} columns equal to numpy indexing: "
+          "{:.3f} ms native, {:.3f} ms numpy | wall {:.3f} s".format(
+              card, SPLITMIX_N, idx.size, table.shape[1], native_ms,
+              numpy_ms, time.perf_counter() - t_phase), flush=True)
+    del table, got, want
+
+    # ---- 51. the north star's host path: one epoch at k = 1, 5, 20
+    t_phase = time.perf_counter()
+    nm, nalg = north_star_model(Z0)
+    start_inf = GradBasedInference(nalg, dtype="float32", device=dev)
+    start_inf.initialize(X=X[:NGD_B], Y=Y[:NGD_B],
+                         generator=torch.Generator(dev).manual_seed(seed))
+    nstart = {k: v.clone() for k, v in start_inf.params.param_dict.items()}
+
+    def north_star_epoch(loop, traced=None):
+        inf = GradBasedInference(nalg, grad_loop=loop, dtype="float32",
+                                 device=dev)
+        inf.params.update_params({k: v.clone() for k, v in nstart.items()})
+        losses = []
+        zero_counts()
+        sync()
+        t0 = time.perf_counter()
+
+        def run():
+            inf.run(X=X, Y=Y, max_iter=1, learning_rate=NGD_LR,
+                    generator=torch.Generator(dev).manual_seed(seed),
+                    callback=lambda e, l: losses.append(l))
+        idle = traced_idle(run, traced) if traced else run()
+        sync()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        add_launches()
+        return inf, losses[0], wall, counts, idle
+
+    runs, walls = {}, {1: [], 5: [], 20: []}
+    # in turns, so that no k alone pays the first use of pinned memory
+    for k in (1, 5, 20, 20, 5, 1):
+        loop = MinibatchInferenceLoop(batch_size=NGD_B,
+                                      rv_scaling={nm.Y: NGD_N / NGD_B},
+                                      batches_per_call=k)
+        inf, loss, wall, counts, _ = north_star_epoch(loop)
+        walls[k].append(wall)
+        if k in runs:
+            check(loss == runs[k][1], "k={}: a second epoch from the same "
+                  "start gave {} against {}".format(k, loss, runs[k][1]))
+            continue
+        steps = -(-(-(-NGD_N // NGD_B)) // k) * k
+        check(counts == {"K1": steps, "K2": steps, "K3": 3 * steps,
+                         "K4": 0, "K5": 0},
+              "k={}: launches {} for {} steps; expected K1 1, K2 1, K3 3 "
+              "a step".format(k, counts, steps))
+        check(loop.h2d_copies == steps // k, "k={}: {} host-to-device "
+              "copies, expected one a call ({})".format(
+                  k, loop.h2d_copies, steps // k))
+        check(math.isfinite(loss), "k={}: epoch loss {}".format(k, loss))
+        runs[k] = (inf, loss, wall, counts, steps, loop.h2d_copies)
+    rel5 = abs(runs[5][1] - runs[1][1]) / abs(runs[1][1])
+    check(rel5 <= NS_K5_RTOL, "k=5's epoch loss {} vs k=1's {}: rel {}"
+          .format(runs[5][1], runs[1][1], rel5))
+    _, _, traced_wall, _, idle = north_star_epoch(
+        MinibatchInferenceLoop(batch_size=NGD_B,
+                               rv_scaling={nm.Y: NGD_N / NGD_B},
+                               batches_per_call=20),
+        traced=ROOT / "build" / "chip_smoke_loop_trace")
+    wall_ms, busy_ms, by_name = idle
+    print("phase 51 north star host path ({}): benchmarks/svgp_1m.py's "
+          "N={}, d={}, M={}, B={}, MAP + Adam (lr {}), one epoch from one "
+          "start each | {} | k=5 vs k=1 epoch loss rel {:.3e} (tol {:.0e}) "
+          "| one k=20 epoch under util.profiling.trace: wall {:.3f} s, "
+          "device busy {:.3f} ms of {:.3f}, idle share {:.1%}, top kernels "
+          "{} | wall {:.3f} s".format(
+              card, NGD_N, NGD_D, NGD_M, NGD_B, NGD_LR, " | ".join(
+                  "k={}: {} steps, epoch loss {:.8g}, epoch walls {} s "
+                  "({:.3f} ms a step at the faster), {} H2D copies, "
+                  "launches K1 {} K2 {} K3 {}".format(
+                      k, r[4], r[1], [round(w, 3) for w in walls[k]],
+                      min(walls[k]) / r[4] * 1e3, r[5], r[3]["K1"],
+                      r[3]["K2"], r[3]["K3"])
+                  for k, r in runs.items()),
+              rel5, NS_K5_RTOL, traced_wall, busy_ms, wall_ms,
+              1 - busy_ms / wall_ms, " | ".join(
+                  "{} {:.3f} ms".format(n, v / 1e3) for n, v in by_name[:4]),
+              time.perf_counter() - t_phase), flush=True)
+
+    # ---- 52. remat: one step with and without, same state, batch and
+    # generator seed, at the headline SVGP step and a sampled objective
+    t_phase = time.perf_counter()
+    hm = headline_svgp(np.random.default_rng(seed + 52).uniform(
+        0.0, BOX, (M, D)))
+    halg = MAP(model=hm, observed=[hm.X, hm.Y])
+    hinf = GradBasedInference(halg, dtype="float32", device=dev)
+    hdata = [Xtr[:TRAIN_B], Ytr[:TRAIN_B]]
+    hinf.initialize(X=hdata[0], Y=hdata[1],
+                    generator=torch.Generator(dev).manual_seed(seed))
+    mf_build = lambda dtype: meanfield_ppca(  # noqa: E731
+        x_ppca.shape[0], W0.shape[0], x_ppca.shape[1], W0, dtype)
+    mf = meanfield_inference(mf_build, StochasticVariationalInference,
+                             MF_S, dev)
+    mf.initialize(x=x_ppca, generator=torch.Generator(dev).manual_seed(seed))
+    lines = []
+    for label, inf, data in (
+            ("headline SVGP (B={}, M={}, D={})".format(TRAIN_B, M, D),
+             hinf, hdata),
+            ("mean-field PPCA SVI (phase 18, S={})".format(MF_S), mf,
+             [x_ppca])):
+        out = {}
+        for remat in (False, True):
+            ex = create_executor(inf.inference_algorithm, inf.params,
+                                 remat=remat)
+            leaves = {k: v.detach().clone().requires_grad_(True)
+                      for k, v in inf.params.trainable_params().items()}
+            tensors = [torch.as_tensor(d, device=dev) for d in data]
+            sync()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            zero_counts()
+            g = torch.Generator(dev).manual_seed(seed + 52)
+            loss, lfg, _ = ex(leaves, inf.params.fixed_params(), tensors, g)
+            lfg.backward()
+            sync()
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            counts = read_counts()
+            add_launches()
+            out[remat] = (float(loss.detach()),
+                          {k: v.grad for k, v in leaves.items()
+                           if v.grad is not None}, peak, counts,
+                          g.get_state())
+        (l0, g0, p0, c0, s0), (l1, g1, p1, c1, s1) = out[False], out[True]
+        check(l0 == l1, "{}: remat loss {} vs {}".format(label, l1, l0))
+        check(torch.equal(s0, s1), "{}: the generator ends elsewhere "
+              "under remat".format(label))
+        worst, bitwise = 0.0, True
+        for k, a in g0.items():
+            b = g1[k]
+            scale = float(a.abs().max()) or 1.0
+            worst = max(worst, float((a - b).abs().max()) / scale)
+            bitwise = bitwise and torch.equal(a, b)
+        check(worst <= REMAT_GRAD_TOL, "{}: remat gradients {} of the "
+              "largest entry off".format(label, worst))
+        check(c1["K2"] == 2 * c0["K2"], "{}: K2 {} under remat against {}"
+              .format(label, c1["K2"], c0["K2"]))
+        lines.append(
+            "{}: loss {:.8g} both ways, gradients {:.3e} of the largest "
+            "entry apart (tol {:.0e}), bit-equal {} | peak memory above "
+            "the inputs {:.1f} MiB plain, {:.1f} MiB remat | launches "
+            "plain {} remat {}".format(
+                label, l0, worst, REMAT_GRAD_TOL, bitwise, p0 / 2 ** 20,
+                p1 / 2 ** 20, c0, c1))
+    print("phase 52 remat ({}): one step each way at one state, batch and "
+          "generator seed | {} | wall {:.3f} s".format(
+              card, " | ".join(lines), time.perf_counter() - t_phase),
+          flush=True)
+    del hinf, mf
+
+    # ---- 53. data parallel over a world of one on the card (NCCL)
+    t_phase = time.perf_counter()
+    initialize_distributed(num_processes=1)   # one process: a no-op
+    mesh = make_mesh()
+    backend = dist.get_backend()
+    check("nccl" in str(backend), "the world of one has backend {}, not "
+          "NCCL".format(backend))
+    # NCCL makes its communicator at the first collective: time that
+    # apart, not inside the first loop's epoch
+    ones = torch.ones(8, device=dev)
+    sync()
+    t0 = time.perf_counter()
+    dist.all_reduce(ones)
+    sync()
+    nccl_init_s = time.perf_counter() - t0
+    check(float(ones.sum()) == 8.0, "all_reduce over a world of one "
+          "changed its input: {}".format(ones))
+    # DataParallelMinibatchLoop at phase 51's configuration, k = 5
+    dloop = DataParallelMinibatchLoop(mesh, batch_size=NGD_B,
+                                      rv_scaling={nm.Y: NGD_N / NGD_B},
+                                      batches_per_call=5)
+    dinf, dloss, dwall, dcounts, _ = north_star_epoch(dloop)
+    drel = abs(dloss - runs[5][1]) / abs(runs[5][1])
+    check(drel <= DP_RTOL, "DataParallelMinibatchLoop's epoch loss {} vs "
+          "phase 51's k=5 {}: rel {}".format(dloss, runs[5][1], drel))
+    dp_lines = ["DataParallelMinibatchLoop(k=5): epoch loss {:.8g} vs "
+                "{:.8g}, rel {:.3e} (tol {:.0e}), epoch wall {:.3f} s vs "
+                "{} s, launches {}".format(
+                    dloss, runs[5][1], drel, DP_RTOL, dwall,
+                    [round(w, 3) for w in walls[5]], dcounts)]
+    # DataParallelBatchLoop on BASELINE config 5 (phases 37-38's widths)
+    for label, build, data, S, lr in (
+            ("BNN", lambda dtype, d: bnn_model(dtype, d, seed + 37),
+             {"x": None, "y": None}, BNN_S, BNN_LR),
+            ("VAE", lambda dtype, d: vae_model(dtype, d, seed + 38),
+             {"x": None}, VAE_S, VAE_LR)):
+        rng = np.random.default_rng(seed + 53)
+        if label == "BNN":
+            xb = (rng.random((BNN_N, BNN_IN)) * 2 - 1).astype(np.float32)
+            data = {"x": xb, "y": (np.sin(3 * xb[:, :1]) + rng.standard_normal(
+                (BNN_N, 1)) * 0.05).astype(np.float32)}
+        else:
+            zt = rng.standard_normal((VAE_N, VAE_K))
+            data = {"x": (np.tanh(zt @ rng.standard_normal((VAE_K, VAE_D)))
+                          + rng.standard_normal((VAE_N, VAE_D)) * 0.05
+                          ).astype(np.float32)}
+        res = {}
+        for tag, loop in (("single", BatchInferenceLoop()),
+                          ("dp", DataParallelBatchLoop(mesh))):
+            inf = nn_inference(build, S, dev, grad_loop=loop)
+            losses, walls = [], []
+            t_last = [None]
+
+            def cb(i, l):
+                sync()
+                now = time.perf_counter()
+                if t_last[0] is not None:
+                    walls.append(now - t_last[0])
+                t_last[0] = now
+                losses.append(float(l))
+            zero_counts()
+            inf.run(max_iter=DP_NN_STEPS, learning_rate=lr,
+                    generator=torch.Generator(dev).manual_seed(seed),
+                    callback=cb, **data)
+            check(read_counts()["K1"] == 0, "{}: launched {}".format(
+                label, read_counts()))
+            res[tag] = (losses, walls)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(res["dp"][0],
+                                                      res["single"][0]))
+        check(len(res["dp"][0]) == DP_NN_STEPS and rel <= DP_NN_RTOL,
+              "{}: DataParallelBatchLoop's losses {} vs {}: rel {}".format(
+                  label, res["dp"][0], res["single"][0], rel))
+        dp_lines.append(
+            "DataParallelBatchLoop {} ({} steps): losses rel {:.3e} (tol "
+            "{:.0e}), step wall ms {} vs single {}".format(
+                label, DP_NN_STEPS, rel, DP_NN_RTOL,
+                wall_summary(res["dp"][1], listed=False),
+                wall_summary(res["single"][1], listed=False)))
+    # BatchedPredictor(mesh=) on 262144 rows against the plain predictor
+    bulk = X[:DP_SERVE_ROWS]
+    outs = {}
+    for tag, kw in (("plain", {}), ("mesh", {"mesh": mesh})):
+        pred = BatchedPredictor(model=nm, infr_params=runs[5][0].params,
+                                observed=[nm.X], target_variables=[nm.Y.uuid],
+                                chunk_size=CHUNK, **kw)
+        pred.predict(X=bulk[:CHUNK])
+        zero_counts()
+        sync()
+        t0 = time.perf_counter()
+        outs[tag] = pred.predict(X=bulk)[0]
+        sync()
+        outs[tag + "_s"] = time.perf_counter() - t0
+        outs[tag + "_k1"] = read_counts()["K1"]
+        add_launches()
+    serr = max(float(np.abs(a - b).max() / (np.abs(b).max() or 1.0))
+               for a, b in zip(outs["mesh"], outs["plain"]))
+    check(serr <= DP_SERVE_TOL, "mesh serving vs plain: {} of the largest "
+          "entry".format(serr))
+    dp_lines.append(
+        "BatchedPredictor(mesh=) on {} rows: {:.3e} of the largest entry "
+        "from the plain predictor, {:.1f} vs {:.1f} rows/s, K1 {} and {}"
+        .format(DP_SERVE_ROWS, serr, DP_SERVE_ROWS / outs["mesh_s"],
+                DP_SERVE_ROWS / outs["plain_s"], outs["mesh_k1"],
+                outs["plain_k1"]))
+    # HMC on phase 39's BLR over shard_data against the unsharded chain
+    Xb, yb = blr_data(np.random.default_rng(seed), MCMC_N, MCMC_D)
+    chains = {}
+    for tag in ("plain", "sharded"):
+        m = blr_model(MCMC_N, MCMC_D, MCMC_S2, symbolic=True)
+        alg = HMCAlgorithm(model=m, observed=[m.X, m.y],
+                           num_samples=DP_HMC_DRAWS, num_warmup=DP_HMC_DRAWS,
+                           num_chains=MCMC_CHAINS, num_leapfrog=MCMC_L,
+                           step_size=MCMC_EPS0)
+        inf = Inference(inference_algorithm=alg, dtype="float32", device=dev)
+        inf.initialize(X=Xb, y=yb)
+        if tag == "plain":
+            ex = create_sampling_executor(alg, inf.params)
+            data = [torch.as_tensor(Xb, device=dev),
+                    torch.as_tensor(yb, device=dev)]
+        else:
+            ex = create_sampling_executor(
+                alg, inf.params, data_sharding=data_shardings(mesh, [Xb, yb]))
+            data = shard_data(mesh, [Xb, yb])
+        sync()
+        t0 = time.perf_counter()
+        samples, _ = ex(inf.params.trainable_params(),
+                        inf.params.fixed_params(), data,
+                        torch.Generator(dev).manual_seed(seed + 53))
+        sync()
+        chains[tag] = (samples[m.w.uuid].double().cpu().numpy(),
+                       time.perf_counter() - t0)
+    herr = float(np.abs(chains["sharded"][0] - chains["plain"][0]).max())
+    check(herr <= DP_HMC_ATOL, "HMC over shard_data vs the unsharded chain: "
+          "max |diff| {}".format(herr))
+    dp_lines.append(
+        "HMC on the BLR (N={}, D={}, {} chains, {} + {} transitions, L={}) "
+        "over shard_data: max |draw diff| {:.3e} (tol {:.0e}), {:.3f} s vs "
+        "{:.3f} s".format(MCMC_N, MCMC_D, MCMC_CHAINS, DP_HMC_DRAWS,
+                          DP_HMC_DRAWS, MCMC_L, herr, DP_HMC_ATOL,
+                          chains["sharded"][1], chains["plain"][1]))
+    dist.destroy_process_group()
+    check(not dist.is_initialized(), "the process group outlived phase 53")
+    print("phase 53 data parallel ({}): a world of one, backend {}, the "
+          "first all_reduce (NCCL's communicator) {:.3f} s; NCCL refuses two "
+          "ranks on one GPU, so multi-rank equality is the CPU tests' | {} | "
+          "wall {:.3f} s".format(
+              card, backend, nccl_init_s, " | ".join(dp_lines),
+              time.perf_counter() - t_phase), flush=True)
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4874,9 +5343,11 @@ def main():
     from mxfusion_tpu_torch.modules import SVGPRegression
     from mxfusion_tpu_torch.inference import (
         BatchedPredictor, DeviceMinibatchLoop, GradBasedInference, MAP)
-    from mxfusion_tpu_torch.ops import (batched_cholesky, cuda_build,
-                                        cuda_kernels, fused_gram, linalg,
-                                        precision)
+    from mxfusion_tpu_torch.ops import (cuda_build, cuda_kernels,
+                                        fused_gram, linalg, precision)
+    # the module; ops.batched_cholesky is the function, as in JAX
+    batched_cholesky = importlib.import_module(
+        "mxfusion_tpu_torch.ops.batched_cholesky")
     from mxfusion_tpu_torch.util.carryover import carryover_params
 
     dev = torch.device("cuda:0")
@@ -5768,6 +6239,11 @@ def main():
     state_space_k1 = state_space_phases(dev, card, args.seed, read_counts,
                                         zero_counts, sync)
 
+    # ---- 50-53. the native batcher, batches_per_call at the north star's
+    # width, remat, data parallelism over a world of one (NCCL)
+    loops = loop_options_phases(dev, card, args.seed, Xtr, Ytr, x_ppca, W0,
+                                read_counts, zero_counts, sync)
+
     check(not any(k == "jax" or k.startswith(("jax.", "mxfusion_tpu."))
                   or k == "mxfusion_tpu" for k in sys.modules),
           "JAX or the JAX package was imported")
@@ -5791,18 +6267,18 @@ def main():
             launches + train_launches["K1"] + exact_launches["K1"]
             + exact_serve["K1"] + sgp_launches["K1"] + sgp_serve["K1"]
             + ng_k1 + family["K1"] + persist["K1"] + deep_kernel["K1"]
-            + sampler_k1 + evidence["K1"] + state_space_k1,
+            + sampler_k1 + evidence["K1"] + state_space_k1 + loops["K1"],
             max_err, min(ms["kernel"]),
             min(ms["plain"]), ms["bound"], None),
         row("fused_gram_fwd", fused_src,
             "mxfusion_tpu/ops/pallas_fused_gram.py:93",
             train_launches["K2"] + family["K2"] + persist["K2"]
-            + deep_kernel["K2"] + evidence["K2"],
+            + deep_kernel["K2"] + evidence["K2"] + loops["K2"],
             fwd_err, min(fms["K2"]), min(fms["K2 plain"]), k2_bound, None),
         row("fused_gram_bwd", fused_src,
             "mxfusion_tpu/ops/pallas_fused_gram.py:109",
             train_launches["K3"] + family["K3"] + persist["K3"]
-            + deep_kernel["K3"] + evidence["K3"],
+            + deep_kernel["K3"] + evidence["K3"] + loops["K3"],
             bwd_err, min(fms["K3"]), min(fms["K3 plain"]), k3_bound, None),
         row("batched_cholesky", chol_src,
             "mxfusion_tpu/ops/pallas_batched_cholesky.py:111",

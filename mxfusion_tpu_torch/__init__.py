@@ -15,9 +15,10 @@ classification, Poisson and negative-binomial counts), training by MAP
 or SVI through the batch, minibatch and device loops, mean-field,
 score-function and importance-weighted VI, serving through
 ``BatchedPredictor``, forward sampling, the samplers, the evidence and
-criticism layer, PILCO, and the hand-written kernels of the paths they
-run (the RBF gram, the fused L⁻¹·Kuf gram and its
-backward, the batched Cholesky).
+criticism layer, PILCO, data parallelism over ``torch.distributed``
+(``parallel``), the native host batcher (``native``), profiling hooks,
+and the hand-written kernels of the paths they run (the RBF gram, the
+fused L⁻¹·Kuf gram and its backward, the batched Cholesky).
 """
 from .__version__ import __version__
 from .models import Model, Posterior, FactorGraph
@@ -27,5 +28,7 @@ from . import components
 from . import inference
 from . import models
 from . import modules
+from . import native
 from . import ops
+from . import parallel
 from . import util

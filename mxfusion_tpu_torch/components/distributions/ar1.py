@@ -24,6 +24,9 @@ class GaussianAR1(UnivariateDistribution):
     initial state. Parameters broadcast elementwise against the leading
     (non-time) event axes."""
 
+    #: each step depends on the one before
+    row_separable = False
+
     def __init__(self, phi, noise_var, init_mean=0.0, init_var=1.0,
                  rand_gen=None, dtype=None):
         super().__init__(

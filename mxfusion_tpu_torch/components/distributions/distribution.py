@@ -30,6 +30,9 @@ from ...util.inference import realize_shape
 class Distribution(Factor):
     """Base class of all probability distributions."""
 
+    #: rows are independent draws (the event's last axes)
+    row_separable = True
+
     # elementwise distributions right-align parameter event dims against
     # the random variable (scalar params vs (N, 1) values)
     _elementwise = False

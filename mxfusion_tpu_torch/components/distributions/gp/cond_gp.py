@@ -23,6 +23,9 @@ LOG2PI = math.log(2.0 * math.pi)
 
 
 class ConditionalGaussianProcess(Distribution):
+
+    #: the GP couples its rows through K
+    row_separable = False
     def __init__(self, X, X_cond, Y_cond, kernel, mean=None, mean_cond=None,
                  rand_gen=None, dtype=None, jitter=0.0):
         inputs = [("X", X), ("X_cond", X_cond), ("Y_cond", Y_cond)] + \

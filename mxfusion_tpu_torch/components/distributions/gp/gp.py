@@ -32,6 +32,9 @@ class GaussianProcess(Distribution):
     parameter under its prefixed name.
     """
 
+    #: the GP couples its rows through K
+    row_separable = False
+
     def __init__(self, X, kernel, mean=None, rand_gen=None, dtype=None,
                  jitter=0.0):
         inputs = [("X", X)] + [(n, v) for n, v in kernel.parameters.items()]

@@ -26,6 +26,9 @@ from ...ops.kalman import kalman_filter, kalman_filter_parallel, lgssm_sample
 
 class LinearGaussianSSM(Distribution):
 
+    #: the filter couples the time steps
+    row_separable = False
+
     def __init__(self, A, H, trans_cov, obs_cov, initial_mean,
                  initial_cov, observation_mask=None,
                  parallel_filter=False, rand_gen=None, dtype=None):

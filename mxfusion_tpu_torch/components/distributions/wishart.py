@@ -23,6 +23,9 @@ class Wishart(Distribution):
     Every factorization is ``ops.linalg.cholesky``'s: a scale or random
     variable that is not positive definite gives NaN, as in JAX."""
 
+    #: rows of one matrix draw
+    row_separable = False
+
     def __init__(self, degrees_of_freedom, scale, rand_gen=None, dtype=None):
         super().__init__(
             inputs=[("degrees_of_freedom", degrees_of_freedom),

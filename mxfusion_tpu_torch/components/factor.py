@@ -21,6 +21,12 @@ class Factor(ModelComponent):
     (unordered) graph adjacency using those names.
     """
 
+    #: whether the factor's log-pdf over a variable whose leading axis is the
+    #: data rows is a sum of one term per row, so the data-parallel loops
+    #: may split the rows over a mesh (``parallel.data_parallel``);
+    #: unknown is False, which makes them compute on the whole data
+    row_separable = False
+
     def __init__(self, inputs, outputs, input_names, output_names):
         super().__init__()
         self.input_names = list(input_names) if input_names is not None else []

@@ -25,7 +25,15 @@ class Function:
     broadcastable : bool
         Whether the function tolerates a leading sample axis on every
         input (evaluated once); otherwise it is vmapped per sample.
+
+    A function may mix the data rows (a centring, a batch statistic,
+    attention over the batch), so the data-parallel loops compute the
+    whole data on every rank where one is applied to them. Set
+    ``row_separable = True`` on a function that maps each row on its
+    own to let them split the rows over the mesh instead.
     """
+
+    row_separable = False
 
     def __init__(self, func, input_names, output_names, parameters=None,
                  broadcastable=False, name=None):

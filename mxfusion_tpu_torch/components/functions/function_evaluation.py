@@ -71,6 +71,12 @@ class FunctionEvaluationWithParameters(FunctionEvaluation):
     def function(self):
         return self._func
 
+    @property
+    def row_separable(self):
+        """What the wrapped function declares (``Function.row_separable``,
+        False unless its user sets it)."""
+        return self._func.row_separable
+
     def eval_impl(self, **input_kws):
         data = {n: input_kws[n] for n in self._data_input_names}
         params = {n: v for n, v in input_kws.items()

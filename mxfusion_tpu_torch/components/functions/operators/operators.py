@@ -10,6 +10,10 @@ from ..function_evaluation import FunctionEvaluation
 from ...variables.variable import Variable
 
 
+# operators that may mix the data rows (``Operator.row_separable``)
+_ROW_MIXING = ("sum", "mean", "prod", "reshape", "transpose", "diag")
+
+
 class Operator(FunctionEvaluation):
     """Factor applying one tensor operator to its inputs; ``properties``
     hold the static arguments (axes, shapes)."""
@@ -27,6 +31,12 @@ class Operator(FunctionEvaluation):
     @property
     def properties(self):
         return self._properties
+
+    @property
+    def row_separable(self):
+        """Reductions and reshapes may mix the data rows; the other
+        operators act row by row."""
+        return self.operator_name not in _ROW_MIXING
 
     def replicate_self(self, attribute_map=None):
         replica = super().replicate_self(attribute_map)

@@ -9,27 +9,34 @@ host dispatch over a ``lax.scan``, does not carry over.
 """
 import time
 
-import torch
-
 from .grad_loop import GradLoop
 
 
 class BatchInferenceLoop(GradLoop):
     """Optimize the objective on the full data every iteration."""
 
-    def __init__(self, steps_per_call=1, metrics_callback=None):
+    def __init__(self, steps_per_call=1, debug=False, metrics_callback=None):
         self.steps_per_call = steps_per_call
+        # JAX's debug=True runs its step un-jitted; the port always runs
+        # eagerly, so the flag is accepted (JAX call sites run unchanged)
+        # and changes nothing
+        self.debug = debug
         # metrics_callback(i, {"loss", "grad_norm", "step_time_s"})
         self.metrics_callback = metrics_callback
 
     def run(self, executor, params, data, optimizer="adam",
             learning_rate=1e-3, max_iter=1000, generator=None,
-            verbose=False, callback=None, resume_state=None):
+            verbose=False, callback=None, data_sharding=None,
+            resume_state=None):
         """``resume_state``: a :class:`~.grad_loop.TrainState`; the loop
-        then runs the remaining ``max_iter - resume_state.step`` steps."""
+        then runs the remaining ``max_iter - resume_state.step`` steps.
+        ``data_sharding``: one ``parallel.Sharding`` per array; the step
+        then evaluates this rank's rows and averages the loss and
+        gradients over the data axis (``parallel.data_parallel``)."""
         trainable, fixed, opt, generator, start = self._start(
             params, optimizer, learning_rate, generator, resume_state)
-        data = [torch.as_tensor(d, device=params.device) for d in data]
+        executor, data = self._full_batch(executor, data, data_sharding,
+                                          params.device)
         k = max(1, self.steps_per_call)
         if start % k:
             raise ValueError(
@@ -61,4 +68,5 @@ class BatchInferenceLoop(GradLoop):
                                "step_time_s": time.perf_counter() - t0})
         self._sync_live_state(params, trainable, fixed, opt, generator,
                               step=end)
+        self._finish()
         return loss.cpu().numpy() if loss is not None else None

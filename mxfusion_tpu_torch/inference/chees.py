@@ -115,6 +115,9 @@ class ChEESHMCAlgorithm(SamplingAlgorithm):
         self.target_accept = target_accept
         self.max_leapfrog = max_leapfrog
 
+    #: every potential goes through value_and_grad (see HMCAlgorithm)
+    reduces_over_data = True
+
     def _latent_uuids(self):
         return sampler_latent_uuids(self, "ChEES-HMC")
 
@@ -133,7 +136,8 @@ class ChEESHMCAlgorithm(SamplingAlgorithm):
         log_post = log_posterior(self.model, env, ctx, bij, dtype)
 
         def potential(q):
-            return value_and_grad(lambda x: -log_post(x), q)
+            return value_and_grad(lambda x: -log_post(x), q,
+                                  ctx.data_reduction)
 
         def proposal(q, U, g, eps, T):
             """One jittered-trajectory proposal for all chains:

@@ -34,8 +34,8 @@ class GradBasedInference(Inference):
             discover_shape_constants(shapes, self.graphs))
 
     def run(self, optimizer="adam", learning_rate=1e-3, max_iter=2000,
-            verbose=False, generator=None, callback=None, rv_scaling=None,
-            resume_state=None, **kwargs):
+            verbose=False, generator=None, callback=None, data_sharding=None,
+            remat=False, rv_scaling=None, resume_state=None, **kwargs):
         """Train. ``rv_scaling``: {variable or uuid: scalar or array}
         factors multiplying a random variable's elementwise log-density
         (the minibatch loops take theirs from the loop). An array of the
@@ -44,7 +44,11 @@ class GradBasedInference(Inference):
         module-generated variables take scalars only. Parameters already
         in the store (from :meth:`initialize`, a carry-over or an earlier
         run) are kept; ``generator`` (a ``torch.Generator``) draws the
-        missing initial values and the loop's random numbers."""
+        missing initial values and the loop's random numbers.
+        ``data_sharding``: one ``parallel.Sharding`` per observed array,
+        for a data-parallel run over a mesh (``parallel``). ``remat``:
+        recompute the objective's activations in the backward pass
+        (:func:`~.inference_alg.create_executor`)."""
         data = self._fetch_observed(kwargs)
         if isinstance(self._grad_loop, MinibatchInferenceLoop):
             if rv_scaling is not None:
@@ -64,12 +68,13 @@ class GradBasedInference(Inference):
                 rv_scaling = {(k.uuid if hasattr(k, "uuid") else k): v
                               for k, v in rv_scaling.items()}
         executor = create_executor(self._algorithm, self.params,
-                                   rv_scaling=rv_scaling)
+                                   rv_scaling=rv_scaling, remat=remat)
         return self._grad_loop.run(
             executor=executor, params=self.params, data=data,
             optimizer=optimizer, learning_rate=learning_rate,
             max_iter=max_iter, generator=generator, verbose=verbose,
-            callback=callback, resume_state=resume_state)
+            callback=callback, data_sharding=data_sharding,
+            resume_state=resume_state)
 
 
 class GradTransferInference(GradBasedInference, TransferInference):

@@ -109,6 +109,55 @@ def _global_norm(tensors):
 
 class GradLoop(ABC):
 
+    #: the data-parallel plan of the running ``run`` (``data_sharding=``),
+    #: else None: it supplies the executor of this rank's rows and
+    #: all-reduces each step's loss and gradients
+    _plan = None
+
+    def _data_parallel(self, executor, data_sharding, rows):
+        """The executor a run over ``rows`` data rows steps: with
+        ``data_sharding`` (a list of ``parallel.Sharding``, one per
+        observed array), that of a :class:`~..parallel.data_parallel.
+        DataParallelPlan`, which this loop keeps until the run ends."""
+        self._plan = None
+        if data_sharding is None:
+            return executor
+        from ..parallel.data_parallel import DataParallelPlan
+        from .inference_alg import create_executor
+
+        def factory(algorithm, params, rv_scaling, _data_reduction):
+            return create_executor(algorithm, params, rv_scaling,
+                                   remat=executor.remat)
+        self._plan = DataParallelPlan(
+            factory, executor.algorithm, executor.params, data_sharding,
+            rows, executor.rv_scaling)
+        return self._plan.executor
+
+    def _full_batch(self, executor, data, data_sharding, device):
+        """The executor and the data tensors of a full-batch run: this
+        rank's under ``data_sharding`` (:meth:`_data_parallel`), all of
+        them otherwise."""
+        executor = self._data_parallel(
+            executor, data_sharding, int(data[0].shape[0]) if data else 0)
+        if self._plan is not None:
+            return executor, self._plan.local(data, device)
+        return executor, [torch.as_tensor(d, device=device) for d in data]
+
+    def _finish(self):
+        """End the run's data-parallel plan (restores the executor's
+        log-pdf scaling)."""
+        if self._plan is not None:
+            self._plan.finish()
+            self._plan = None
+
+    def _reduce(self, loss, leaves):
+        """Under a data-parallel plan, ``loss`` and the ``.grad`` of
+        ``leaves`` averaged over the data axis (in place for the
+        gradients); ``loss`` as it is otherwise."""
+        if self._plan is None:
+            return loss
+        return self._plan.reduce(loss, leaves)
+
     @staticmethod
     def _start(params, optimizer, learning_rate, generator, resume_state):
         """Trainable leaf tensors (copies of the store's), the fixed
@@ -128,8 +177,7 @@ class GradLoop(ABC):
             start = int(resume_state.step or 0)
         return trainable, fixed, opt, generator, start
 
-    @staticmethod
-    def _step(executor, opt, trainable, fixed, batch, generator,
+    def _step(self, executor, opt, trainable, fixed, batch, generator,
               grad_norm=False):
         """One optimizer step. The loss is the one at the parameters
         before the update, as in the JAX loops. Returns (loss, aux,
@@ -139,6 +187,7 @@ class GradLoop(ABC):
         loss, loss_for_grad, aux = executor(trainable, fixed, batch,
                                             generator)
         loss_for_grad.backward()
+        loss = self._reduce(loss.detach(), trainable.values())
         gnorm = None
         if grad_norm:
             gnorm = _global_norm([p.grad for p in trainable.values()
@@ -166,5 +215,6 @@ class GradLoop(ABC):
     @abstractmethod
     def run(self, executor, params, data, optimizer="adam",
             learning_rate=1e-3, max_iter=1000, generator=None,
-            verbose=False, callback=None, resume_state=None):
+            verbose=False, callback=None, data_sharding=None,
+            resume_state=None):
         """Run the optimization loop; returns the final loss."""

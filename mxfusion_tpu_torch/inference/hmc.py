@@ -185,17 +185,23 @@ def log_posterior(model, env, ctx, bij, dtype):
     return log_post
 
 
-def value_and_grad(fn, q):
+def value_and_grad(fn, q, reduce=None):
     """``fn(q)`` and the gradient of its sum in the chain tensors ``q``,
     both detached: one forward and one backward, with gradients taken
-    in ``q`` alone (nothing else accumulates a ``.grad``)."""
+    in ``q`` alone (nothing else accumulates a ``.grad``). ``reduce``
+    (a ``RuntimeContext``'s ``data_reduction``, over data split on a
+    mesh) turns one rank's value and gradient into the whole data's."""
     with torch.enable_grad():
         leaves = {u: v.detach().requires_grad_(True) for u, v in q.items()}
         out = fn(leaves)
         grads = torch.autograd.grad(torch.sum(out), list(leaves.values()),
                                     allow_unused=True)
-    return out.detach(), {u: torch.zeros_like(leaves[u]) if gr is None
-                          else gr for u, gr in zip(leaves, grads)}
+    out = out.detach()
+    grads = {u: torch.zeros_like(leaves[u]) if gr is None else gr
+             for u, gr in zip(leaves, grads)}
+    if reduce is not None:
+        out, grads = reduce(out, grads)
+    return out, grads
 
 
 def _kinetic(p, inv_mass):
@@ -379,6 +385,10 @@ class HMCAlgorithm(SamplingAlgorithm):
         # pooled), the second half re-adapts the step size under it
         self.adapt_mass = adapt_mass
 
+    #: every potential goes through value_and_grad, so data split on a
+    #: mesh is reduced there (``parallel.data_parallel``)
+    reduces_over_data = True
+
     def _latent_uuids(self):
         return sampler_latent_uuids(self, "HMC")
 
@@ -398,7 +408,8 @@ class HMCAlgorithm(SamplingAlgorithm):
         log_post = log_posterior(self.model, env, ctx, bij, dtype)
 
         def potential(q):
-            return value_and_grad(lambda x: -log_post(x), q)
+            return value_and_grad(lambda x: -log_post(x), q,
+                                  ctx.data_reduction)
 
         def step(q, U, g, eps, inv_mass):
             p0 = {u: v / torch.sqrt(inv_mass[u]) for u, v in

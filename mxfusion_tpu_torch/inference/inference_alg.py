@@ -101,9 +101,13 @@ class RuntimeContext:
     ``torch.Generator`` that random draws take, and the aux (SET_
     parameter) writeback dict."""
 
-    def __init__(self, generator):
+    def __init__(self, generator, data_reduction=None):
         self.generator = generator
         self.aux = {}
+        # over data split on a mesh: (value, {uuid: gradient}) of one
+        # rank -> the whole data's (parallel.data_parallel); the
+        # samplers hand it to hmc.value_and_grad
+        self.data_reduction = data_reduction
 
     def next_generator(self):
         """The generator for the next draw (draws advance its state)."""
@@ -285,16 +289,26 @@ def _make_env_builder(algorithm, params, rv_scaling=None):
     return build_env
 
 
-def create_executor(algorithm, params, rv_scaling=None):
+def create_executor(algorithm, params, rv_scaling=None, remat=False):
     """The objective of a loss algorithm: ``executor(trainable, fixed,
     data_list, generator) -> (loss, loss_for_gradient, aux)``, where
     ``trainable``/``fixed`` are {uuid: unconstrained tensor} dicts and
     ``data_list`` is the observed data in
     ``algorithm.observed_variable_UUIDs`` order. Gradients flow from
-    ``loss_for_gradient`` to the tensors of ``trainable``."""
+    ``loss_for_gradient`` to the tensors of ``trainable``.
+
+    ``remat=True`` runs the objective under
+    ``torch.utils.checkpoint.checkpoint`` (``use_reentrant=False``): its
+    activations are recomputed in the backward pass instead of kept,
+    trading operations for device memory, as ``jax.checkpoint`` does.
+    The recompute draws the forward's random numbers again: checkpoint
+    restores the global RNGs only, so the executor saves the generator's
+    state before the forward, restores it before the recompute, and
+    sets the generator back to its post-forward state after it, so the
+    next step draws what a run without ``remat`` draws."""
     build_env = _make_env_builder(algorithm, params, rv_scaling=rv_scaling)
 
-    def executor(trainable, fixed, data_list, generator):
+    def objective(trainable, fixed, data_list, generator):
         env = build_env(trainable, fixed, data_list)
         ctx = RuntimeContext(generator)
         result = algorithm.compute(env, ctx)
@@ -304,22 +318,76 @@ def create_executor(algorithm, params, rv_scaling=None):
             loss = loss_for_grad = result
         return loss, loss_for_grad, ctx.aux
 
+    executor = _rematerialized(objective) if remat else objective
     executor.build_env = build_env
+    # what parallel.data_parallel needs to rebuild it for one rank's rows
+    executor.algorithm = algorithm
+    executor.params = params
+    executor.rv_scaling = rv_scaling
+    executor.remat = remat
     return executor
 
 
-def create_sampling_executor(algorithm, params, rv_scaling=None):
+def _rematerialized(objective):
+    """``objective`` under a non-reentrant checkpoint, its generator
+    replayed in the recompute (see :func:`create_executor`)."""
+    from torch.utils import checkpoint
+
+    def executor(trainable, fixed, data_list, generator):
+        states = {}
+
+        def run(trainable, fixed, data_list):
+            if generator is None:
+                return objective(trainable, fixed, data_list, generator)
+            if "after" in states:          # the backward's recompute
+                generator.set_state(states["before"])
+                out = objective(trainable, fixed, data_list, generator)
+                generator.set_state(states["after"])
+                return out
+            states["before"] = generator.get_state()
+            out = objective(trainable, fixed, data_list, generator)
+            states["after"] = generator.get_state()
+            return out
+
+        # the whole objective is recomputed, so the generator is set
+        # back after its last draw
+        with checkpoint.set_checkpoint_early_stop(False):
+            return checkpoint.checkpoint(run, trainable, fixed, data_list,
+                                         use_reentrant=False)
+
+    return executor
+
+
+def create_sampling_executor(algorithm, params, rv_scaling=None,
+                             data_sharding=None):
     """Executor for SamplingAlgorithms: ``executor(trainable, fixed,
     data_list, generator)`` returns compute's output.
 
     ``rv_scaling`` rescales the generating factors' log-pdfs exactly as
     in :func:`create_executor`: a minibatch sampler (SGLD) passes the
-    N/B likelihood correction through it."""
+    N/B likelihood correction through it. ``data_sharding``: one
+    ``parallel.Sharding`` per observed array, the placement of the data
+    the executor is then called with, each array's part on this rank
+    (what ``parallel.shard_data`` returns, under the placements that
+    ``parallel.data_shardings`` gives); the chains then equal the
+    unsharded ones (``parallel.data_parallel.sharded_sampling_executor``)."""
+    if data_sharding is not None:
+        from ..parallel.data_parallel import sharded_sampling_executor
+        return sharded_sampling_executor(algorithm, params, rv_scaling,
+                                         data_sharding)
+    return sampling_executor(algorithm, params, rv_scaling)
+
+
+def sampling_executor(algorithm, params, rv_scaling=None,
+                      data_reduction=None):
+    """:func:`create_sampling_executor` over whole data; the compute's
+    ``RuntimeContext`` carries ``data_reduction`` (see there)."""
     build_env = _make_env_builder(algorithm, params, rv_scaling=rv_scaling)
 
     def executor(trainable, fixed, data_list, generator):
         env = build_env(trainable, fixed, data_list)
-        return algorithm.compute(env, RuntimeContext(generator))
+        return algorithm.compute(env, RuntimeContext(generator,
+                                                     data_reduction))
 
     executor.build_env = build_env
     return executor

@@ -107,7 +107,10 @@ class NaturalGradientLoop(GradLoop):
 
     def run(self, executor, params, data, optimizer="adam",
             learning_rate=1e-2, max_iter=1000, generator=None,
-            verbose=False, callback=None, resume_state=None):
+            verbose=False, callback=None, data_sharding=None,
+            resume_state=None):
+        """``data_sharding``: one ``parallel.Sharding`` per array, as
+        :class:`~.batch_loop.BatchInferenceLoop` takes it."""
         if resume_state is not None:
             raise InferenceError(
                 "Deterministic resume is not implemented for "
@@ -142,7 +145,8 @@ class NaturalGradientLoop(GradLoop):
                              list(hyper.values())) if hyper else None
         if generator is None:
             generator = torch.Generator(device=params.device).manual_seed(0)
-        data = [torch.as_tensor(d, device=params.device) for d in data]
+        executor, data = self._full_batch(executor, data, data_sharding,
+                                          params.device)
         metrics_cb = self.metrics_callback
         trips = torch.zeros((), dtype=torch.int64, device=S.device)
 
@@ -155,6 +159,7 @@ class NaturalGradientLoop(GradLoop):
             tr = {**hyper, u_mean: m, u_w: W, u_diag: frozen_diag}
             loss, loss_for_grad, _ = executor(tr, fixed, data, generator)
             loss_for_grad.backward()
+            loss = self._reduce(loss.detach(), [m, S, *hyper.values()])
             g_m, g_S = m.grad, S.grad
             gnorm = None
             if metrics_cb is not None:
@@ -202,6 +207,7 @@ class NaturalGradientLoop(GradLoop):
         params.update_params({u_mean: m.detach().clone(),
                               u_w: cholesky(S),
                               u_diag: frozen_diag})
+        self._finish()
         return loss.cpu().numpy() if loss is not None else None
 
 
@@ -253,6 +259,7 @@ class NaturalGradientMinibatchLoop(DeviceMinibatchLoop):
         tr = {**hyper, u_mean: m, u_w: Wc, u_diag: frozen}
         loss, loss_for_grad, aux = executor(tr, fixed, batch, generator)
         loss_for_grad.backward()
+        loss = self._reduce(loss.detach(), [m, S, *hyper.values()])
         g_m, g_S = m.grad, S.grad
         D = float(m.shape[-1])
         with torch.no_grad():

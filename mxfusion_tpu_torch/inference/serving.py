@@ -15,8 +15,16 @@ chunked and merged there, and returned as numpy arrays.
 ``load_exported_predictor(path)`` serves it without the
 model-definition code or a graph rebuild, needing only this package
 (which registers the operators the program calls: K1's launch and the
-tiered products, each carrying its precision). The mesh-sharded path
-waits for the port's parallel slice.
+tiered products, each carrying its precision).
+
+Over a mesh (``mesh=``, one process per device, ``parallel``), both
+predictors deal whole chunks to the ranks round-robin and all-gather
+each round's outputs, so every rank returns the whole answer, full
+covariances included. A prediction that draws random numbers draws on
+each rank from a stream of its own, the first rank's being the caller's
+generator: the draws differ from one process's in value, not in
+distribution. A mesh predictor is not exported, as in JAX: export an
+unsharded one and pass the mesh to ``load_exported_predictor``.
 
 Both predictors run each chunk at IEEE float32 for every product that
 carries no tier of its own (the triangular solves and the Cholesky,
@@ -116,26 +124,34 @@ def _merge_leaf(pieces_with_pad, axes, C, N):
     return out
 
 
-def _chunked_predict(call, C, data, generator, output_spec=None):
+def _chunked_predict(call, C, data, generator, output_spec=None,
+                     run_chunks=None):
     """Shared chunk/pad/merge loop.
 
     ``call(chunk_list, generator)`` returns the output pytree for one
-    C-row chunk. ``output_spec``: optional per-flattened-leaf tuples of
-    data-axis indices (see :func:`_leaf_data_axes`). Returns the merged
-    pytree with numpy leaves."""
+    C-row chunk; ``run_chunks(chunks)``, when given, returns the list of
+    every chunk's instead. ``output_spec``: optional per-flattened-leaf
+    tuples of data-axis indices (see :func:`_leaf_data_axes`). Returns
+    the merged pytree with numpy leaves."""
     N = data[0].shape[0]
     if N == 0:
         raise ValueError(
             "predict() called with zero rows; chunked serving needs at "
             "least one input row.")
-    chunks = []      # (pad, flat leaves) per chunk
-    treedef = None
+    pads, inputs = [], []
     for i in range(0, N, C):
         chunk = [d[i:i + C] for d in data]
         pad = C - chunk[0].shape[0]
         if pad:
             chunk = [_pad_chunk(c, C) for c in chunk]
-        leaves, treedef = pytree.tree_flatten(call(chunk, generator))
+        pads.append(pad)
+        inputs.append(chunk)
+    outs = run_chunks(inputs) if run_chunks is not None else \
+        (call(chunk, generator) for chunk in inputs)
+    chunks = []      # (pad, flat leaves) per chunk
+    treedef = None
+    for pad, out in zip(pads, outs):
+        leaves, treedef = pytree.tree_flatten(out)
         chunks.append((pad, leaves))
 
     first = chunks[0][1]
@@ -181,15 +197,26 @@ class BatchedPredictor:
     """
 
     def __init__(self, model, infr_params, observed, target_variables=None,
-                 chunk_size=1024, num_samples=None, output_spec=None):
+                 chunk_size=1024, num_samples=None, output_spec=None,
+                 mesh=None, data_axis=None):
         """``infr_params``: the trained ``InferenceParameters`` (or an
         ``Inference``); the predictor serves on its dtype and device.
         ``output_spec``: optional explicit data-axis declaration, one
         tuple of axis indices per flattened output leaf. ``num_samples``:
         sample count handed to the prediction algorithm (``None`` =
-        unset, read as 1 by moment-based algorithms)."""
+        unset, read as 1 by moment-based algorithms).
+
+        ``mesh``: a ``parallel`` mesh; the chunks are then dealt to the
+        ranks of ``data_axis`` (default: the mesh's first axis), each
+        predicting with the parameters it holds, and their outputs are
+        all-gathered (see the module docstring). ``chunk_size`` must
+        divide by the axis size, as in JAX."""
         self.chunk_size = chunk_size
         self.output_spec = output_spec
+        self._mesh = mesh
+        if mesh is not None:
+            self._data_axis = _resolve_mesh_serving(mesh, data_axis,
+                                                    chunk_size)
         alg = ModulePredictionAlgorithm(
             model=model, observed=observed,
             target_variables=target_variables, num_samples=num_samples)
@@ -266,12 +293,19 @@ class BatchedPredictor:
                     device=params.device).manual_seed(0)
             trainable = params.trainable_params()
             fixed = params.fixed_params()
+
+            def call(chunk, g):
+                return self._executor(trainable, fixed, chunk, g)
+            run_chunks = None
+            if self._mesh is not None:
+                g = _rank_generator(
+                    generator, self._mesh.get_local_rank(self._data_axis))
+                run_chunks = _dealt_chunks(lambda chunk: call(chunk, g),
+                                           self._mesh, self._data_axis)
             with precision._matmul_precision("highest"):
-                return _chunked_predict(
-                    lambda chunk, g: self._executor(trainable, fixed, chunk,
-                                                    g),
-                    self._chunk, data, generator,
-                    output_spec=self.output_spec)
+                return _chunked_predict(call, self._chunk, data, generator,
+                                        output_spec=self.output_spec,
+                                        run_chunks=run_chunks)
 
     # ------------------------------------------------------------------
     def export(self, path, **example_data):
@@ -285,8 +319,17 @@ class BatchedPredictor:
         chunk)``, the parameters being program inputs. It is traced on
         the store's device and runs only there. A prediction that draws
         random numbers raises: the program has no generator input; so
-        does a graph that holds an ``NNFunction``."""
+        does a graph that holds an ``NNFunction``, and so does a mesh
+        predictor, as in JAX (the program would be pinned to this mesh):
+        export an unsharded predictor and pass the mesh to
+        ``load_exported_predictor``."""
         from ..components.functions import NNFunction
+        if self._mesh is not None:
+            raise ValueError(
+                "export() of a mesh-sharded predictor is not supported: "
+                "the exported program would be pinned to this mesh. "
+                "Export an unsharded BatchedPredictor and shard at load "
+                "time instead.")
         params = self._infr.params
         if any(isinstance(getattr(f, "function", None), NNFunction)
                for f in self._infr.inference_algorithm.model.ordered_factors):
@@ -347,6 +390,66 @@ class BatchedPredictor:
         return path
 
 
+def _axis_size(mesh, axis):
+    from ..parallel.mesh import axis_size
+    return axis_size(mesh, axis)
+
+
+def _resolve_mesh_serving(mesh, data_axis, chunk):
+    """Validate a sharded-serving request; returns the data axis name
+    (JAX's checks: the axis exists, the chunk divides it)."""
+    axis = data_axis if data_axis is not None else mesh.mesh_dim_names[0]
+    if axis not in mesh.mesh_dim_names:
+        raise ValueError(
+            "data_axis {!r} is not an axis of the mesh (axes: {})."
+            .format(axis, tuple(mesh.mesh_dim_names)))
+    n_shards = _axis_size(mesh, axis)
+    if chunk % n_shards:
+        raise ValueError(
+            "chunk size ({}) must be divisible by the '{}' mesh axis "
+            "size ({}) for sharded serving.".format(chunk, axis, n_shards))
+    return axis
+
+
+def _rank_generator(generator, index):
+    """The generator rank ``index`` draws its chunks from: the caller's
+    on the first rank, so a world of one draws as one process does; on
+    the others one seeded from a copy of it and the index, so no two
+    ranks draw alike."""
+    if index == 0:
+        return generator
+    copy = torch.Generator(device=generator.device)
+    copy.set_state(generator.get_state())
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=copy,
+                             device=generator.device))
+    return torch.Generator(device=generator.device).manual_seed(seed + index)
+
+
+def _dealt_chunks(call, mesh, axis):
+    """``run_chunks`` over a mesh: each rank runs ``call(chunk)`` on whole
+    chunks, dealt round-robin, and every round's outputs are
+    all-gathered; returns the outputs of the chunks in order."""
+    import torch.distributed as dist
+    n = _axis_size(mesh, axis)
+    index = mesh.get_local_rank(axis)
+    group = mesh.get_group(axis)
+
+    def run_chunks(chunks):
+        # every rank runs as many chunks: repeat the last to fill a round
+        padded = chunks + [chunks[-1]] * (-len(chunks) % n)
+        outs = []
+        for start in range(0, len(padded), n):
+            leaves, treedef = pytree.tree_flatten(call(padded[start + index]))
+            parts = []
+            for x in leaves:
+                parts.append([torch.empty_like(x) for _ in range(n)])
+                dist.all_gather(parts[-1], x.contiguous(), group=group)
+            outs.extend(pytree.tree_unflatten([p[r] for p in parts],
+                                              treedef) for r in range(n))
+        return outs[:len(chunks)]
+    return run_chunks
+
+
 class _ChunkProgram(torch.nn.Module):
     """The per-chunk call ``torch.export`` traces; the generator is one
     that the call (checked before the trace) never draws from."""
@@ -365,7 +468,7 @@ class ExportedPredictor:
     ``predict`` contract, no model rebuild, no graph machinery."""
 
     def __init__(self, program, trainable, fixed, names, chunk, dtypes,
-                 device, output_spec=None):
+                 device, output_spec=None, mesh=None, data_axis=None):
         self._program = program
         self._call = program.module()
         self._trainable = trainable
@@ -375,6 +478,9 @@ class ExportedPredictor:
         self._dtypes = dtypes
         self._device = device
         self._output_spec = output_spec
+        self._mesh = mesh
+        if mesh is not None:
+            self._data_axis = _resolve_mesh_serving(mesh, data_axis, chunk)
 
     def predict(self, **kwargs):
         """Predict for the named inputs (numpy arrays or tensors, any
@@ -383,18 +489,28 @@ class ExportedPredictor:
         with torch.no_grad():
             data = [torch.as_tensor(kwargs[n], device=self._device).to(dt)
                     for n, dt in zip(self._names, self._dtypes)]
+            def call(chunk, _=None):
+                return self._call(self._trainable, self._fixed, chunk)
+            run_chunks = _dealt_chunks(call, self._mesh, self._data_axis) \
+                if self._mesh is not None else None
             with precision._matmul_precision("highest"):
-                return _chunked_predict(
-                    lambda chunk, _: self._call(self._trainable, self._fixed,
-                                                chunk),
-                    self._chunk, data, None, output_spec=self._output_spec)
+                return _chunked_predict(call, self._chunk, data, None,
+                                        output_spec=self._output_spec,
+                                        run_chunks=run_chunks)
 
 
-def load_exported_predictor(path, device=None):
+def load_exported_predictor(path, device=None, mesh=None, data_axis=None):
     """Load a ``BatchedPredictor.export`` artifact to serve on ``device``
-    (default: the package's default device), which must be of the type
-    it was traced on. A JAX package artifact (``function.bin``) raises:
-    it is StableHLO, which this package does not run."""
+    (default: the package's default device; under a mesh, this rank's),
+    which must be of the type it was traced on. A JAX package artifact
+    (``function.bin``) raises: it is StableHLO, which this package does
+    not run. ``mesh``: serve over a ``parallel`` mesh, whole chunks
+    dealt to the ranks of ``data_axis`` (default: the first axis) and
+    their outputs all-gathered; the chunk must divide by the axis size,
+    as in JAX."""
+    if mesh is not None and device is None:
+        from ..parallel.mesh import mesh_device
+        device = mesh_device(mesh)
     device = resolve_device(device)
     with zipfile.ZipFile(path) as zf:
         if "function.bin" in zf.namelist():
@@ -426,4 +542,4 @@ def load_exported_predictor(path, device=None):
     return ExportedPredictor(
         program, trainable, fixed, meta["names"], meta["chunk"],
         [getattr(torch, d) for d in meta["input_dtypes"]], device,
-        output_spec=spec)
+        output_spec=spec, mesh=mesh, data_axis=data_axis)

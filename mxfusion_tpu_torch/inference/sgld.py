@@ -137,6 +137,13 @@ class SGLDAlgorithm(SamplingAlgorithm):
             return a
         return a * (1.0 + t / self.step_decay_b) ** (-self.step_decay_gamma)
 
+    @property
+    def reduces_over_data(self):
+        """Full-batch Langevin's potentials go through value_and_grad
+        (see HMCAlgorithm); minibatches draw rows, so split data is
+        gathered for them."""
+        return self.batch_size is None
+
     def compute(self, env, ctx):
         C = self.num_chains
         latent_uuids = self._latent_uuids()
@@ -166,7 +173,7 @@ class SGLDAlgorithm(SamplingAlgorithm):
             # by N/B (log_pdf_scaling touches the likelihood only)
             _, g = value_and_grad(
                 log_posterior(self.model, batch_env_at(), ctx, bij, dtype),
-                q)
+                q, ctx.data_reduction)
             noise = _normal_draws(q, generator)
             return _sgld_step(q, V, g, noise, self._step_size_at(t, first),
                               self.preconditioning, self.precond_alpha,
@@ -189,6 +196,8 @@ class SGLDAlgorithm(SamplingAlgorithm):
                 chain = bij.constrain(chain)  # back to the native support
             final_lp = log_posterior(self.model, batch_env_at(), ctx, bij,
                                      dtype)(q)
+            if ctx.data_reduction is not None:
+                final_lp, _ = ctx.data_reduction(final_lp, {})
         targets = self.target_variables if self.target_variables \
             else latent_uuids
         samples = {u: chain[u] for u in targets}

@@ -89,6 +89,9 @@ class SVGDAlgorithm(SamplingAlgorithm):
         self.step_size = step_size
         self.bandwidth = bandwidth
 
+    #: every potential goes through value_and_grad (see HMCAlgorithm)
+    reduces_over_data = True
+
     def _latent_uuids(self):
         return sampler_latent_uuids(self, "SVGD")
 
@@ -135,7 +138,7 @@ class SVGDAlgorithm(SamplingAlgorithm):
             for t in range(self.num_iterations):
                 # the (n, D) batched score
                 _, g = value_and_grad(lambda d: log_joint(unflat(d["zf"])),
-                                      {"zf": zf})
+                                      {"zf": zf}, ctx.data_reduction)
                 p = _stein_direction(zf, g["zf"], self.bandwidth)
                 eps = eps0 * (1.0 + t / tau) ** -0.5
                 zf, G = _svgd_step(zf, G, p, eps)

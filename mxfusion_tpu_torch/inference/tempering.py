@@ -97,6 +97,9 @@ class ParallelTemperingAlgorithm(SamplingAlgorithm):
         self.num_leapfrog = num_leapfrog
         self.target_accept = target_accept
 
+    #: every potential goes through value_and_grad (see HMCAlgorithm)
+    reduces_over_data = True
+
     def _latent_uuids(self):
         return sampler_latent_uuids(self, "PT-HMC")
 
@@ -138,7 +141,8 @@ class ParallelTemperingAlgorithm(SamplingAlgorithm):
             end = {}
 
             def potential(x):
-                end["lp"], end["glp"] = value_and_grad(log_post, x)
+                end["lp"], end["glp"] = value_and_grad(
+                    log_post, x, ctx.data_reduction)
                 return tempered(end["lp"], end["glp"])
 
             U, g = tempered(lp, glp)
@@ -155,7 +159,7 @@ class ParallelTemperingAlgorithm(SamplingAlgorithm):
                               swap_u) + (accept_prob,)
 
         with torch.no_grad():
-            lp, glp = value_and_grad(log_post, q)
+            lp, glp = value_and_grad(log_post, q, ctx.data_reduction)
             # ---- warmup: dual averaging of the base step size on the
             # pooled accept statistic
             eps0 = torch.as_tensor(self.step_size, dtype=dtype,

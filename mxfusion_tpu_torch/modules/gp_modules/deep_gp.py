@@ -294,6 +294,9 @@ class _DeepGPModule(Module):
         diagonal).
     """
 
+    #: doubly-stochastic: the data term is a sum over rows
+    row_separable = True
+
     _graph_name = "deep_gp"
 
     def __init__(self, X, kernels, inducing_inputs=None,

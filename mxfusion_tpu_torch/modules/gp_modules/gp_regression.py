@@ -231,6 +231,9 @@ def _sample_predictive(alg, env, ctx, moments):
 class GPRegression(Module):
     """GP regression with a Gaussian likelihood."""
 
+    #: one N x N Cholesky over every row
+    row_separable = False
+
     def __init__(self, X, kernel, noise_var, mean=None, rand_gen=None,
                  dtype=None, jitter=0.0):
         # jitter stabilizes the PRIOR sampling path's Cholesky (the

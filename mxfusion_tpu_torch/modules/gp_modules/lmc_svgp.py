@@ -146,6 +146,9 @@ class LMCSVGPRegression(Module):
     carry priors like any other variable. ``noise_var`` is scalar
     (shared) or of shape (C,) (per-output)."""
 
+    #: the bound's data term is a sum over rows (the KL is global)
+    row_separable = True
+
     def __init__(self, X, kernel, num_outputs, num_latents=None,
                  noise_var=None, mixing_matrix=None, inducing_inputs=None,
                  num_inducing=10, rand_gen=None, dtype=None, jitter=1e-5,

@@ -196,6 +196,9 @@ class SparseGPRegressionSamplingPrediction(
 class SparseGPRegression(Module):
     """Sparse (collapsed) GP regression module."""
 
+    #: the collapsed bound's A = I + GG^T/s2 couples the rows
+    row_separable = False
+
     def __init__(self, X, kernel, noise_var, inducing_inputs=None,
                  num_inducing=10, mean=None, rand_gen=None, dtype=None,
                  jitter=1e-5):

@@ -266,6 +266,9 @@ class SVGPClassification(Module):
     ELBO, ``predict`` the class probability, sampling walks the
     generative graph U → F → link(F) → Bernoulli."""
 
+    #: the bound's data term is a sum over rows (the KL is global)
+    row_separable = True
+
     def __init__(self, X, kernel, inducing_inputs=None, num_inducing=10,
                  mean=None, rand_gen=None, dtype=None, jitter=1e-5,
                  whitened=False, num_quadrature_points=20, link="logit"):

@@ -103,6 +103,9 @@ class SVGPMultiClassification(Module):
     """Multi-class SVGP classification: one-hot (N, C) outputs, softmax
     link, MC expected log-likelihood, shared-kernel latent columns."""
 
+    #: the bound's data term is a sum over rows (the KL is global)
+    row_separable = True
+
     def __init__(self, X, kernel, num_classes, inducing_inputs=None,
                  num_inducing=10, rand_gen=None, dtype=None, jitter=1e-5,
                  whitened=False, num_mc_samples=8,

@@ -114,6 +114,9 @@ class SVGPNegBinomialPrediction(SamplingAlgorithm):
 class SVGPNegBinomialRegression(Module):
     """SVGP overdispersed-count regression with a trainable dispersion."""
 
+    #: the bound's data term is a sum over rows (the KL is global)
+    row_separable = True
+
     def __init__(self, X, kernel, dispersion=None, inducing_inputs=None,
                  num_inducing=10, mean=None, rand_gen=None, dtype=None,
                  jitter=1e-5, whitened=False, num_quadrature_points=20):

@@ -328,6 +328,9 @@ class SVGPRegressionSamplingPrediction(SVGPRegressionMeanVariancePrediction):
 class SVGPRegression(Module):
     """SVGP regression module."""
 
+    #: the bound's data term is a sum over rows (the KL is global)
+    row_separable = True
+
     def __init__(self, X, kernel, noise_var, inducing_inputs=None,
                  num_inducing=10, mean=None, rand_gen=None, dtype=None,
                  jitter=1e-5, whitened=False):

@@ -187,9 +187,46 @@ def _tiered(equation, fwd_tier, bwd_tier, A, B):
                                bwd_tier, A, B)
 
 
-def einsum(equation, A, B):
-    """Two-operand einsum at the HIGHEST tier, forward and backward."""
-    return _tiered(equation, "highest", "highest", A, B)
+def einsum(equation, *operands):
+    """einsum at the HIGHEST tier, forward and backward, of one, two or
+    three operands (JAX's takes ``*operands``). Three contract left to
+    right through the two-operand tiered product, each pairwise product
+    keeping the HIGHEST tier in both directions; one has no product and
+    is a plain ``torch.einsum``."""
+    if len(operands) == 2:
+        return _tiered(equation, "highest", "highest", *operands)
+    if len(operands) == 1:
+        return torch.einsum(equation, operands[0])
+    if len(operands) == 3:
+        first, second = _split_three(equation)
+        A, B, C = operands
+        return _tiered(second, "highest", "highest",
+                       _tiered(first, "highest", "highest", A, B), C)
+    raise ValueError("precision einsum takes one, two or three operands, "
+                     "got {}".format(len(operands)))
+
+
+def _split_three(equation):
+    """``"ab,bc,cd->ad"`` -> (``"ab,bc->ac"``, ``"ac,cd->ad"``): the
+    first product keeps the indices of A and B that C or the output
+    still needs, in their order of appearance (the ellipsis first)."""
+    if "->" not in equation:
+        raise ValueError("precision einsum needs an explicit output: "
+                         "{!r}".format(equation))
+    ins, out = equation.replace(" ", "").split("->")
+    terms = ins.split(",")
+    if len(terms) != 3:
+        raise ValueError("equation {!r} does not have three operands"
+                         .format(equation))
+    a, b, c = terms
+    later = set(c.replace("...", "")) | set(out.replace("...", ""))
+    kept = ""
+    for ch in (a + b).replace("...", ""):
+        if ch in later and ch not in kept:
+            kept += ch
+    if "..." in a or "..." in b:
+        kept = "..." + kept
+    return "{},{}->{}".format(a, b, kept), "{},{}->{}".format(kept, c, out)
 
 
 # --------------------------------------------------------------------------

@@ -10,6 +10,8 @@ are held to them, at the JAX test's shapes and tolerance
 float32). Then the custom backward, the NaN convention for a matrix that
 is not positive definite, and the dispatch.
 """
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,8 +22,10 @@ from mxfusion_tpu.ops import batched_cholesky as jbatched_cholesky
 from mxfusion_tpu.ops.pallas_batched_cholesky import (
     _pallas_batched_cholesky, _pallas_batched_cholesky_v2)
 
-from mxfusion_tpu_torch.ops import batched_cholesky as bc
 from mxfusion_tpu_torch.ops import linalg
+
+# the module (ops.batched_cholesky is the function, as in JAX)
+bc = importlib.import_module("mxfusion_tpu_torch.ops.batched_cholesky")
 
 # (B, n, JAX chunk): K4's block tier at n = 96 and at n = 100 (n % 4 != 0)
 SHAPES = [(32, 64, 16), (24, 128, 16), (40, 32, 16), (16, 96, 8),

@@ -9,17 +9,20 @@ file imports no JAX, so it runs on a card machine that has none:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 """
+import importlib
 import stat
 
 import numpy as np
 import pytest
 import torch
 
-from mxfusion_tpu_torch.ops import batched_cholesky as bc
 from mxfusion_tpu_torch.ops import cuda_build, cuda_kernels as ck
 from mxfusion_tpu_torch.ops import fused_gram as fg
 from mxfusion_tpu_torch.ops import linalg
 from mxfusion_tpu_torch.ops import precision
+
+# the module (ops.batched_cholesky is the function, as in JAX)
+bc = importlib.import_module("mxfusion_tpu_torch.ops.batched_cholesky")
 
 # (s, N, M, D, ARD): X2 = None for M None; ragged N, M and D throughout
 CASES = [(1, 37, 53, 3, True), (1, 64, None, 5, False),

@@ -10,6 +10,7 @@ name path) and draw the same noise: every distribution is given a
 and the JAX loop runs eagerly (``debug=True``) so that both consume the
 buffer draw by draw. float64 throughout."""
 import contextlib
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -46,8 +47,11 @@ from mxfusion_tpu_torch.inference import (
     ForwardSampling, GradBasedInference, StochasticVariationalInference,
     VariationalPosteriorForwardSampling, create_executor)
 from mxfusion_tpu_torch.models import Posterior
-from mxfusion_tpu_torch.ops import batched_cholesky
 from mxfusion_tpu_torch.util.carryover import load_state, name_paths
+
+# the module (ops.batched_cholesky is the function, as in JAX)
+batched_cholesky = importlib.import_module(
+    "mxfusion_tpu_torch.ops.batched_cholesky")
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -12,7 +12,8 @@ served), and samples a conjugate posterior by HMC and SVGD, and fits a
 masked MAP, approximates it by Laplace, scores HMC draws by WAIC,
 PSIS-LOO and a predictive check, and integrates a power posterior, and
 fits a linear-Gaussian state-space model and an AR(1) coefficient and
-rolls PILCO out over GP dynamics. Also: chip_smoke.py refuses to run
+rolls PILCO out over GP dynamics, and runs the native batcher, the
+loops' options, profiling and a data-parallel run. Also: chip_smoke.py refuses to run
 without a GPU and without the rest of the repository."""
 import os
 import shutil
@@ -768,6 +769,80 @@ jaxy = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib",
 assert not jaxy, jaxy
 print("STATESPACE", losses[0], losses[-1], float(cost))
 """
+
+
+LOOPS_WITHOUT_JAX = r"""
+import sys, tempfile
+sys.modules["jax"] = None          # any `import jax` now raises
+sys.path.insert(0, {root!r})
+import numpy as np
+import torch
+from mxfusion_tpu_torch.common.config import set_default_device
+set_default_device("cpu")
+from mxfusion_tpu_torch import Model, Variable
+from mxfusion_tpu_torch.components.variables import PositiveTransformation
+from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
+from mxfusion_tpu_torch.modules import SVGPRegression
+from mxfusion_tpu_torch.inference import (GradBasedInference, MAP,
+                                          MinibatchInferenceLoop)
+from mxfusion_tpu_torch.native import native_available, shuffled_indices
+from mxfusion_tpu_torch.parallel import (DataParallelMinibatchLoop,
+                                         make_mesh, shard_data)
+from mxfusion_tpu_torch.util.profiling import StepTimer, annotate, trace
+
+assert sorted(shuffled_indices(50, 3)) == list(range(50))
+rng = np.random.default_rng(0)
+X = rng.uniform(0, 4, (200, 1))
+Y = np.sin(X) + 0.1 * rng.standard_normal((200, 1))
+
+
+def fit(loop_of, **kw):
+    m = Model()
+    m.n = Variable()
+    m.X = Variable(shape=(m.n, 1))
+    m.noise_var = Variable(transformation=PositiveTransformation(),
+                           initial_value=0.1)
+    m.Y = SVGPRegression.define_variable(
+        X=m.X, kernel=RBF(input_dim=1), noise_var=m.noise_var,
+        shape=(m.n, 1), inducing_inputs=Variable(
+            shape=(8, 1), initial_value=np.linspace(0, 4, 8)[:, None]))
+    losses = []
+    GradBasedInference(MAP(model=m, observed=[m.X, m.Y]),
+                       grad_loop=loop_of(m)).run(
+        max_iter=4, learning_rate=0.05, X=X, Y=Y,
+        callback=lambda e, l: losses.append(l), **kw)
+    return losses
+
+
+timer = StepTimer()
+with tempfile.TemporaryDirectory() as d, trace(d), annotate("fit"):
+    plain = fit(lambda m: MinibatchInferenceLoop(
+        batch_size=40, rv_scaling={{m.Y: 5.0}}, batches_per_call=5),
+        remat=True)
+assert plain[-1] < plain[0], plain
+mesh = make_mesh()                  # a world of one, over a local store
+dp = fit(lambda m: DataParallelMinibatchLoop(
+    mesh, batch_size=40, rv_scaling={{m.Y: 5.0}}, batches_per_call=5))
+np.testing.assert_allclose(dp, plain, rtol=1e-6)
+assert shard_data(mesh, [X])[0].shape == X.shape
+assert timer.rate(1) > 0
+jaxy = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib",
+                                                       "mxfusion_tpu")
+        and sys.modules[k] is not None]
+assert not jaxy, jaxy
+print("LOOPS", native_available(), plain[0], plain[-1])
+"""
+
+
+def test_port_runs_loop_options_and_data_parallel_without_jax():
+    """The native batcher, ``batches_per_call``, ``remat``, profiling and
+    a data-parallel minibatch run over a world of one, in an interpreter
+    without JAX."""
+    proc = subprocess.run(
+        [sys.executable, "-c", LOOPS_WITHOUT_JAX.format(root=str(ROOT))],
+        capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert "LOOPS" in proc.stdout
 
 
 def test_port_fits_state_space_models_and_pilco_without_jax():

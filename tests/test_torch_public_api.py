@@ -13,18 +13,11 @@ from tests.test_public_api import SURFACE
 RENAMED = {"FlaxFunction": "NNFunction"}
 
 # namespace (or "namespace:name") -> the ROADMAP queue item that ports it
-NOT_YET = {
-    "mxfusion_tpu_torch.parallel": "A13",
-    "mxfusion_tpu_torch.util.profiling": "A13",
-}
+NOT_YET = {}
 
 # "namespace:name" -> how the port's object of that name differs from the
 # JAX package's; such a name does not count as ported
-DIFFERS = {
-    "mxfusion_tpu_torch.ops:batched_cholesky":
-        "the JAX package's is the function; the port's is the module of "
-        "that name, whose batched_cholesky is the function (ROADMAP A2)",
-}
+DIFFERS = {}
 
 # names the port exports beyond the documented surface, kept public
 EXTRA = {
@@ -60,13 +53,22 @@ def test_port_namespace_surface(module_name):
     assert not missing, "{} lacks {}".format(module_name, missing)
 
 
-@pytest.mark.parametrize("entry", sorted(NOT_YET))
+# the namespaces NOT_YET named until they were ported (PR 16)
+PORTED_FROM_NOT_YET = ["mxfusion_tpu_torch.parallel",
+                       "mxfusion_tpu_torch.util.profiling"]
+
+
+@pytest.mark.parametrize("entry", sorted(set(NOT_YET) |
+                                         set(PORTED_FROM_NOT_YET)))
 def test_not_yet_entries_are_still_missing(entry):
     """A ``NOT_YET`` entry names a documented namespace or name the port
-    does not have yet; once ported, it must leave the dict."""
+    does not have yet; once ported, it leaves the dict and imports."""
     module_name, _, symbol = entry.partition(":")
     assert module_name in PORT_SURFACE
-    if symbol:
+    if entry not in NOT_YET:
+        mod = importlib.import_module(module_name)
+        assert not symbol or hasattr(mod, symbol)
+    elif symbol:
         assert symbol in PORT_SURFACE[module_name]
         mod = importlib.import_module(module_name)
         assert not hasattr(mod, symbol)
@@ -76,14 +78,28 @@ def test_not_yet_entries_are_still_missing(entry):
 
 
 def test_port_batched_cholesky_entry():
-    """The one ``DIFFERS`` entry differs as it says: JAX's
-    ``ops.batched_cholesky`` is called, the port's holds the callable."""
+    """``ops.batched_cholesky`` is the function in both packages, and it
+    factors as JAX's does; the port's module of that name is reached by
+    its full path."""
     import types
+
+    import numpy as np
+    import torch
 
     from mxfusion_tpu import ops as jops
     from mxfusion_tpu_torch import ops
-    assert sorted(DIFFERS) == ["mxfusion_tpu_torch.ops:batched_cholesky"]
+    assert DIFFERS == {}
     assert callable(jops.batched_cholesky)
-    assert isinstance(ops.batched_cholesky, types.ModuleType)
-    assert not callable(ops.batched_cholesky)
-    assert callable(ops.batched_cholesky.batched_cholesky)
+    assert callable(ops.batched_cholesky)
+    assert not isinstance(ops.batched_cholesky, types.ModuleType)
+    module = importlib.import_module(
+        "mxfusion_tpu_torch.ops.batched_cholesky")
+    assert isinstance(module, types.ModuleType)
+    assert ops.batched_cholesky is module.batched_cholesky
+    rng = np.random.default_rng(0)
+    W = rng.standard_normal((3, 5, 5))
+    A = W @ np.swapaxes(W, -1, -2) + 5 * np.eye(5)
+    np.testing.assert_allclose(
+        ops.batched_cholesky(torch.as_tensor(A)).numpy(),
+        np.asarray(jops.batched_cholesky(A.astype(np.float32))),
+        rtol=1e-5, atol=1e-5)

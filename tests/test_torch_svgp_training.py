@@ -5,6 +5,7 @@ package initializes it, ``util.carryover.load_state`` moves it into the
 port's initialized store by name path. float64 throughout."""
 import contextlib
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -13,7 +14,6 @@ import pytest
 import torch
 
 import mxfusion_tpu as mj
-import mxfusion_tpu.native
 from mxfusion_tpu.common import config as jconfig
 from mxfusion_tpu.components.variables import \
     PositiveTransformation as JPositive
@@ -203,12 +203,16 @@ def test_inference_run_evaluates_the_loss_once():
 
 def test_minibatch_trajectory_matches_jax(monkeypatch):
     """MAP + MinibatchInferenceLoop + Adam for 3 epochs of 4 batches
-    (the last one rolled over). The JAX loader's permutation is its
-    numpy fallback, the one the port uses. Per-epoch losses rtol 1e-6,
-    final parameters rtol 1e-5 (atol 1e-8)."""
-    monkeypatch.setattr(mxfusion_tpu.native, "shuffled_indices",
-                        lambda n, seed: np.random.default_rng(seed)
-                        .permutation(n))
+    (the last one rolled over), with both packages' loaders forced to
+    their numpy fallback (as ``tests/native/test_fast_batcher.py``
+    forces JAX's), so that path stays covered; the native path is
+    ``tests/test_torch_native_batcher.py``'s. Per-epoch losses rtol
+    1e-6, final parameters rtol 1e-5 (atol 1e-8)."""
+    from mxfusion_tpu.native import loader as jloader
+    from mxfusion_tpu_torch.native import loader as tloader
+    for ldr in (jloader, tloader):
+        monkeypatch.setattr(ldr, "_LIB", None)
+        monkeypatch.setattr(ldr, "_TRIED", True)
     N, B = 230, 64
     X, Y, Z0 = _data(7, N, 2, 12)
     with jax_f64():
@@ -367,8 +371,12 @@ def test_device_loop_batches_are_device_permutations():
     assert torch.equal(b.reshape(-1)[10:], b.reshape(-1)[:2])
     assert torch.equal(b, loop._epoch_batches(10, 0))
     assert not torch.equal(b, loop._epoch_batches(10, 1))
-    with pytest.raises(NotImplementedError, match="shard_local_shuffle"):
-        DeviceMinibatchLoop(shard_local_shuffle=True)
+    # shard_local_shuffle is ported (tests/test_torch_parallel.py runs
+    # it over a mesh); without a sharded dataset it raises as JAX's does
+    local = DeviceMinibatchLoop(batch_size=4, shard_local_shuffle=True)
+    params = types.SimpleNamespace(device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="data_sharding"):
+        local.run(None, params, [np.zeros((8, 1))])
 
 
 def test_array_rv_scaling_raises_until_masks_are_ported():
