@@ -29,8 +29,10 @@ with K1 in every rung's potential, WAIC, PSIS-LOO, predictive checks)
 and observation masks, and the state-space slice (the Kalman filter and
 RTS smoother, sequential and parallel in time, ``LinearGaussianSSM`` by
 MAP, ``GaussianAR1`` under HMC for stochastic volatility, and PILCO,
-whose GP dynamics K1 builds in every fit step and rollout step). In
-phases that each print one line:
+whose GP dynamics K1 builds in every fit step and rollout step), the
+loops' options and data parallelism, the exported artifacts of a
+network graph and of a prediction that draws, and the 27 example
+scripts. In phases that each print one line:
 
 1. device: needs CUDA (exits nonzero without it); prints the card's
    name and power limit (nvidia-smi) and the TF32 settings;
@@ -384,7 +386,27 @@ phases that each print one line:
    ``BatchInferenceLoop``'s), ``BatchedPredictor(mesh=)`` on 262144 rows
    against the plain predictor, and HMC on phase 39's BLR over
    ``shard_data`` against the unsharded chain; the step walls, and the
-   process group torn down.
+   process group torn down;
+54. the network artifact: phase 36's deep-kernel predictor exported at
+   chunk 8192 (the network's products recorded at IEEE fp32) and served
+   by ``load_exported_predictor`` in a subprocess that builds no model,
+   imports no network class and sets the float32 matmul precision
+   "medium": a 262144-row request at phase 4's serving tolerances
+   against the live predictor, K1 twice a chunk by the artifact's count
+   and in a profiled chunk, rows/s and the 128-row latency beside the
+   live predictor's;
+55. the drawing artifact: phase 28's deep GP predictor exported with its
+   propagation draws as program inputs, served on 262144 rows from
+   ``torch.Generator("cuda").manual_seed(s)`` for s = 1, 2 against the
+   live predictor on the same seed (the difference stated; bit-equal
+   expected), the two seeds' means apart, K1 four times a chunk, rows/s
+   beside the live predictor's;
+56. the examples: every ``examples/torch/`` script's ``main()`` in this
+   process at ``MXF_SMOKE`` size, held to the band of its CPU test
+   against the JAX example's value, with its wall and its K1-K4
+   launches; then at full size, cheapest first, while the phase has run
+   under 110 s (each script's own full-size assertions apply), the
+   scripts left at smoke size listed.
 
 Any failed check raises and the script exits nonzero. The last three
 lines are the card (nvidia-smi), the kernels' JSON record (each with
@@ -397,6 +419,7 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
 import argparse
 import contextlib
 import importlib
+import importlib.util
 import json
 import math
 import re
@@ -2545,7 +2568,8 @@ def gp_family_phases(dev, card, seed, X, Y, labels, read_counts,
     """Phases 27-31: LMC multi-output SVGP, deep GP regression and
     classification, natural-gradient SVGP training (minibatch against
     Adam, and the full-batch γ = 1 step onto the collapsed bound).
-    Returns the launches of their main paths by kernel."""
+    Returns the launches of their main paths by kernel and phase 28's
+    trained deep GP regression predictor."""
     import torch
     from mxfusion_tpu_torch import Variable
     from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
@@ -2702,6 +2726,8 @@ def gp_family_phases(dev, card, seed, X, Y, labels, read_counts,
                          mean.max(), small_ms))
         print("phase {} {} ({}): {}".format(phase, label, card, note),
               flush=True)
+        if phase == 28:
+            deep_gp_pred = pred   # phase 55 exports it
         del dinf, dloop, pred, mean, var
 
     # ---- 30. natural gradients, minibatch: svgp_1m.py's ngd mode, one
@@ -2811,7 +2837,7 @@ def gp_family_phases(dev, card, seed, X, Y, labels, read_counts,
               rel64, NGD_ORACLE_RTOL, trips64, counts32,
               [float(v) for v in losses32], rel32, trips32, wall32,
               time.perf_counter() - t_start), flush=True)
-    return launches
+    return launches, deep_gp_pred
 
 
 def headline_svgp(Z0):
@@ -2857,28 +2883,30 @@ t0 = time.perf_counter()
 load_exported_predictor({artifact!r})
 load_again_s = time.perf_counter() - t0
 X = np.load({request!r})
-served.predict(X=X[:{chunk}])
+NAME = {name!r}
+served.predict(**{{NAME: X[:{chunk}]}})
 torch.cuda.synchronize()
 cuda_kernels.rbf_kernel_matrix.launches = 0
 t0 = time.perf_counter()
-mu, var = served.predict(X=X)[0]
+mu, var = served.predict(**{{NAME: X}})[0]
 bulk_s = time.perf_counter() - t0
 launches = cuda_kernels.rbf_kernel_matrix.launches
 small_ms = []
 for _ in range({reps}):
     t0 = time.perf_counter()
-    served.predict(X=X[:{small}])
+    served.predict(**{{NAME: X[:{small}]}})
     small_ms.append(1e3 * (time.perf_counter() - t0))
 np.savez({out!r}, mu=mu, var=var)
 from torch.profiler import profile, ProfilerActivity
 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-    served.predict(X=X[:{chunk}])
+    served.predict(**{{NAME: X[:{chunk}]}})
     torch.cuda.synchronize()
 k1 = sum(1 for e in prof.events()
          if e.device_type == torch.autograd.DeviceType.CUDA
          and "rbf_gram_kernel" in e.name)
 held = [k for k in sys.modules if k.split(".")[0] in
-        ("jax", "jaxlib", "mxfusion_tpu") and sys.modules[k] is not None]
+        ("jax", "jaxlib", "mxfusion_tpu", "chip_smoke")
+        and sys.modules[k] is not None]
 print(json.dumps({{"cuda_init_s": cuda_init_s, "load_s": load_s,
                   "load_again_s": load_again_s,
                   "bulk_s": bulk_s, "launches": launches,
@@ -3032,7 +3060,7 @@ def persistence_phases(dev, card, Xtr, Ytr, bulk, tm, start_state,
         [sys.executable, "-c", SERVE_ARTIFACT.format(
             root=str(ROOT), artifact=str(apath), request=str(request),
             out=str(served_out), chunk=CHUNK, small=SMALL_ROWS,
-            reps=SMALL_REPS)],
+            reps=SMALL_REPS, name="X")],
         capture_output=True, text=True, timeout=600)
     check(proc.returncode == 0, "serving the artifact failed:\n{}{}"
           .format(proc.stdout[-4000:], proc.stderr[-4000:]))
@@ -3308,7 +3336,254 @@ def deep_kernel_phases(dev, card, seed, Xtr, Ytr, phase6_wall, read_counts,
               F64_ROWS, f64_mean, f64_var, F64_RTOL, TRAIN_N / bulk_s,
               bulk_s, SMALL_ROWS, float(np.median(small_ms)), SMALL_REPS),
           flush=True)
-    return {k: train_launches[k] + serve_launches[k] for k in train_launches}
+    counts = {k: train_launches[k] + serve_launches[k]
+              for k in train_launches}
+    return counts, pred
+
+
+def artifact_phases(dev, card, Xtr, dk_pred, dgp_pred, read_counts,
+                    zero_counts, sync):
+    """Phases 54-55: phase 36's deep-kernel predictor exported and served
+    in a process that builds no model, and phase 28's deep GP predictor,
+    whose prediction draws, exported and served on two seeds. Returns
+    K1's launches by the artifacts here and there."""
+    import torch
+    from mxfusion_tpu_torch.inference import load_exported_predictor
+    t_phases = time.perf_counter()
+    build = ROOT / "build"
+    chunks = -(-TRAIN_N // CHUNK)
+
+    def against(out, ref, label, exact=False):
+        (mu, var), (mu_r, var_r) = out, ref
+        check(mu.shape == var.shape == mu_r.shape and np.isfinite(mu).all()
+              and np.isfinite(var).all(), "{}: shapes {} {} or non-finite"
+              .format(label, mu.shape, var.shape))
+        mean_rel, var_abs = rel_err(mu, mu_r), float(np.max(np.abs(
+            var - var_r)))
+        check(mean_rel <= PLAIN_MEAN_RTOL and var_abs <= PLAIN_VAR_ATOL,
+              "{} vs the live predictor: mean rel {} (tol {}), variance abs "
+              "{} (tol {})".format(label, mean_rel, PLAIN_MEAN_RTOL, var_abs,
+                                   PLAIN_VAR_ATOL))
+        return mean_rel, var_abs, bool(np.array_equal(mu, mu_r)
+                                       and np.array_equal(var, var_r))
+
+    def live_timed(pred, name):
+        sync()
+        t0 = time.perf_counter()
+        out = pred.predict(**{name: Xtr})[0]
+        bulk_s = time.perf_counter() - t0
+        small_ms = []
+        for _ in range(SMALL_REPS):
+            t0 = time.perf_counter()
+            pred.predict(**{name: Xtr[:SMALL_ROWS]})
+            small_ms.append(1e3 * (time.perf_counter() - t0))
+        return out, bulk_s, float(np.median(small_ms))
+
+    # ---- 54. the network artifact: Linear -> tanh -> Linear -> SVGP
+    apath = build / "chip_smoke_deep_kernel.zip"
+    request = build / "chip_smoke_deep_kernel_request.npy"
+    served_out = build / "chip_smoke_deep_kernel_served.npz"
+    for f in (apath, served_out):
+        if f.exists():
+            f.unlink()
+    np.save(request, Xtr)
+    t0 = time.perf_counter()
+    dk_pred.export(str(apath))
+    export_s = time.perf_counter() - t0
+    meta = artifact_meta(apath)
+    check(meta["draws"] == [] and meta["matmul_precision"] == "highest",
+          "the network artifact records draws {} and precision {}".format(
+              meta["draws"], meta["matmul_precision"]))
+    proc = subprocess.run(
+        [sys.executable, "-c", SERVE_ARTIFACT.format(
+            root=str(ROOT), artifact=str(apath), request=str(request),
+            out=str(served_out), chunk=CHUNK, small=SMALL_ROWS,
+            reps=SMALL_REPS, name="X_raw")],
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, "serving the network artifact failed:\n"
+          "{}{}".format(proc.stdout[-4000:], proc.stderr[-4000:]))
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(not child["held"], "the serving process imported {}".format(
+        child["held"]))
+    check(child["precision"] == "medium", "the serving process runs at "
+          "{}".format(child["precision"]))
+    check(child["profile_k1"] == 2, "the profile of one network-artifact "
+          "chunk shows rbf_gram_kernel {} times; expected 2 (Kuu, Kzx)"
+          .format(child["profile_k1"]))
+    check(child["launches"] == 2 * chunks, "the network artifact launched "
+          "K1 {} times for {} chunks; expected 2 a chunk".format(
+              child["launches"], chunks))
+    zero_counts()
+    live, live_s, live_small = live_timed(dk_pred, "X_raw")
+    live_k1 = read_counts()["K1"]
+    with np.load(served_out) as served:
+        dk_err = against((served["mu"], served["var"]), live,
+                         "network artifact (served at \"medium\")")
+    print("phase 54 network artifact ({}): Linear({}, {}) -> tanh -> "
+          "Linear({}, {}) -> SVGP (M={}), export at chunk {} {:.3f} s, {} "
+          "bytes, {} buffers, no draw | served in a process that builds no "
+          "model and imports no network class, at float32 matmul precision "
+          "{}: load {:.3f} s | {} rows: K1 {} (2 a chunk), a profiled chunk "
+          "shows rbf_gram_kernel {} times | vs the live predictor (IEEE "
+          "pinned around both): mean rel {:.3e} (tol {:.0e}), var abs "
+          "{:.3e} (tol {:.0e}), bit-equal {} | rows/s artifact {:.0f}, live "
+          "{:.0f}; {}-row latency ms median of {}: artifact {:.3f}, live "
+          "{:.3f}".format(
+              card, D, DK_HIDDEN, DK_HIDDEN, D, M, CHUNK, export_s,
+              apath.stat().st_size, len(meta["buffers"]),
+              child["precision"], child["load_s"], TRAIN_N,
+              child["launches"], child["profile_k1"], dk_err[0],
+              PLAIN_MEAN_RTOL, dk_err[1], PLAIN_VAR_ATOL, dk_err[2],
+              TRAIN_N / child["bulk_s"], TRAIN_N / live_s, SMALL_ROWS,
+              SMALL_REPS, float(np.median(child["small_ms"])), live_small),
+          flush=True)
+
+    # ---- 55. the drawing artifact: the deep GP's propagation draws as
+    # program inputs, drawn from the caller's generator at each chunk
+    gpath = build / "chip_smoke_deep_gp.zip"
+    t0 = time.perf_counter()
+    dgp_pred.export(str(gpath))
+    gexport_s = time.perf_counter() - t0
+    served = load_exported_predictor(str(gpath))
+    draws = [(d["kind"], tuple(d["shape"]))
+             for d in artifact_meta(gpath)["draws"]]
+    check(len(draws) == 1 and draws[0][0] == "normal", "the deep GP "
+          "artifact records draws {}".format(draws))
+    served.predict(X=Xtr[:CHUNK])
+    outs, errs, walls, k1 = {}, [], {"live": [], "artifact": []}, []
+    for seed in (1, 2):
+        for which, server in (("live", dgp_pred), ("artifact", served)):
+            g = torch.Generator(dev).manual_seed(seed)
+            sync()
+            zero_counts()
+            t0 = time.perf_counter()
+            outs[which, seed] = server.predict(X=Xtr, generator=g)[0]
+            walls[which].append(time.perf_counter() - t0)
+            if which == "artifact":
+                k1.append(read_counts()["K1"])
+        errs.append(against(outs["artifact", seed], outs["live", seed],
+                            "deep GP artifact, seed {}".format(seed)))
+    check(k1 == [4 * chunks, 4 * chunks], "the deep GP artifact launched "
+          "K1 {} times for {} chunks; expected 4 a chunk".format(k1, chunks))
+    seed_gap = rel_err(outs["artifact", 1][0], outs["artifact", 2][0])
+    check(seed_gap > 0, "the two seeds' served means are equal: a draw is "
+          "baked into the program")
+    zero_counts()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        served.predict(X=Xtr[:CHUNK])
+        sync()
+    k1.append(read_counts()["K1"])
+    profile_k1 = sum(1 for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "rbf_gram_kernel" in e.name)
+    # the wrapper's count decides; the profiler's is information (in a
+    # process that has profiled many windows before it can miss events)
+    check(k1[2] == 4, "a profiled deep GP artifact chunk launched K1 {} "
+          "times; expected 4".format(k1[2]))
+    print("phase 55 drawing artifact ({}): deep GP regression (phase 28: "
+          "RBF({}) -> {} -> RBF({}) -> 1, M={} a layer, S={}), export {:.3f} "
+          "s, {} bytes, base draws {} | {} rows on "
+          "torch.Generator(\"cuda\").manual_seed(s), s = 1, 2: vs the live "
+          "predictor mean rel {}, var abs {}, bit-equal {} | the seeds' "
+          "means part by {:.3e} | K1 {} (4 a chunk), a profiled chunk: K1 "
+          "{}, the profiler saw rbf_gram_kernel {} times | rows/s artifact "
+          "{}, live {} | phases 54-55 took {:.1f} s".format(
+              card, D, DGP_H, DGP_H, M, DGP_S, gexport_s,
+              gpath.stat().st_size, draws, TRAIN_N,
+              ["{:.3e}".format(e[0]) for e in errs],
+              ["{:.3e}".format(e[1]) for e in errs], [e[2] for e in errs],
+              seed_gap, k1[:2], k1[2], profile_k1,
+              [round(TRAIN_N / w) for w in walls["artifact"]],
+              [round(TRAIN_N / w) for w in walls["live"]],
+              time.perf_counter() - t_phases), flush=True)
+    return child["launches"] + live_k1 + sum(k1)
+
+
+def artifact_meta(path):
+    """An exported predictor's ``meta.json``."""
+    import zipfile
+    with zipfile.ZipFile(path) as zf:
+        return json.loads(zf.read("meta.json"))
+
+
+# phase 56 also runs the examples at full size, in the order of their
+# walls at smoke size (each script's own full-size assertions run inside
+# its main()), while the phase has taken less than EXAMPLES_FULL_START_S
+EXAMPLES_FULL_START_S = 110.0
+
+
+def example_phases(card, read_counts, zero_counts, sync):
+    """Phase 56: every ``examples/torch/`` script's ``main()`` in this
+    process on the card, at ``MXF_SMOKE`` size (the raised counts of
+    ``SIZES`` where a test names them) held to the band of its CPU test
+    (``tests/test_torch_examples_a.py``), then at full size while the
+    phase's time allows. Returns the launches of K1-K5."""
+    # by its path: a machine may have another package named "tests"
+    spec = importlib.util.spec_from_file_location(
+        "torch_examples_bands", ROOT / "tests" / "test_torch_examples_a.py")
+    examples = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(examples)
+    t_phase = time.perf_counter()
+    totals = dict.fromkeys(("K1", "K2", "K3", "K4", "K5"), 0)
+
+    def run(name, smoke):
+        zero_counts()
+        sync()
+        t0 = time.perf_counter()
+        value = examples.run_example(name, smoke=smoke)
+        sync()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        for k in totals:
+            totals[k] += counts[k]
+        return value, wall, counts
+
+    smoke_walls = {}
+    for name in sorted(examples.BANDS):
+        value, wall, counts = run(name, True)
+        smoke_walls[name] = wall
+        try:
+            examples.in_band(name, value)
+            band = "in band {} of JAX's {}".format(
+                examples.BANDS[name], examples.GOLDEN[name])
+        except AssertionError as e:
+            check(False, "phase 56: {} returned {}, outside the band {} of "
+                  "JAX's {}: {}".format(name, value, examples.BANDS[name],
+                                        examples.GOLDEN[name], e))
+        print("phase 56 example ({}): {} at MXF_SMOKE size{} -> {} in "
+              "{:.3f} s | K1 {} K2 {} K3 {} K4 {} | {}".format(
+                  card, name, "".join(
+                      ", {} {}".format(k, v)
+                      for k, v in examples.SIZES.get(name, {}).items()),
+                  examples.as_json(value), wall, counts["K1"],
+                  counts["K2"], counts["K3"], counts["K4"], band),
+              flush=True)
+    smoke_s = time.perf_counter() - t_phase
+    cut = []
+    for name in sorted(smoke_walls, key=smoke_walls.get):
+        if time.perf_counter() - t_phase > EXAMPLES_FULL_START_S:
+            cut.append(name)
+            continue
+        value, wall, counts = run(name, False)
+        got = examples.as_json(value)
+        check(got is None or isinstance(got, str)
+              or np.isfinite(np.asarray(got, dtype=float)).all(),
+              "phase 56: {} at full size returned {}".format(name, got))
+        print("phase 56 example ({}): {} at full size -> {} in {:.3f} s | "
+              "K1 {} K2 {} K3 {} K4 {}".format(
+                  card, name, got, wall, counts["K1"], counts["K2"],
+                  counts["K3"], counts["K4"]), flush=True)
+    print("phase 56 examples ({}): {} scripts at MXF_SMOKE size in {:.1f} s, "
+          "every one in its band; {} at full size; cut to MXF_SMOKE size "
+          "only: {} | launches K1 {} K2 {} K3 {} K4 {} K5 {} | phase 56 took "
+          "{:.1f} s".format(
+              card, len(examples.BANDS), smoke_s,
+              len(smoke_walls) - len(cut), cut or "none", totals["K1"],
+              totals["K2"], totals["K3"], totals["K4"], totals["K5"],
+              time.perf_counter() - t_phase), flush=True)
+    return totals
 
 
 def bnn_model(dtype, dev, seed):
@@ -6208,8 +6483,9 @@ def main():
                                        RecordingLoop)
 
     # ---- 27-31. LMC, deep GPs and natural gradients
-    family = gp_family_phases(dev, card, args.seed, Xtr, Ytr, labels,
-                              read_counts, zero_counts, sync, RecordingLoop)
+    family, deep_gp_pred = gp_family_phases(
+        dev, card, args.seed, Xtr, Ytr, labels, read_counts, zero_counts,
+        sync, RecordingLoop)
 
     # ---- 32-34. checkpoint/resume, save/load, export
     persist = persistence_phases(dev, card, Xtr, Ytr, bulk, tm,
@@ -6218,9 +6494,9 @@ def main():
 
     # ---- 35-36. deep-kernel SVGP: training (K3's dXs into the network)
     # and serving
-    deep_kernel = deep_kernel_phases(dev, card, args.seed, Xtr, Ytr,
-                                     step_ms["fused"], read_counts,
-                                     zero_counts, sync, RecordingLoop)
+    deep_kernel, deep_kernel_pred = deep_kernel_phases(
+        dev, card, args.seed, Xtr, Ytr, step_ms["fused"], read_counts,
+        zero_counts, sync, RecordingLoop)
 
     # ---- 37-38. BASELINE config 5: Bayesian NN and VAE
     nn_model_phases(dev, card, args.seed, read_counts, zero_counts, sync)
@@ -6243,6 +6519,14 @@ def main():
     # width, remat, data parallelism over a world of one (NCCL)
     loops = loop_options_phases(dev, card, args.seed, Xtr, Ytr, x_ppca, W0,
                                 read_counts, zero_counts, sync)
+
+    # ---- 54-55. the network artifact and the drawing artifact
+    artifacts_k1 = artifact_phases(dev, card, Xtr, deep_kernel_pred,
+                                   deep_gp_pred,
+                                   read_counts, zero_counts, sync)
+
+    # ---- 56. the examples, on the card
+    examples = example_phases(card, read_counts, zero_counts, sync)
 
     check(not any(k == "jax" or k.startswith(("jax.", "mxfusion_tpu."))
                   or k == "mxfusion_tpu" for k in sys.modules),
@@ -6267,22 +6551,26 @@ def main():
             launches + train_launches["K1"] + exact_launches["K1"]
             + exact_serve["K1"] + sgp_launches["K1"] + sgp_serve["K1"]
             + ng_k1 + family["K1"] + persist["K1"] + deep_kernel["K1"]
-            + sampler_k1 + evidence["K1"] + state_space_k1 + loops["K1"],
+            + sampler_k1 + evidence["K1"] + state_space_k1 + loops["K1"]
+            + artifacts_k1 + examples["K1"],
             max_err, min(ms["kernel"]),
             min(ms["plain"]), ms["bound"], None),
         row("fused_gram_fwd", fused_src,
             "mxfusion_tpu/ops/pallas_fused_gram.py:93",
             train_launches["K2"] + family["K2"] + persist["K2"]
-            + deep_kernel["K2"] + evidence["K2"] + loops["K2"],
+            + deep_kernel["K2"] + evidence["K2"] + loops["K2"]
+            + examples["K2"],
             fwd_err, min(fms["K2"]), min(fms["K2 plain"]), k2_bound, None),
         row("fused_gram_bwd", fused_src,
             "mxfusion_tpu/ops/pallas_fused_gram.py:109",
             train_launches["K3"] + family["K3"] + persist["K3"]
-            + deep_kernel["K3"] + evidence["K3"] + loops["K3"],
+            + deep_kernel["K3"] + evidence["K3"] + loops["K3"]
+            + examples["K3"],
             bwd_err, min(fms["K3"]), min(fms["K3 plain"]), k3_bound, None),
         row("batched_cholesky", chol_src,
             "mxfusion_tpu/ops/pallas_batched_cholesky.py:111",
-            ppca_launches["K4"], chol_errs["K4"], min(chol_main["K4"]),
+            ppca_launches["K4"] + examples["K4"], chol_errs["K4"],
+            min(chol_main["K4"]),
             min(chol_main["plain"]), chol_main["bound"],
             min(chol_main["cholesky_ex"])),
         row("batched_cholesky_r3", chol_src,

@@ -15,8 +15,12 @@ sub-modules are ``Dense_0``, ``Dense_1``, ... with ``kernel`` (in, out)
 and ``bias`` parameters therefore lines up one to one with a flax
 network of Dense layers (persistence and carryover match by these
 names); ``util.carryover.linear_stack_map`` maps a stack of
-``nn.Linear`` layers onto such names.
+``nn.Linear`` layers onto such names. A buffer is named the same way
+(``f_bn_running_mean``); an exported predictor carries it under that
+name as an input of its program (:meth:`NNFunction.buffers_bound`).
 """
+from contextlib import contextmanager
+
 import torch
 
 from .function import Function
@@ -71,6 +75,8 @@ class NNFunction(Function):
                 else b.dtype)
             for path, b in module.named_buffers()}
         self._buffers_by_place = {(device, dtype): self._buffers}
+        self._buffer_names = {path: name + "_" + path.replace(".", "_")
+                             for path in self._buffers}
         input_names = [name + "_input_" + str(i)
                        for i in range(len(input_shapes))]
         output_names = [name + "_output_" + str(i)
@@ -118,6 +124,25 @@ class NNFunction(Function):
                            else b.dtype)
                 for path, b in self._buffers.items()}
         return self._buffers_by_place[place]
+
+    def held_buffers(self):
+        """``{buffer name: tensor}`` of the buffers the network is
+        evaluated with."""
+        return {self._buffer_names[path]: b
+                for path, b in self._buffers.items()}
+
+    @contextmanager
+    def buffers_bound(self, buffers):
+        """Evaluate with ``buffers`` (``{buffer name: tensor}``) in place
+        of the held ones inside the block."""
+        held, places = self._buffers, self._buffers_by_place
+        self._buffers = {path: buffers[n]
+                         for path, n in self._buffer_names.items()}
+        self._buffers_by_place = {}
+        try:
+            yield
+        finally:
+            self._buffers, self._buffers_by_place = held, places
 
     def eval(self, params, **data):
         args = tuple(data[n] for n in self.input_names)

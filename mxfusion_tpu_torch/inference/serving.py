@@ -15,7 +15,12 @@ chunked and merged there, and returned as numpy arrays.
 ``load_exported_predictor(path)`` serves it without the
 model-definition code or a graph rebuild, needing only this package
 (which registers the operators the program calls: K1's launch and the
-tiered products, each carrying its precision).
+tiered products, each carrying its precision). The program's inputs are
+the parameters, the buffers of the graph's networks, the chunk and the
+chunk's base draws (``random_gen.base_draw``): a prediction that draws
+is served by drawing those inputs from the caller's generator, with the
+calls the live predictor makes, so that on the same generator state the
+artifact returns the live predictor's draws and outputs.
 
 Over a mesh (``mesh=``, one process per device, ``parallel``), both
 predictors deal whole chunks to the ranks round-robin and all-gather
@@ -28,10 +33,12 @@ unsharded one and pass the mesh to ``load_exported_predictor``.
 
 Both predictors run each chunk at IEEE float32 for every product that
 carries no tier of its own (the triangular solves and the Cholesky,
-whose cuBLAS/cuSOLVER calls follow ``torch.set_float32_matmul_precision``),
-so that what a request returns does not depend on the precision the
-serving process has set.
+whose cuBLAS/cuSOLVER calls follow ``torch.set_float32_matmul_precision``,
+and a network's layers), so that what a request returns does not depend
+on the precision the serving process has set; an artifact records that
+precision in its ``meta.json``.
 """
+import contextlib
 import io
 import json
 import zipfile
@@ -45,10 +52,16 @@ from .inference_alg import create_sampling_executor, as_runtime_tensor
 from .prediction import ModulePredictionAlgorithm
 from ..common.config import resolve_device
 from ..common.exceptions import ModelSpecificationError
+from ..components.distributions import random_gen
 # the operators an exported program calls, registered on import
 from ..ops import cuda_kernels, precision  # noqa: F401
 
-FORMAT_VERSION = "torch-1.0"
+# torch-1.1 adds the networks' buffers and the base draws as program
+# inputs; a torch-1.0 program takes (trainable, fixed, chunk)
+FORMAT_VERSION = "torch-1.1"
+_READABLE_VERSIONS = ("torch-1.0", FORMAT_VERSION)
+# the float32 matmul precision every untiered product of a chunk runs at
+_SERVING_PRECISION = "highest"
 
 
 def _leaf_data_axes(shape, C, spec=None):
@@ -302,7 +315,7 @@ class BatchedPredictor:
                     generator, self._mesh.get_local_rank(self._data_axis))
                 run_chunks = _dealt_chunks(lambda chunk: call(chunk, g),
                                            self._mesh, self._data_axis)
-            with precision._matmul_precision("highest"):
+            with precision._matmul_precision(_SERVING_PRECISION):
                 return _chunked_predict(call, self._chunk, data, generator,
                                         output_spec=self.output_spec,
                                         run_chunks=run_chunks)
@@ -316,14 +329,20 @@ class BatchedPredictor:
         shapes.
 
         The program is ``torch.export`` of ``executor(trainable, fixed,
-        chunk)``, the parameters being program inputs. It is traced on
-        the store's device and runs only there. A prediction that draws
-        random numbers raises: the program has no generator input; so
-        does a graph that holds an ``NNFunction``, and so does a mesh
-        predictor, as in JAX (the program would be pinned to this mesh):
-        export an unsharded predictor and pass the mesh to
+        chunk)`` with the parameters, the buffers of every
+        ``NNFunction`` of the graph (under their names, ``f_bn_running_mean``)
+        and the chunk's base draws as program inputs. It is traced on
+        the store's device and runs only there, with every untiered
+        product, the networks' included, at IEEE float32 as in
+        ``predict``; two networks whose buffers share a name raise. A
+        draw of the prediction's random generators is
+        recorded as an input; a gamma or Poisson draw, which has no
+        parameter-free base, raises. So does a draw that bypasses the
+        generators, such as a network's ``Dropout`` in training mode
+        (put the network in eval mode), and so does a mesh predictor,
+        as in JAX (the program would be pinned to this mesh): export an
+        unsharded predictor and pass the mesh to
         ``load_exported_predictor``."""
-        from ..components.functions import NNFunction
         if self._mesh is not None:
             raise ValueError(
                 "export() of a mesh-sharded predictor is not supported: "
@@ -331,12 +350,7 @@ class BatchedPredictor:
                 "Export an unsharded BatchedPredictor and shard at load "
                 "time instead.")
         params = self._infr.params
-        if any(isinstance(getattr(f, "function", None), NNFunction)
-               for f in self._infr.inference_algorithm.model.ordered_factors):
-            raise NotImplementedError(
-                "export() of a graph that holds an NNFunction is not "
-                "supported: the program would trace the network through "
-                "torch.func. Serve it through BatchedPredictor.predict.")
+        nets = _networks(self._infr.inference_algorithm.model)
         with torch.no_grad():
             if self._executor is None:
                 if not example_data:
@@ -348,31 +362,43 @@ class BatchedPredictor:
                          for k, v in params.trainable_params().items()}
             fixed = {k: v.detach()
                      for k, v in params.fixed_params().items()}
+            buffers = {}
+            for net in nets:
+                for k, v in net.held_buffers().items():
+                    if k in buffers:
+                        raise ValueError(
+                            "two networks of the graph hold a buffer named "
+                            "{!r}, and the artifact keeps buffers by name: "
+                            "give their NNFunctions different names."
+                            .format(k))
+                    buffers[k] = v.detach()
             chunk0 = [torch.zeros(shape, dtype=dtype, device=params.device)
                       for shape, dtype in self._chunk_specs]
             generator = torch.Generator(device=params.device).manual_seed(0)
-            before = generator.get_state()
-            self._executor(trainable, fixed, chunk0, generator)
-            if not torch.equal(generator.get_state(), before):
-                raise NotImplementedError(
-                    "export() of a prediction that draws random numbers is "
-                    "not supported: the exported program has no generator "
-                    "input. Serve it through BatchedPredictor.predict.")
+            with random_gen.drawing_from(random_gen.DrawRecorder()) as rec, \
+                    precision._matmul_precision(_SERVING_PRECISION):
+                self._executor(trainable, fixed, chunk0, generator)
             program = torch.export.export(
-                _ChunkProgram(self._executor, generator),
-                (trainable, fixed, chunk0))
-        # the parameters travel in params.npz and the chunk is zeros:
-        # keep the example inputs out of program.pt2
+                _ChunkProgram(self._executor, generator, nets),
+                (trainable, fixed, buffers, chunk0, rec.values))
+        _refuse_seeded_ops(program)
+        # to the ATen IR: a network's vmap over the samples leaves
+        # functorch calls in the traced graph that the serializer of some
+        # torch versions refuses; the package's operators stay as they are
+        program = program.run_decompositions({})
+        # the parameters travel in params.npz, the chunk is zeros and the
+        # draws are drawn anew: keep the example inputs out of program.pt2
         program.example_inputs = None
         program_bytes = io.BytesIO()
         torch.export.save(program, program_bytes)
         arrays = {"t::" + k: v.cpu().numpy() for k, v in trainable.items()}
         arrays.update({"f::" + k: v.cpu().numpy() for k, v in fixed.items()})
+        arrays.update({"b::" + k: v.cpu().numpy() for k, v in buffers.items()})
         arrays_bytes = io.BytesIO()
         np.savez(arrays_bytes, **arrays)
         meta = {"names": list(self._infr.observed_variable_names),
                 "chunk": int(self._chunk),
-                "input_dtypes": [str(dt).replace("torch.", "")
+                "input_dtypes": [_dtype_name(dt)
                                  for _, dt in self._chunk_specs],
                 "device": params.device.type,
                 "output_spec": ([list(t) for t in self.output_spec]
@@ -382,12 +408,63 @@ class BatchedPredictor:
                 # semantics instead of treating it as a user declaration
                 "output_spec_derived": isinstance(self.output_spec,
                                                   _DerivedSpec),
+                "buffers": list(buffers),
+                "draws": [{"kind": kind, "shape": list(shape),
+                           "dtype": _dtype_name(dt)}
+                          for kind, shape, dt in rec.specs],
+                "matmul_precision": _SERVING_PRECISION,
                 "format_version": FORMAT_VERSION}
         with zipfile.ZipFile(path, "w") as zf:
             zf.writestr("program.pt2", program_bytes.getvalue())
             zf.writestr("params.npz", arrays_bytes.getvalue())
             zf.writestr("meta.json", json.dumps(meta))
         return path
+
+
+def _dtype_name(dtype):
+    return str(dtype).replace("torch.", "")
+
+
+def _networks(model):
+    """The ``NNFunction``s of ``model``'s graph, each once, in factor
+    order."""
+    from ..components.functions import NNFunction
+    nets = []
+    for f in model.ordered_factors:
+        net = getattr(f, "function", None)
+        if isinstance(net, NNFunction) and all(net is not n for n in nets):
+            nets.append(net)
+    return nets
+
+
+def _argument(node, name):
+    """The value of the operator argument ``name`` at ``node``, or None
+    (a dropout in eval mode is a traced ``dropout(x, p, train=False)``,
+    which draws nothing)."""
+    schema = getattr(node.target, "_schema", None)
+    for i, arg in enumerate(schema.arguments if schema else ()):
+        if arg.name == name:
+            if i < len(node.args):
+                return node.args[i]
+            return node.kwargs.get(name, arg.default_value)
+    return None
+
+
+def _refuse_seeded_ops(program):
+    """Raise if the traced program draws random numbers itself: every
+    draw of a served chunk must be one of its inputs."""
+    seeded = sorted({str(n.target) for n in program.graph.nodes
+                     if n.op == "call_function"
+                     and torch.Tag.nondeterministic_seeded in
+                     getattr(n.target, "tags", ())
+                     and _argument(n, "train") is not False})
+    if seeded:
+        raise NotImplementedError(
+            "export() of a prediction that draws random numbers outside "
+            "the package's random generators is not supported (the "
+            "program calls {}; a network's Dropout in training mode does "
+            "this: put the network in eval mode). Serve it through "
+            "BatchedPredictor.predict.".format(", ".join(seeded)))
 
 
 def _axis_size(mesh, axis):
@@ -451,16 +528,23 @@ def _dealt_chunks(call, mesh, axis):
 
 
 class _ChunkProgram(torch.nn.Module):
-    """The per-chunk call ``torch.export`` traces; the generator is one
-    that the call (checked before the trace) never draws from."""
+    """The per-chunk call ``torch.export`` traces: the networks evaluate
+    with the buffers given, and every base draw is the next of
+    ``draws`` (the generator is never drawn from)."""
 
-    def __init__(self, executor, generator):
+    def __init__(self, executor, generator, nets):
         super().__init__()
         self.executor = executor
         self.generator = generator
+        self.nets = nets
 
-    def forward(self, trainable, fixed, chunk):
-        return self.executor(trainable, fixed, chunk, self.generator)
+    def forward(self, trainable, fixed, buffers, chunk, draws):
+        with contextlib.ExitStack() as stack:
+            for net in self.nets:
+                stack.enter_context(net.buffers_bound(buffers))
+            stack.enter_context(random_gen.drawing_from(
+                random_gen.DrawReplay(draws)))
+            return self.executor(trainable, fixed, chunk, self.generator)
 
 
 class ExportedPredictor:
@@ -468,11 +552,19 @@ class ExportedPredictor:
     ``predict`` contract, no model rebuild, no graph machinery."""
 
     def __init__(self, program, trainable, fixed, names, chunk, dtypes,
-                 device, output_spec=None, mesh=None, data_axis=None):
+                 device, output_spec=None, mesh=None, data_axis=None,
+                 buffers=None, draws=(), legacy=False):
+        """``buffers``: the networks' buffers by name; ``draws``: the
+        (kind, shape, dtype) of each base draw of a chunk, in order;
+        ``legacy``: a torch-1.0 program, called as (trainable, fixed,
+        chunk)."""
         self._program = program
         self._call = program.module()
         self._trainable = trainable
         self._fixed = fixed
+        self._buffers = buffers or {}
+        self._draws = list(draws)
+        self._legacy = legacy
         self._names = names
         self._chunk = chunk
         self._dtypes = dtypes
@@ -482,32 +574,50 @@ class ExportedPredictor:
         if mesh is not None:
             self._data_axis = _resolve_mesh_serving(mesh, data_axis, chunk)
 
-    def predict(self, **kwargs):
+    def _run(self, chunk, generator):
+        if self._legacy:
+            return self._call(self._trainable, self._fixed, chunk)
+        return self._call(self._trainable, self._fixed, self._buffers,
+                          chunk, random_gen.draw_inputs(self._draws,
+                                                        generator))
+
+    def predict(self, generator=None, **kwargs):
         """Predict for the named inputs (numpy arrays or tensors, any
         leading-axis length, cast to the dtypes the program was traced
-        with); numpy leaves, as ``BatchedPredictor.predict``."""
+        with); numpy leaves, as ``BatchedPredictor.predict``.
+        ``generator``: the ``torch.Generator`` each chunk's draws come
+        from (default: seeded with 0 on the serving device), as the live
+        predictor's; over a mesh, each rank but the first draws from a
+        stream of its own. A prediction that does not draw ignores it."""
         with torch.no_grad():
             data = [torch.as_tensor(kwargs[n], device=self._device).to(dt)
                     for n, dt in zip(self._names, self._dtypes)]
-            def call(chunk, _=None):
-                return self._call(self._trainable, self._fixed, chunk)
-            run_chunks = _dealt_chunks(call, self._mesh, self._data_axis) \
-                if self._mesh is not None else None
-            with precision._matmul_precision("highest"):
-                return _chunked_predict(call, self._chunk, data, None,
+            if generator is None:
+                generator = torch.Generator(
+                    device=self._device).manual_seed(0)
+            run_chunks = None
+            if self._mesh is not None:
+                g = _rank_generator(
+                    generator, self._mesh.get_local_rank(self._data_axis))
+                run_chunks = _dealt_chunks(lambda chunk: self._run(chunk, g),
+                                           self._mesh, self._data_axis)
+            with precision._matmul_precision(_SERVING_PRECISION):
+                return _chunked_predict(self._run, self._chunk, data,
+                                        generator,
                                         output_spec=self._output_spec,
                                         run_chunks=run_chunks)
 
 
 def load_exported_predictor(path, device=None, mesh=None, data_axis=None):
-    """Load a ``BatchedPredictor.export`` artifact to serve on ``device``
-    (default: the package's default device; under a mesh, this rank's),
-    which must be of the type it was traced on. A JAX package artifact
-    (``function.bin``) raises: it is StableHLO, which this package does
-    not run. ``mesh``: serve over a ``parallel`` mesh, whole chunks
-    dealt to the ranks of ``data_axis`` (default: the first axis) and
-    their outputs all-gathered; the chunk must divide by the axis size,
-    as in JAX."""
+    """Load a ``BatchedPredictor.export`` artifact (format torch-1.1, or
+    torch-1.0 as written before the buffers and draws became program
+    inputs) to serve on ``device`` (default: the package's default
+    device; under a mesh, this rank's), which must be of the type it was
+    traced on. A JAX package artifact (``function.bin``) raises: it is
+    StableHLO, which this package does not run. ``mesh``: serve over a
+    ``parallel`` mesh, whole chunks dealt to the ranks of ``data_axis``
+    (default: the first axis) and their outputs all-gathered; the chunk
+    must divide by the axis size, as in JAX."""
     if mesh is not None and device is None:
         from ..parallel.mesh import mesh_device
         device = mesh_device(mesh)
@@ -520,9 +630,12 @@ def load_exported_predictor(path, device=None, mesh=None, data_axis=None):
                 "export the predictor with mxfusion_tpu_torch's "
                 "BatchedPredictor.export.".format(path))
         meta = json.loads(zf.read("meta.json"))
-        if meta.get("format_version") != FORMAT_VERSION:
-            raise ValueError("unsupported predictor artifact version: "
-                             "{}".format(meta.get("format_version")))
+        version = meta.get("format_version")
+        if version not in _READABLE_VERSIONS or meta.get(
+                "matmul_precision", _SERVING_PRECISION) != _SERVING_PRECISION:
+            raise ValueError("unsupported predictor artifact version: {} "
+                             "(matmul precision {})".format(
+                                 version, meta.get("matmul_precision")))
         if meta["device"] != device.type:
             raise ValueError(
                 "the artifact was traced on {} and cannot be served on {}: "
@@ -531,15 +644,17 @@ def load_exported_predictor(path, device=None, mesh=None, data_axis=None):
         program = torch.export.load(io.BytesIO(zf.read("program.pt2")))
         arrays = np.load(io.BytesIO(zf.read("params.npz")),
                          allow_pickle=False)
-        trainable = {k[3:]: torch.as_tensor(arrays[k], device=device)
-                     for k in arrays.files if k.startswith("t::")}
-        fixed = {k[3:]: torch.as_tensor(arrays[k], device=device)
-                 for k in arrays.files if k.startswith("f::")}
+        stored = {prefix: {k[3:]: torch.as_tensor(arrays[k], device=device)
+                           for k in arrays.files if k.startswith(prefix)}
+                  for prefix in ("t::", "f::", "b::")}
     spec = [tuple(t) for t in meta["output_spec"]] \
         if meta.get("output_spec") else None
     if spec is not None and meta.get("output_spec_derived"):
         spec = _DerivedSpec(spec)
+    draws = [(d["kind"], tuple(d["shape"]), getattr(torch, d["dtype"]))
+             for d in meta.get("draws", ())]
     return ExportedPredictor(
-        program, trainable, fixed, meta["names"], meta["chunk"],
+        program, stored["t::"], stored["f::"], meta["names"], meta["chunk"],
         [getattr(torch, d) for d in meta["input_dtypes"]], device,
-        output_spec=spec, mesh=mesh, data_axis=data_axis)
+        output_spec=spec, mesh=mesh, data_axis=data_axis,
+        buffers=stored["b::"], draws=draws, legacy=version == "torch-1.0")

@@ -10,11 +10,18 @@ program records each product as ``mxfusion_tpu_torch::tiered_einsum``
 with its tier and no plain matmul; K1's operator has a fake
 implementation and no CPU kernel; the loader refuses a JAX artifact and
 an artifact traced on another device type; a prediction that draws
-random numbers refuses to export. The test marked ``cuda`` exports on
+exports with its base draws as program inputs and equals the live
+predictor on the same generator state; a network's buffers are program
+inputs; a torch-1.0 artifact still serves; a gamma draw and a Dropout in
+training mode refuse to export. The test marked ``cuda`` exports on
 the card, where K1 is an operator node of the program. This file imports
 no JAX, so that it runs on the card as it is.
 """
+import io
 import json
+import os
+import subprocess
+import sys
 import zipfile
 
 import numpy as np
@@ -23,6 +30,9 @@ import torch
 
 import mxfusion_tpu_torch as mt
 from mxfusion_tpu_torch.common import config as tconfig
+from mxfusion_tpu_torch.components.distributions.random_gen import \
+    RandomGenerator
+from mxfusion_tpu_torch.components.functions import NNFunction
 from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
 from mxfusion_tpu_torch.components.variables import PositiveTransformation
 from mxfusion_tpu_torch.inference import (
@@ -306,10 +316,10 @@ def test_loader_refuses_jax_and_other_device_artifacts(tmp_path):
                                            old_format), device="cpu")
 
 
-def test_a_prediction_that_draws_refuses_to_export(tmp_path):
-    """A deep GP's prediction draws its propagation samples from the
-    caller's generator, which an exported program has no input for."""
-    rng = np.random.default_rng(8)
+def trained_deep_gp(rng, rand_gen=None):
+    """A 2-layer deep GP regression (RBF(2) → 2 → RBF(2) → 1, M = 4)
+    after 5 MAP steps, float64; its predictions draw S = 20 propagation
+    samples from the caller's generator."""
     X = rng.random((20, 2)) * 4
     Y = np.sin(X[:, :1])
     m = mt.Model()
@@ -319,7 +329,7 @@ def test_a_prediction_that_draws_refuses_to_export(tmp_path):
                               initial_value=0.1)
     m.Y = DeepGPRegression.define_variable(
         X=m.X, kernels=[RBF(input_dim=2), RBF(input_dim=2)],
-        noise_var=m.noise_var, shape=(m.n, 1),
+        noise_var=m.noise_var, shape=(m.n, 1), rand_gen=rand_gen,
         inducing_inputs=[mt.Variable(shape=(4, 2),
                                      initial_value=rng.random((4, 2)) * 4),
                          mt.Variable(shape=(4, 2),
@@ -327,9 +337,314 @@ def test_a_prediction_that_draws_refuses_to_export(tmp_path):
                                          (4, 2)))])
     infr = GradBasedInference(MAP(model=m, observed=[m.X, m.Y]),
                               dtype="float64", device="cpu")
-    infr.initialize(X=X, Y=Y)
-    with pytest.raises(NotImplementedError, match="draws random numbers"):
-        predictor(m, infr, 8).export(str(tmp_path / "dgp.zip"), X=X[:8])
+    infr.run(max_iter=5, learning_rate=0.05, X=X, Y=Y,
+             generator=torch.Generator().manual_seed(0))
+    return m, infr, X
+
+
+def test_a_drawing_artifact_equals_the_live_predictor_on_each_seed(tmp_path):
+    """The deep GP's propagation draws are program inputs, drawn at each
+    chunk from the caller's generator: on two seeds (19 rows, chunks of
+    8) the artifact equals the live predictor to the bit, the two seeds'
+    outputs differ (no draw is baked into the program), and the default
+    generator is the live predictor's."""
+    rng = np.random.default_rng(8)
+    m, infr, X = trained_deep_gp(rng)
+    pred = predictor(m, infr, 8)
+    path = str(tmp_path / "dgp.zip")
+    pred.export(path, X=X[:8])
+    with zipfile.ZipFile(path) as zf:
+        meta = json.loads(zf.read("meta.json"))
+    assert meta["format_version"] == "torch-1.1"
+    assert meta["draws"] == [{"kind": "normal", "shape": [20, 8, 2],
+                              "dtype": "float64"}]
+    served = load_exported_predictor(path, device="cpu")
+    Xt = rng.random((19, 2)) * 4
+    outs = []
+    for seed in (1, 2):
+        g_live = torch.Generator().manual_seed(seed)
+        g_served = torch.Generator().manual_seed(seed)
+        live = pred.predict(X=Xt, generator=g_live)[0]
+        out = served.predict(X=Xt, generator=g_served)[0]
+        for a, b in zip(out, live):
+            assert a.shape == (1, 19, 1)
+            np.testing.assert_array_equal(a, b)
+        # the stream advanced as far on both sides
+        assert torch.equal(g_live.get_state(), g_served.get_state())
+        outs.append(out)
+    assert np.abs(outs[0][0] - outs[1][0]).min() > 0
+    for a, b in zip(served.predict(X=Xt)[0], pred.predict(X=Xt)[0]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_a_torch_1_0_artifact_still_loads_and_serves():
+    """``tests/goldens/export_torch_1_0_svgp.zip``, written in format
+    torch-1.0 by ``tests/oracles/torch_export_v1_0.py``, serves the live
+    predictor's answer that was stored beside it."""
+    golden = os.path.join(os.path.dirname(__file__), "goldens",
+                          "export_torch_1_0_svgp")
+    with zipfile.ZipFile(golden + ".zip") as zf:
+        assert json.loads(zf.read("meta.json"))["format_version"] == \
+            "torch-1.0"
+    want = np.load(golden + ".npz")
+    served = load_exported_predictor(golden + ".zip", device="cpu")
+    mu, var = served.predict(X=want["X"])[0]
+    np.testing.assert_allclose(mu, want["mean"], rtol=1e-12, atol=1e-14)
+    np.testing.assert_allclose(var, want["variance"], rtol=1e-12,
+                               atol=1e-14)
+
+
+class _StudentTPropagation(RandomGenerator):
+    """Heavy-tailed propagation: each normal draw is a Student-t draw,
+    whose chi-square is a gamma draw."""
+
+    def sample_normal(self, generator, loc=0.0, scale=1.0, shape=None,
+                      dtype=None):
+        n = super().sample_normal(generator, shape=shape, dtype=dtype)
+        g = self.sample_gamma(generator, alpha=2.5, shape=shape,
+                              dtype=dtype)
+        return loc + scale * n * torch.sqrt(2.5 / g)
+
+
+def test_a_gamma_draw_refuses_to_export(tmp_path):
+    """A gamma draw has no parameter-free base draw to make an input of:
+    export names it; the live predictor serves."""
+    rng = np.random.default_rng(9)
+    m, infr, X = trained_deep_gp(rng, rand_gen=_StudentTPropagation())
+    pred = predictor(m, infr, 8)
+    mu, _ = pred.predict(X=X)[0]
+    assert np.isfinite(mu).all()
+    with pytest.raises(NotImplementedError, match="gamma draw"):
+        pred.export(str(tmp_path / "t.zip"))
+
+
+class _NormedNet(torch.nn.Module):
+    """Linear → BatchNorm1d → tanh → Linear, with a dropout between."""
+
+    def __init__(self, p=0.0):
+        super().__init__()
+        self.inp = torch.nn.Linear(2, 5)
+        self.bn = torch.nn.BatchNorm1d(5)
+        self.drop = torch.nn.Dropout(p)
+        self.out = torch.nn.Linear(5, 2)
+
+    def forward(self, x):
+        return self.out(self.drop(torch.tanh(self.bn(self.inp(x)))))
+
+
+class _DropNet(torch.nn.Module):
+    """Dropout, then a (2, 2) kernel: applied once over the sample axis
+    (``broadcastable``), the weights carrying it too."""
+
+    def __init__(self):
+        super().__init__()
+        self.drop = torch.nn.Dropout(0.2)
+        self.kernel = torch.nn.Parameter(torch.eye(2))
+
+    def forward(self, x):
+        return torch.tanh(self.drop(x) @ self.kernel)
+
+
+def network_svgp(rng, *nets, names=("feat",), N=40, broadcastable=False):
+    """Networks (``_NormedNet``, eval-mode statistics set from seeded
+    draws), applied in turn under ``names``, in front of an SVGP
+    regression, 20 MAP steps, float64."""
+    torch.manual_seed(0)
+    X = rng.standard_normal((N, 2))
+    Y = np.sin(X[:, :1]) + 0.1 * rng.standard_normal((N, 1))
+    m = mt.Model()
+    m.n = mt.Variable()
+    m.X_raw = mt.Variable(shape=(m.n, 2))
+    x = m.X_raw
+    for net, name in zip(nets, names):
+        if hasattr(net, "bn"):
+            with torch.no_grad():
+                net.bn.running_mean.copy_(
+                    torch.as_tensor(rng.standard_normal(5)))
+                net.bn.running_var.copy_(
+                    torch.as_tensor(rng.random(5) + 0.5))
+        x = NNFunction(net, name=name, input_shapes=[(N, 2)],
+                       broadcastable=broadcastable, dtype="float64",
+                       device="cpu")(x)
+    m.X = x
+    m.noise_var = mt.Variable(transformation=PositiveTransformation(),
+                              initial_value=0.1)
+    m.Y = SVGPRegression.define_variable(
+        X=m.X, kernel=RBF(input_dim=2), noise_var=m.noise_var,
+        shape=(m.n, 1), inducing_inputs=mt.Variable(
+            shape=(6, 2), initial_value=rng.standard_normal((6, 2))))
+    infr = GradBasedInference(MAP(model=m, observed=[m.X_raw, m.Y]),
+                              dtype="float64", device="cpu")
+    infr.run(max_iter=20, learning_rate=0.05, X_raw=X, Y=Y)
+    pred = BatchedPredictor(model=m, infr_params=infr.params,
+                            observed=[m.X_raw], target_variables=[m.Y.uuid],
+                            chunk_size=16)
+    return pred, X
+
+
+def test_network_buffers_are_program_inputs(tmp_path):
+    """A BatchNorm's running statistics (eval mode) travel in params.npz
+    under their names and enter the program as inputs, not constants:
+    the artifact equals the live predictor to the bit, and a statistic
+    edited in params.npz moves the served answer."""
+    rng = np.random.default_rng(12)
+    net = _NormedNet().double().eval()
+    pred, X = network_svgp(rng, net)
+    Xt = rng.standard_normal((37, 2))
+    live = pred.predict(X_raw=Xt)[0]
+    path = str(tmp_path / "bn.zip")
+    pred.export(path)
+    with zipfile.ZipFile(path) as zf:
+        meta = json.loads(zf.read("meta.json"))
+        arrays = np.load(io.BytesIO(zf.read("params.npz")))
+        np.testing.assert_array_equal(arrays["b::feat_bn_running_mean"],
+                                      net.bn.running_mean.numpy())
+    assert meta["buffers"] == ["feat_bn_running_mean", "feat_bn_running_var",
+                               "feat_bn_num_batches_tracked"]
+    assert meta["draws"] == [] and meta["matmul_precision"] == "highest"
+    served = load_exported_predictor(path, device="cpu")
+    assert not served._program.constants
+    for a, b in zip(served.predict(X_raw=Xt)[0], live):
+        np.testing.assert_array_equal(a, b)
+
+    def shifted(items):
+        z = dict(np.load(io.BytesIO(items["params.npz"])))
+        z["b::feat_bn_running_mean"] = z["b::feat_bn_running_mean"] + 1.0
+        buf = io.BytesIO()
+        np.savez(buf, **z)
+        items["params.npz"] = buf.getvalue()
+
+    moved = load_exported_predictor(
+        _rewritten(path, str(tmp_path / "moved.zip"), shifted),
+        device="cpu").predict(X_raw=Xt)[0]
+    assert np.abs(moved[0] - live[0]).max() > 1e-3
+
+
+def test_two_networks_whose_buffers_share_a_name(tmp_path):
+    """Two BatchNorm networks wrapped under one name would share the
+    artifact's buffer names: export refuses them and names the fix;
+    under two names each keeps its own statistics, and the artifact
+    equals the live predictor to the bit."""
+    rng = np.random.default_rng(14)
+    nets = [_NormedNet().double().eval() for _ in range(2)]
+    pred, _ = network_svgp(rng, *nets, names=("feat", "feat"))
+    Xt = rng.standard_normal((21, 2))
+    pred.predict(X_raw=Xt)
+    with pytest.raises(ValueError, match="different names"):
+        pred.export(str(tmp_path / "same.zip"))
+    rng = np.random.default_rng(14)
+    pred, _ = network_svgp(rng, *nets, names=("feat", "head"))
+    live = pred.predict(X_raw=Xt)[0]
+    path = pred.export(str(tmp_path / "two.zip"))
+    with zipfile.ZipFile(path) as zf:
+        arrays = np.load(io.BytesIO(zf.read("params.npz")))
+        for name, net in zip(("feat", "head"), nets):
+            np.testing.assert_array_equal(
+                arrays["b::{}_bn_running_var".format(name)],
+                net.bn.running_var.numpy())
+    assert not np.array_equal(nets[0].bn.running_var.numpy(),
+                              nets[1].bn.running_var.numpy())
+    served = load_exported_predictor(path, device="cpu")
+    for a, b in zip(served.predict(X_raw=Xt)[0], live):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_export_while_another_thread_serves(tmp_path):
+    """Export records and replays draws in its own thread: a drawing
+    predictor serving in a second thread meanwhile draws from its own
+    generator, as it does alone, and the artifact lists the draws of the
+    one exported with no other thread about."""
+    import threading
+    rng = np.random.default_rng(15)
+    m, infr, X = trained_deep_gp(rng)
+    pred = predictor(m, infr, 8)
+    Xt = rng.random((19, 2)) * 4
+    want = pred.predict(X=Xt, generator=torch.Generator().manual_seed(3))[0]
+    quiet = pred.export(str(tmp_path / "quiet.zip"))
+    got, errors, stop = [], [], threading.Event()
+
+    def serve():
+        try:
+            while not stop.is_set():
+                got.append(pred.predict(
+                    X=Xt, generator=torch.Generator().manual_seed(3))[0])
+        except Exception as e:   # noqa: BLE001 - reported below
+            errors.append(e)
+
+    server = threading.Thread(target=serve)
+    server.start()
+    try:
+        while not got and not errors:
+            server.join(0.01)
+        before = len(got)
+        busy = pred.export(str(tmp_path / "busy.zip"))
+        during = len(got) - before
+    finally:
+        stop.set()
+        server.join()
+    assert not errors, errors
+    assert during > 0, "the second thread served nothing during export"
+    for out in got:
+        for a, b in zip(out, want):
+            np.testing.assert_array_equal(a, b)
+
+    def draws(path):
+        with zipfile.ZipFile(path) as zf:
+            return json.loads(zf.read("meta.json"))["draws"]
+
+    assert draws(busy) == draws(quiet)
+    served = load_exported_predictor(busy, device="cpu").predict(
+        X=Xt, generator=torch.Generator().manual_seed(3))[0]
+    for a, b in zip(served, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_dropout_in_training_mode_refuses_to_export(tmp_path):
+    """A network whose forward draws (Dropout in training mode, applied
+    once over the sample axis) draws from torch's global generator, not
+    from an input: export refuses it and names eval mode; the same
+    network in eval mode exports."""
+    rng = np.random.default_rng(13)
+    net = _DropNet().double().eval()
+    pred, X = network_svgp(rng, net, broadcastable=True)
+    net.drop.train()
+    with pytest.raises(NotImplementedError, match="eval mode"):
+        pred.export(str(tmp_path / "drop.zip"), X_raw=X[:16])
+    net.drop.eval()
+    pred.export(str(tmp_path / "drop.zip"), X_raw=X[:16])
+
+
+def serve_in_subprocess(path, **inputs):
+    """Serve the artifact at ``path`` in a fresh process that imports
+    only this package and numpy (no model, no network class, no JAX) on
+    the CPU; returns the flattened outputs as numpy arrays."""
+    work = os.path.dirname(path)
+    np.savez(os.path.join(work, "request.npz"), **inputs)
+    script = SERVE_SCRIPT.format(path=path, work=work)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    subprocess.run([sys.executable, "-c", script], check=True, env=env,
+                   cwd=work, timeout=300)
+    out = np.load(os.path.join(work, "served.npz"))
+    return [out["leaf_%d" % i] for i in range(len(out.files))]
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SERVE_SCRIPT = """
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from mxfusion_tpu_torch.inference import load_exported_predictor
+from torch.utils import _pytree as pytree
+request = dict(np.load("{work}/request.npz"))
+served = load_exported_predictor("{path}", device="cpu")
+leaves = pytree.tree_leaves(served.predict(**request))
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "tests",
+                                                     "mxfusion_tpu")]
+assert not bad, bad
+np.savez("{work}/served.npz",
+         **{{"leaf_%d" % i: x for i, x in enumerate(leaves)}})
+"""
 
 
 def test_k1_operator_has_a_fake_shape_and_no_cpu_kernel():

@@ -13,8 +13,11 @@ masked MAP, approximates it by Laplace, scores HMC draws by WAIC,
 PSIS-LOO and a predictive check, and integrates a power posterior, and
 fits a linear-Gaussian state-space model and an AR(1) coefficient and
 rolls PILCO out over GP dynamics, and runs the native batcher, the
-loops' options, profiling and a data-parallel run. Also: chip_smoke.py refuses to run
-without a GPU and without the rest of the repository."""
+loops' options, profiling and a data-parallel run. Every module of the
+package and every script under ``examples/torch/`` imports neither JAX,
+flax nor the JAX package, read from their sources and imported with
+``jax`` blocked. Also: chip_smoke.py refuses to run without a GPU and
+without the rest of the repository."""
 import os
 import shutil
 import subprocess
@@ -958,6 +961,56 @@ def test_port_imports_and_serves_without_jax():
         capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr
     assert "SERVED" in proc.stdout
+
+
+def _port_sources():
+    """The package's modules and the port's example scripts."""
+    return sorted(list((ROOT / "mxfusion_tpu_torch").rglob("*.py"))
+                  + list((ROOT / "examples" / "torch").rglob("*.py")))
+
+
+def _imported_roots(path):
+    import ast
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+IMPORT_ALL_WITHOUT_JAX = r"""
+import pkgutil, runpy, sys
+for blocked in ("jax", "jaxlib", "flax", "mxfusion_tpu"):
+    sys.modules[blocked] = None    # importing any of them now raises
+sys.path.insert(0, {root!r})
+import mxfusion_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    mxfusion_tpu_torch.__path__, "mxfusion_tpu_torch.")]
+for name in names:
+    __import__(name)
+for path in {examples!r}:
+    ns = runpy.run_path(path, run_name="example")
+    assert callable(ns["main"]), path
+print("IMPORTED", len(names), len({examples!r}))
+"""
+
+
+def test_port_and_its_examples_import_no_jax():
+    sources = _port_sources()
+    examples = [str(p) for p in sources if "examples" in p.parts]
+    assert len(examples) == 27
+    for path in sources:
+        held = _imported_roots(path) & {"jax", "jaxlib", "flax",
+                                        "mxfusion_tpu"}
+        assert not held, (str(path), held)
+    proc = subprocess.run(
+        [sys.executable, "-c", IMPORT_ALL_WITHOUT_JAX.format(
+            root=str(ROOT), examples=examples)],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert "IMPORTED" in proc.stdout
 
 
 def _run_smoke(cwd, env=None):

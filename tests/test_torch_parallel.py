@@ -654,6 +654,14 @@ def case_serving(P, mesh, tmp):
             res = pred.predict(X=x, generator=torch.Generator().manual_seed(5))
             out[name][tag] = [np.asarray(a) for a in res[0]] \
                 if isinstance(res[0], tuple) else [np.asarray(res[0])]
+    # the drawing artifact, loaded with and without the mesh
+    path = os.path.join(tmp, "draws{}.zip".format(
+        mesh.get_local_rank("data")))
+    predictor().export(path, X=Xs)
+    for tag, on in (("exported_plain", None), ("exported_mesh", mesh)):
+        res = inf_mod.load_exported_predictor(path, mesh=on).predict(
+            X=Xs, generator=torch.Generator().manual_seed(5))
+        out["draws"][tag] = [np.asarray(res[0])]
     return out
 
 
@@ -916,6 +924,19 @@ def test_mesh_serving(ranks):
         assert "export()" in r["errors"][0]
         assert "not an axis" in r["errors"][1]
         assert "divisible" in r["errors"][2]
+
+
+def test_mesh_serving_of_a_drawing_artifact(ranks):
+    """The exported sampling prediction draws its base draws from the
+    caller's generator as the live one does: loaded alone it equals the
+    plain predictor's draws, and loaded over the mesh the live mesh
+    predictor's, bit for bit (``_rank_generator``: the first rank's
+    chunk on the caller's stream, every other rank on its own)."""
+    for r in _case(ranks, "serving"):
+        d = r["draws"]
+        _close(d["exported_plain"], d["plain"], 0, 0)
+        _close(d["exported_mesh"], d["mesh"], 0, 0)
+        assert not np.array_equal(d["exported_mesh"][0], d["plain"][0])
 
 
 def test_local_latent_draws_differ_in_value_not_in_distribution(ranks):
