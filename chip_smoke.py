@@ -31,8 +31,8 @@ RTS smoother, sequential and parallel in time, ``LinearGaussianSSM`` by
 MAP, ``GaussianAR1`` under HMC for stochastic volatility, and PILCO,
 whose GP dynamics K1 builds in every fit step and rollout step), the
 loops' options and data parallelism, the exported artifacts of a
-network graph and of a prediction that draws, and the 27 example
-scripts. In phases that each print one line:
+network graph and of a prediction that draws, the 27 example
+scripts and the 9 tutorial notebooks. In phases that each print one line:
 
 1. device: needs CUDA (exits nonzero without it); prints the card's
    name and power limit (nvidia-smi) and the TF32 settings;
@@ -406,7 +406,14 @@ scripts. In phases that each print one line:
    against the JAX example's value, with its wall and its K1-K4
    launches; then at full size, cheapest first, while the phase has run
    under 110 s (each script's own full-size assertions apply), the
-   scripts left at smoke size listed.
+   scripts left at smoke size listed;
+57. the notebooks: the code cells of every ``examples/torch/notebooks/``
+   notebook, each in one namespace in this process, on the card at the
+   notebook's own counts; every printed number finite and in the band
+   of its CPU test (``tests/test_torch_notebooks_a.py``) around the JAX
+   notebook's, with the notebook's wall and its K1-K5 launches (K1 at
+   least once in ``gp_regression``, ``svgp_regression`` and ``deep_gp``,
+   K2 and K3 in ``svgp_regression``), and the phase's total time.
 
 Any failed check raises and the script exits nonzero. The last three
 lines are the card (nvidia-smi), the kernels' JSON record (each with
@@ -3586,6 +3593,68 @@ def example_phases(card, read_counts, zero_counts, sync):
     return totals
 
 
+# the kernels each GP notebook's path must launch on the card: its RBF
+# grams, and the SVGP minibatch's fused L⁻¹Kuf forward and backward
+NOTEBOOK_KERNELS = {"gp_regression": ("K1",),
+                    "svgp_regression": ("K1", "K2", "K3"),
+                    "deep_gp": ("K1",)}
+
+
+def notebook_phases(card, read_counts, zero_counts, sync):
+    """Phase 57: the code cells of every ``examples/torch/notebooks/``
+    notebook in one namespace each, in this process on the card at the
+    notebook's own counts (nothing pins the CPU), every printed number
+    finite and in the band of its CPU test
+    (``tests/test_torch_notebooks_a.py``). Returns the launches of
+    K1-K5."""
+    import torch
+    # by its path: a machine may have another package named "tests"
+    spec = importlib.util.spec_from_file_location(
+        "torch_notebook_bands", ROOT / "tests" / "test_torch_notebooks_a.py")
+    bands = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bands)
+    t_phase = time.perf_counter()
+    totals = dict.fromkeys(("K1", "K2", "K3", "K4", "K5"), 0)
+    for name in bands.NOTEBOOKS:
+        zero_counts()
+        sync()
+        t0 = time.perf_counter()
+        torch.manual_seed(0)
+        ns, outputs = bands.generate.run_cells(bands.load(name), name)
+        sync()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        for k in totals:
+            totals[k] += counts[k]
+        for k in NOTEBOOK_KERNELS.get(name, ()):
+            check(counts[k] > 0, "phase 57: {} launched {} no time".format(
+                name, k))
+        text = "".join(outputs)
+        probes = bands.probe_values(name, ns)
+        try:
+            # the JAX notebook's lines, every number finite and in band
+            bands.hold_to_jax(name, text, probes)
+        except AssertionError as e:
+            check(False, "phase 57: {} printed {} outside its band around "
+                  "JAX's {}: {}".format(name, text, "".join(
+                      bands.GOLDEN[name]["outputs"]), e))
+        shown = [line for line in text.splitlines()
+                 if not line.startswith("Iteration ")]
+        print("phase 57 notebook ({}): {} -> {}{} in {:.3f} s | K1 {} K2 {} "
+              "K3 {} K4 {} K5 {} | every value in band".format(
+                  card, name, " / ".join(shown),
+                  " {}".format(probes) if probes else "", wall,
+                  counts["K1"], counts["K2"], counts["K3"], counts["K4"],
+                  counts["K5"]), flush=True)
+    print("phase 57 notebooks ({}): {} notebooks at their own counts, every "
+          "printed value in its band | launches K1 {} K2 {} K3 {} K4 {} K5 {} "
+          "| phase 57 took {:.1f} s".format(
+              card, len(bands.NOTEBOOKS), totals["K1"], totals["K2"],
+              totals["K3"], totals["K4"], totals["K5"],
+              time.perf_counter() - t_phase), flush=True)
+    return totals
+
+
 def bnn_model(dtype, dev, seed):
     """BASELINE config 5a (benchmarks/bnn_vae_dp.py:30-71): y = MLP(x),
     8 → 64 → 64 → 1 with tanh, Normal(0, 1) priors over the 4801
@@ -6528,6 +6597,9 @@ def main():
     # ---- 56. the examples, on the card
     examples = example_phases(card, read_counts, zero_counts, sync)
 
+    # ---- 57. the notebooks, on the card
+    notebooks = notebook_phases(card, read_counts, zero_counts, sync)
+
     check(not any(k == "jax" or k.startswith(("jax.", "mxfusion_tpu."))
                   or k == "mxfusion_tpu" for k in sys.modules),
           "JAX or the JAX package was imported")
@@ -6552,30 +6624,32 @@ def main():
             + exact_serve["K1"] + sgp_launches["K1"] + sgp_serve["K1"]
             + ng_k1 + family["K1"] + persist["K1"] + deep_kernel["K1"]
             + sampler_k1 + evidence["K1"] + state_space_k1 + loops["K1"]
-            + artifacts_k1 + examples["K1"],
+            + artifacts_k1 + examples["K1"] + notebooks["K1"],
             max_err, min(ms["kernel"]),
             min(ms["plain"]), ms["bound"], None),
         row("fused_gram_fwd", fused_src,
             "mxfusion_tpu/ops/pallas_fused_gram.py:93",
             train_launches["K2"] + family["K2"] + persist["K2"]
             + deep_kernel["K2"] + evidence["K2"] + loops["K2"]
-            + examples["K2"],
+            + examples["K2"] + notebooks["K2"],
             fwd_err, min(fms["K2"]), min(fms["K2 plain"]), k2_bound, None),
         row("fused_gram_bwd", fused_src,
             "mxfusion_tpu/ops/pallas_fused_gram.py:109",
             train_launches["K3"] + family["K3"] + persist["K3"]
             + deep_kernel["K3"] + evidence["K3"] + loops["K3"]
-            + examples["K3"],
+            + examples["K3"] + notebooks["K3"],
             bwd_err, min(fms["K3"]), min(fms["K3 plain"]), k3_bound, None),
         row("batched_cholesky", chol_src,
             "mxfusion_tpu/ops/pallas_batched_cholesky.py:111",
-            ppca_launches["K4"] + examples["K4"], chol_errs["K4"],
+            ppca_launches["K4"] + examples["K4"] + notebooks["K4"],
+            chol_errs["K4"],
             min(chol_main["K4"]),
             min(chol_main["plain"]), chol_main["bound"],
             min(chol_main["cholesky_ex"])),
         row("batched_cholesky_r3", chol_src,
             "mxfusion_tpu/ops/pallas_batched_cholesky.py:56",
-            r3_launches["K5"], chol_errs["K5"], min(chol_main["K5"]),
+            r3_launches["K5"] + notebooks["K5"], chol_errs["K5"],
+            min(chol_main["K5"]),
             min(chol_main["plain"]), chol_main["bound"],
             min(chol_main["cholesky_ex"]))]}))
     print(json.dumps({"ok": True, "device": {

@@ -32,9 +32,9 @@ from mxfusion_tpu_torch.inference import (
     ModulePredictionAlgorithm, StochasticVariationalInference,
     TransferInference, create_Gaussian_meanfield, create_executor)
 from mxfusion_tpu_torch.modules import SVGPRegression
-from mxfusion_tpu_torch.native import native_available
 from mxfusion_tpu_torch.ops import precision
 
+from tests.test_torch_native_batcher import both_native  # noqa: F401
 from tests.test_torch_svgp_training import _data, _pair, jax_f64
 
 
@@ -211,8 +211,7 @@ def test_a_call_is_one_host_buffer():
         assert np.array_equal(b[1].numpy(), data[1][i])
 
 
-@pytest.mark.skipif(not native_available(),
-                    reason="no C++ compiler: JAX's batches would differ")
+@pytest.mark.usefixtures("both_native")
 @pytest.mark.parametrize("k", [1, 3])
 def test_batches_per_call_losses_match_jax(k):
     """MAP SVGP in float64, 3 epochs of 4 batches padded by wrapping to a

@@ -14,10 +14,11 @@ PSIS-LOO and a predictive check, and integrates a power posterior, and
 fits a linear-Gaussian state-space model and an AR(1) coefficient and
 rolls PILCO out over GP dynamics, and runs the native batcher, the
 loops' options, profiling and a data-parallel run. Every module of the
-package and every script under ``examples/torch/`` imports neither JAX,
-flax nor the JAX package, read from their sources and imported with
-``jax`` blocked. Also: chip_smoke.py refuses to run without a GPU and
+package, every script under ``examples/torch/`` and every code cell of
+its notebooks imports neither JAX, flax nor the JAX package, read from
+their sources and, but for the cells, imported with ``jax`` blocked. Also: chip_smoke.py refuses to run without a GPU and
 without the rest of the repository."""
+import json
 import os
 import shutil
 import subprocess
@@ -964,15 +965,26 @@ def test_port_imports_and_serves_without_jax():
 
 
 def _port_sources():
-    """The package's modules and the port's example scripts."""
+    """The package's modules, the port's example scripts and its
+    notebooks' generator."""
     return sorted(list((ROOT / "mxfusion_tpu_torch").rglob("*.py"))
                   + list((ROOT / "examples" / "torch").rglob("*.py")))
 
 
-def _imported_roots(path):
+def _notebook_cells():
+    """``(notebook, source)`` of every code cell of the port's
+    notebooks."""
+    return [(path.name, "".join(cell["source"]))
+            for path in sorted((ROOT / "examples" / "torch" /
+                                "notebooks").glob("*.ipynb"))
+            for cell in json.loads(path.read_text())["cells"]
+            if cell["cell_type"] == "code"]
+
+
+def _imported_roots(source):
     import ast
     roots = set()
-    for node in ast.walk(ast.parse(path.read_text())):
+    for node in ast.walk(ast.parse(source)):
         if isinstance(node, ast.Import):
             roots.update(a.name.split(".")[0] for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -993,21 +1005,33 @@ for name in names:
 for path in {examples!r}:
     ns = runpy.run_path(path, run_name="example")
     assert callable(ns["main"]), path
+ns = runpy.run_path({generator!r}, run_name="generator")
+assert len(ns["NOTEBOOKS"]) == 9 and callable(ns["run_cells"])
 print("IMPORTED", len(names), len({examples!r}))
 """
 
 
 def test_port_and_its_examples_import_no_jax():
+    """The package, the 27 example scripts (each with a ``main``), the
+    notebooks' generator and the 9 notebooks' code cells import none of
+    JAX, flax and the JAX package."""
     sources = _port_sources()
-    examples = [str(p) for p in sources if "examples" in p.parts]
+    generator = ROOT / "examples" / "torch" / "notebooks" / "generate.py"
+    examples = [str(p) for p in sources
+                if "examples" in p.parts and p != generator]
     assert len(examples) == 27
+    cells = _notebook_cells()
+    assert len({name for name, _ in cells}) == 9
+    blocked = {"jax", "jaxlib", "flax", "mxfusion_tpu"}
     for path in sources:
-        held = _imported_roots(path) & {"jax", "jaxlib", "flax",
-                                        "mxfusion_tpu"}
+        held = _imported_roots(path.read_text()) & blocked
         assert not held, (str(path), held)
+    for name, source in cells:
+        held = _imported_roots(source) & blocked
+        assert not held, (name, held)
     proc = subprocess.run(
         [sys.executable, "-c", IMPORT_ALL_WITHOUT_JAX.format(
-            root=str(ROOT), examples=examples)],
+            root=str(ROOT), examples=examples, generator=str(generator))],
         capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr
     assert "IMPORTED" in proc.stdout
