@@ -32,14 +32,16 @@ MAP, ``GaussianAR1`` under HMC for stochastic volatility, and PILCO,
 whose GP dynamics K1 builds in every fit step and rollout step), the
 loops' options and data parallelism, the exported artifacts of a
 network graph and of a prediction that draws, the 27 example
-scripts and the 9 tutorial notebooks. In phases that each print one line:
+scripts and the 9 tutorial notebooks, and the keyed gamma and Poisson
+draws (R1, R2) with the drawing artifacts they let export. In phases
+that each print one line:
 
 1. device: needs CUDA (exits nonzero without it); prints the card's
    name and power limit (nvidia-smi) and the TF32 settings;
 2. build: compiles the CUDA kernels from ``mxfusion_tpu_torch/csrc``
    with nvcc for sm_90a, one nvcc per source, all started together:
-   ``rbf_gram.cu`` (K1), ``fused_gram.cu`` (K2, K3) and
-   ``batched_cholesky.cu`` (K4, K5);
+   ``rbf_gram.cu`` (K1), ``fused_gram.cu`` (K2, K3),
+   ``batched_cholesky.cu`` (K4, K5) and ``keyed_draws.cu`` (R1, R2);
 3. kernel: holds each kernel against its plain PyTorch version on the
    card: K1 at the serving shapes (Kzx, Kuu), the materialized training
    arm's Kuf (512 x 65536), the exact GP's (phases 14 and 16) Kxx
@@ -413,7 +415,34 @@ scripts and the 9 tutorial notebooks. In phases that each print one line:
    of its CPU test (``tests/test_torch_notebooks_a.py``) around the JAX
    notebook's, with the notebook's wall and its K1-K5 launches (K1 at
    least once in ``gp_regression``, ``svgp_regression`` and ``deep_gp``,
-   K2 and K3 in ``svgp_regression``), and the phase's total time.
+   K2 and K3 in ``svgp_regression``), and the phase's total time;
+58. keyed draws: (a) the raw Threefry-2x32 words of 2^20 counters, R1
+   (``keyed_standard_gamma``) at 2^20 elements of each of GAMMA_ALPHAS
+   and R2 (``keyed_poisson``) at each of POISSON_RATES, float32 and
+   float64, against their plain versions on the card (equal to the
+   bit, or within 1e-6 relative with at most 1e-5 of the elements
+   accepted in another round; the counts printed; a parameter broadcast
+   from one value, read at stride 0, equal to the dense one), their
+   means and variances within six standard errors of the closed forms,
+   with their times beside ``torch._standard_gamma``'s and
+   ``torch.poisson``'s (information); (c) phase 28's trained deep GP
+   with tests/test_torch_export.py's Student-t propagation, exported
+   (the program holds one keyed_gamma node) and served on 262144 rows
+   from ``torch.Generator("cuda")`` seeds 1 and 2: bit-equal to the live
+   predictor, the generators' states equal, R1 once a chunk in both;
+   and a count predictor (a network, softplus, a ``NegativeBinomial``)
+   MAP-fitted on phase 24's counts, exported and served in a process
+   that builds no model, bit-equal to the live predictor on both seeds
+   with R1 and R2 once a chunk each, its counts' mean within six
+   standard errors of the predicted means and their variance within 5%
+   of the law's; rows/s beside phase 55's normal-only artifact; (b) R1
+   and R2 timed at those paths' shapes against their plain versions and
+   the library calls, beside their bounds; (d) phases 20, 21 and 26's
+   checks (BBVI, ADVI, the library's draws, the gamma draw's gradient)
+   ran on the keyed draws with their bounds as they were; R1's and R2's
+   launches on the main paths by path (phases 21 and 26's draws, the
+   examples, the notebooks, 58c's live and served runs), each run's
+   counted from zero just before it and read just after it.
 
 Any failed check raises and the script exits nonzero. The last three
 lines are the card (nvidia-smi), the kernels' JSON record (each with
@@ -738,6 +767,35 @@ PILCO_N, PILCO_DS, PILCO_H, PILCO_S = 1024, 4, 25, 64
 PILCO_DYN_STEPS, PILCO_POLICY_STEPS, PILCO_LR = 20, 5, 0.05
 
 
+# phase 58: the keyed draws (R1, R2). Kernel against plain version at
+# 2^20 elements of each gamma shape (GAMMA_ALPHAS) and Poisson rate,
+# float32 and float64: equal to the bit, or within KEYED_RTOL relative
+# with at most KEYED_FAR of the elements accepted in another round (the
+# rounding of a comparison can flip it); means and variances within
+# MOMENT_SE standard errors of the closed forms
+KEYED_N, KEYED_RTOL, KEYED_FAR = 1 << 20, 1e-6, 1e-5
+POISSON_RATES = (0.3, 4.0, 9.99, 10.0, 37.0, 1e4)
+# the bound's operations: 88 32-bit integer operations a Threefry-2x32
+# call and its uniform (5 x 4 rounds of add, rotate and xor; the key's
+# injections; the shift, multiply-add and conversion of the uniform), and
+# the floating-point operations of a round (a log, sqrt, cos or lgamma
+# counted as one), at FP32_FLOP_S (the integer units' rate is lower: a
+# generous bound) or, for float64's floating-point share, the H100 SXM's
+# 34 TFLOP/s of fp64 outside the tensor cores (NVIDIA's data sheet)
+HASH_OPS, GAMMA_ROUND_OPS, KNUTH_ROUND_OPS, PTRS_ROUND_OPS = 88, 24, 3, 27
+FP64_FLOP_S = 34e12
+# the slice at full width: phase 28's deep GP with the Student-t
+# propagation of tests/test_torch_export.py (each normal draw n of the
+# layers scaled by sqrt(2.5 / g), g ~ Gamma(2.5): a t with 5 degrees of
+# freedom); a count predictor, X (n, 32) -> Linear(32, 64) -> tanh ->
+# Linear(64, 1) -> softplus -> the mean of a NegativeBinomial with a
+# learned dispersion, MAP on phase 24's counts for one epoch, its
+# prediction drawing COUNT_S counts a row; the pooled variance of the
+# served counts about the predicted means within COUNT_VAR_RTOL of the
+# law's
+STUDENT_T_SHAPE, COUNT_HIDDEN, COUNT_S, COUNT_VAR_RTOL = 2.5, 64, 20, 0.05
+
+
 def check(ok, message):
     if not ok:
         raise RuntimeError("check failed: " + message)
@@ -782,9 +840,10 @@ def ptxas_summary(lib_path):
     for ln in log.read_text().splitlines() if log.exists() else []:
         # a kernel's name, and its int or bool template argument if it
         # has one (ILi64EE: <64>, ILb1EE: <true>)
-        name = re.search(r"([a-z_]*[a-z]_kernel)(?:IL([ib])(\d+)EE|E)", ln)
+        name = re.search(
+            r"([a-z_0-9]*[a-z0-9]_kernel)(?:IL([ib])(\d+)EE|I([fd])E|E)", ln)
         if "Compiling entry function" in ln and name:
-            kind, value = name.group(2), name.group(3)
+            kind, value = name.group(2), name.group(3) or name.group(4)
             if kind == "b":
                 value = "true" if value == "1" else "false"
             out.append(name.group(1) + ("<{}>".format(value)
@@ -1876,7 +1935,7 @@ def meanfield_phases(dev, card, seed, X, Y, x_ppca, W0, read_counts,
     BBVI against the pathwise gradient, and ADVI over constrained
     latents with the draws of every distribution of the slice. No
     kernel of K1-K5 lies on this path: each training run must launch
-    none."""
+    none. Returns the R1/R2 launches of phase 21's draws."""
     import torch
     from mxfusion_tpu_torch.inference import (
         ImportanceWeightedVariationalInference, ScoreFunctionInference,
@@ -2041,17 +2100,20 @@ def meanfield_phases(dev, card, seed, X, Y, x_ppca, W0, read_counts,
                     "{}), step wall median {:.3f} ms".format(
                         label, family, err, ADVI_RTOL,
                         1e3 * float(np.median(loop.wall_s[1:]))))
+    zero_counts()
     moments = draw_moments(dev, seed + 22, moment_cases(
         np.random.default_rng(seed + 22), MOMENT_DRAWS))
+    keyed = read_keyed()
     print("phase 21 advi ({}): N={}, {} Adam steps at lr {} and {} at {} "
           "each | {} | {} draws on the card's generator, max |mean| and "
-          "|variance| error in standard errors (tol {}): {} | phases 18-21 "
-          "took {:.1f} s".format(
+          "|variance| error in standard errors (tol {}): {}; R1/R2 "
+          "launches {} | phases 18-21 took {:.1f} s".format(
               card, ADVI_N, ADVI_STEPS, ADVI_LR, ADVI_FINE_STEPS,
               ADVI_FINE_LR, " | ".join(advi),
               MOMENT_DRAWS, MOMENT_SE, ", ".join(
-                  "{} {:.2f} {:.2f}".format(*m) for m in moments),
+                  "{} {:.2f} {:.2f}".format(*m) for m in moments), keyed,
               time.perf_counter() - t_start), flush=True)
+    return keyed
 
 
 def nongaussian_model(module, Z0, columns=1, **kw):
@@ -2242,8 +2304,9 @@ def nongaussian_phases(dev, card, seed, X, read_counts, zero_counts, sync,
     whitened), its serving, the count SVGPs (Poisson with both links,
     negative binomial with a learned dispersion), the multi-class SVGP,
     and the draws of the rest of the distribution library with the gamma
-    draw's gradient. Returns the K1 launches of their main paths and the
-    class labels."""
+    draw's gradient. Returns the K1 launches of their main paths, the
+    class labels, phase 24's counts and the R1/R2 launches of phase 26's
+    draws (the gradient check's are not a main path's)."""
     import torch
     from mxfusion_tpu_torch.components.distributions import \
         FixedRandomGenerator
@@ -2443,20 +2506,24 @@ def nongaussian_phases(dev, card, seed, X, read_counts, zero_counts, sync,
               PROB_SUM_ATOL), flush=True)
 
     # ---- 26. the rest of the distribution library; the gamma gradient
+    zero_counts()
     moments = draw_moments(dev, seed + 26, new_moment_cases(rng,
                                                             MOMENT_DRAWS))
+    keyed = read_keyed()
     grads = gamma_gradient_check(dev, seed + 27)
     print("phase 26 draws ({}): {} draws each on the card's generator, max "
-          "|mean| and |variance| error in standard errors (tol {}): {} | "
-          "gamma draw gradient, {} float32 draws per alpha vs float64 "
-          "random_gamma_grad (tol {:.0e}): {} | phases 22-26 took {:.1f} s"
+          "|mean| and |variance| error in standard errors (tol {}): {}; "
+          "R1/R2 launches {} | gamma draw gradient, {} float32 draws per "
+          "alpha vs float64 random_gamma_grad (tol {:.0e}): {} | phases "
+          "22-26 took {:.1f} s"
           .format(card, MOMENT_DRAWS, MOMENT_SE, ", ".join(
-              "{} {:.2f} {:.2f}".format(*mo) for mo in moments), GAMMA_N,
+              "{} {:.2f} {:.2f}".format(*mo) for mo in moments), keyed,
+              GAMMA_N,
               GAMMA_RTOL, ", ".join(
                   "alpha {}: rel {:.3e}, iterations {} ({} subnormal draws)"
                   .format(a, rel, it, sub) for a, rel, it, sub in grads),
               time.perf_counter() - t_start), flush=True)
-    return k1, labels
+    return k1, labels, nb_counts, keyed
 
 
 def deep_kuf_inputs(rng, dev):
@@ -2735,6 +2802,8 @@ def gp_family_phases(dev, card, seed, X, Y, labels, read_counts,
               flush=True)
         if phase == 28:
             deep_gp_pred = pred   # phase 55 exports it
+            # phase 58 serves the same state with a Student-t propagation
+            deep_gp_state = (Z0s, state_by_path(dinf.params, dinf.graphs))
         del dinf, dloop, pred, mean, var
 
     # ---- 30. natural gradients, minibatch: svgp_1m.py's ngd mode, one
@@ -2844,7 +2913,7 @@ def gp_family_phases(dev, card, seed, X, Y, labels, read_counts,
               rel64, NGD_ORACLE_RTOL, trips64, counts32,
               [float(v) for v in losses32], rel32, trips32, wall32,
               time.perf_counter() - t_start), flush=True)
-    return launches, deep_gp_pred
+    return launches, deep_gp_pred, deep_gp_state
 
 
 def headline_svgp(Z0):
@@ -3505,7 +3574,8 @@ def artifact_phases(dev, card, Xtr, dk_pred, dgp_pred, read_counts,
               [round(TRAIN_N / w) for w in walls["artifact"]],
               [round(TRAIN_N / w) for w in walls["live"]],
               time.perf_counter() - t_phases), flush=True)
-    return child["launches"] + live_k1 + sum(k1)
+    return child["launches"] + live_k1 + sum(k1), [
+        TRAIN_N / w for w in walls["artifact"]]
 
 
 def artifact_meta(path):
@@ -3526,14 +3596,14 @@ def example_phases(card, read_counts, zero_counts, sync):
     process on the card, at ``MXF_SMOKE`` size (the raised counts of
     ``SIZES`` where a test names them) held to the band of its CPU test
     (``tests/test_torch_examples_a.py``), then at full size while the
-    phase's time allows. Returns the launches of K1-K5."""
+    phase's time allows. Returns the launches of K1-K5, R1 and R2."""
     # by its path: a machine may have another package named "tests"
     spec = importlib.util.spec_from_file_location(
         "torch_examples_bands", ROOT / "tests" / "test_torch_examples_a.py")
     examples = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(examples)
     t_phase = time.perf_counter()
-    totals = dict.fromkeys(("K1", "K2", "K3", "K4", "K5"), 0)
+    totals = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "R1", "R2"), 0)
 
     def run(name, smoke):
         zero_counts()
@@ -3542,7 +3612,7 @@ def example_phases(card, read_counts, zero_counts, sync):
         value = examples.run_example(name, smoke=smoke)
         sync()
         wall = time.perf_counter() - t0
-        counts = read_counts()
+        counts = dict(read_counts(), **read_keyed())
         for k in totals:
             totals[k] += counts[k]
         return value, wall, counts
@@ -3584,12 +3654,13 @@ def example_phases(card, read_counts, zero_counts, sync):
                   counts["K3"], counts["K4"]), flush=True)
     print("phase 56 examples ({}): {} scripts at MXF_SMOKE size in {:.1f} s, "
           "every one in its band; {} at full size; cut to MXF_SMOKE size "
-          "only: {} | launches K1 {} K2 {} K3 {} K4 {} K5 {} | phase 56 took "
-          "{:.1f} s".format(
+          "only: {} | launches K1 {} K2 {} K3 {} K4 {} K5 {} R1 {} R2 {} | "
+          "phase 56 took {:.1f} s".format(
               card, len(examples.BANDS), smoke_s,
               len(smoke_walls) - len(cut), cut or "none", totals["K1"],
               totals["K2"], totals["K3"], totals["K4"], totals["K5"],
-              time.perf_counter() - t_phase), flush=True)
+              totals["R1"], totals["R2"], time.perf_counter() - t_phase),
+          flush=True)
     return totals
 
 
@@ -3606,7 +3677,7 @@ def notebook_phases(card, read_counts, zero_counts, sync):
     notebook's own counts (nothing pins the CPU), every printed number
     finite and in the band of its CPU test
     (``tests/test_torch_notebooks_a.py``). Returns the launches of
-    K1-K5."""
+    K1-K5, R1 and R2."""
     import torch
     # by its path: a machine may have another package named "tests"
     spec = importlib.util.spec_from_file_location(
@@ -3614,7 +3685,7 @@ def notebook_phases(card, read_counts, zero_counts, sync):
     bands = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(bands)
     t_phase = time.perf_counter()
-    totals = dict.fromkeys(("K1", "K2", "K3", "K4", "K5"), 0)
+    totals = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "R1", "R2"), 0)
     for name in bands.NOTEBOOKS:
         zero_counts()
         sync()
@@ -3623,7 +3694,7 @@ def notebook_phases(card, read_counts, zero_counts, sync):
         ns, outputs = bands.generate.run_cells(bands.load(name), name)
         sync()
         wall = time.perf_counter() - t0
-        counts = read_counts()
+        counts = dict(read_counts(), **read_keyed())
         for k in totals:
             totals[k] += counts[k]
         for k in NOTEBOOK_KERNELS.get(name, ()):
@@ -3641,17 +3712,17 @@ def notebook_phases(card, read_counts, zero_counts, sync):
         shown = [line for line in text.splitlines()
                  if not line.startswith("Iteration ")]
         print("phase 57 notebook ({}): {} -> {}{} in {:.3f} s | K1 {} K2 {} "
-              "K3 {} K4 {} K5 {} | every value in band".format(
+              "K3 {} K4 {} K5 {} R1 {} R2 {} | every value in band".format(
                   card, name, " / ".join(shown),
                   " {}".format(probes) if probes else "", wall,
                   counts["K1"], counts["K2"], counts["K3"], counts["K4"],
-                  counts["K5"]), flush=True)
+                  counts["K5"], counts["R1"], counts["R2"]), flush=True)
     print("phase 57 notebooks ({}): {} notebooks at their own counts, every "
           "printed value in its band | launches K1 {} K2 {} K3 {} K4 {} K5 {} "
-          "| phase 57 took {:.1f} s".format(
+          "R1 {} R2 {} | phase 57 took {:.1f} s".format(
               card, len(bands.NOTEBOOKS), totals["K1"], totals["K2"],
-              totals["K3"], totals["K4"], totals["K5"],
-              time.perf_counter() - t_phase), flush=True)
+              totals["K3"], totals["K4"], totals["K5"], totals["R1"],
+              totals["R2"], time.perf_counter() - t_phase), flush=True)
     return totals
 
 
@@ -5664,6 +5735,467 @@ def loop_options_phases(dev, card, seed, Xtr, Ytr, x_ppca, W0, read_counts,
     return launches
 
 
+SERVE_DRAWS = r"""
+import json, sys, time
+import numpy as np
+import torch
+sys.path.insert(0, {root!r})
+from mxfusion_tpu_torch.inference import load_exported_predictor
+from mxfusion_tpu_torch.ops import keyed_random
+
+t0 = time.perf_counter()
+served = load_exported_predictor({artifact!r})
+load_s = time.perf_counter() - t0
+X = np.load({request!r})
+served.predict(X=X[:{chunk}])
+torch.cuda.synchronize()
+out, walls, launches = {{}}, [], []
+for seed in (1, 2):
+    g = torch.Generator("cuda").manual_seed(seed)
+    keyed_random.keyed_standard_gamma.launches = 0
+    keyed_random.keyed_poisson.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["y{{}}".format(seed)] = served.predict(X=X, generator=g)[0]
+    walls.append(time.perf_counter() - t0)
+    launches.append([keyed_random.keyed_standard_gamma.launches,
+                     keyed_random.keyed_poisson.launches])
+    out["state{{}}".format(seed)] = g.get_state().numpy()
+np.savez({out!r}, **out)
+nodes = sorted(str(n.target) for n in served._program.graph.nodes
+               if "keyed_" in str(n.target))
+held = [k for k in sys.modules if k.split(".")[0] in
+        ("jax", "jaxlib", "mxfusion_tpu", "chip_smoke")
+        and sys.modules[k] is not None]
+print(json.dumps({{"load_s": load_s, "walls": walls, "launches": launches,
+                  "nodes": nodes, "held": held}}))
+"""
+
+
+def student_t_rand_gen():
+    """tests/test_torch_export.py's heavy-tailed propagation: each normal
+    draw n becomes n·sqrt(a / g), g ~ Gamma(a), a = STUDENT_T_SHAPE."""
+    import torch
+    from mxfusion_tpu_torch.components.distributions.random_gen import \
+        RandomGenerator
+
+    class StudentTPropagation(RandomGenerator):
+        def sample_normal(self, generator, loc=0.0, scale=1.0, shape=None,
+                          dtype=None):
+            n = super().sample_normal(generator, shape=shape, dtype=dtype)
+            g = self.sample_gamma(generator, alpha=STUDENT_T_SHAPE,
+                                  shape=shape, dtype=dtype)
+            return loc + scale * n * torch.sqrt(STUDENT_T_SHAPE / g)
+    return StudentTPropagation()
+
+
+def count_model(dev, seed):
+    """Phase 58's count predictor's model: X (n, D) -> Linear(D, 64) ->
+    tanh -> Linear(64, 1) -> softplus -> ``mu``, the mean of a
+    ``NegativeBinomial`` whose dispersion is learned from NB_DISPERSION.
+    The network's weights come from ``torch.manual_seed(seed)``."""
+    import torch
+    from mxfusion_tpu_torch import Model, Variable
+    from mxfusion_tpu_torch.components.distributions import NegativeBinomial
+    from mxfusion_tpu_torch.components.functions import NNFunction
+    from mxfusion_tpu_torch.components.functions.operators import softplus
+    from mxfusion_tpu_torch.components.variables import \
+        PositiveTransformation
+    torch.manual_seed(seed)
+    net = torch.nn.Sequential(torch.nn.Linear(D, COUNT_HIDDEN),
+                              torch.nn.Tanh(),
+                              torch.nn.Linear(COUNT_HIDDEN, 1))
+    m = Model()
+    m.n = Variable()
+    m.X = Variable(shape=(m.n, D))
+    m.f = NNFunction(net, name="rate_net", input_shapes=[(TRAIN_B, D)],
+                     device=dev)(m.X)
+    m.mu = softplus(m.f)
+    m.dispersion = Variable(shape=(1,),
+                            transformation=PositiveTransformation(),
+                            initial_value=np.array([NB_DISPERSION]))
+    m.Y = NegativeBinomial.define_variable(mean=m.mu,
+                                           dispersion=m.dispersion,
+                                           shape=(m.n, 1))
+    return m
+
+
+def read_keyed():
+    """R1's and R2's launches since the last ``zero_counts()``: read,
+    as K1-K5's are, just after a main-path run."""
+    from mxfusion_tpu_torch.ops import keyed_random
+    return {"R1": keyed_random.keyed_standard_gamma.launches,
+            "R2": keyed_random.keyed_poisson.launches}
+
+
+def in_bytes(x):
+    """The bytes of ``x`` that a kernel reads: one element where every
+    element is one value broadcast (stride 0), else all of them."""
+    one = all(st == 0 for st, n in zip(x.stride(), x.shape) if n > 1)
+    return x.element_size() * (1 if one else x.numel())
+
+
+def keyed_bound(n_bytes, hashes, float_ops, dtype):
+    """R1's or R2's bound on this run's data: ``hashes`` Threefry calls
+    (the plain version's count) of HASH_OPS integer operations at
+    FP32_FLOP_S, and ``float_ops`` at their type's rate (counted here as
+    the fp32 operations of the same time)."""
+    import torch
+    scale = 1.0 if dtype == torch.float32 else FP32_FLOP_S / FP64_FLOP_S
+    return bound_ms(n_bytes, hashes * HASH_OPS + float_ops * scale,
+                    FP32_FLOP_S)
+
+
+def gamma_bound(alpha, hashes):
+    """R1: the parameter read and the draw written once; three hashes
+    and GAMMA_ROUND_OPS a round, one hash for each boost."""
+    boosts = int((alpha < 1).sum())
+    rounds = (int(hashes.sum()) - boosts) / 3
+    n_bytes = in_bytes(alpha) + alpha.numel() * alpha.element_size() + 16
+    return keyed_bound(n_bytes, int(hashes.sum()), rounds * GAMMA_ROUND_OPS,
+                       alpha.dtype)
+
+
+def poisson_bound(rate, hashes):
+    """R2: the rate read and the count written once; a Knuth round is
+    one hash and KNUTH_ROUND_OPS, a PTRS round two and PTRS_ROUND_OPS."""
+    knuth = ((rate < 10) | rate.isnan()).reshape(-1)
+    k_h, p_h = int(hashes[knuth].sum()), int(hashes[~knuth].sum())
+    n_bytes = in_bytes(rate) + rate.numel() * rate.element_size() + 16
+    return keyed_bound(n_bytes, k_h + p_h,
+                       k_h * KNUTH_ROUND_OPS + p_h / 2 * PTRS_ROUND_OPS,
+                       rate.dtype)
+
+
+def keyed_check(label, got, want):
+    """R1 or R2 against its plain version: (max |kernel − plain|, bits
+    equal, elements outside KEYED_RTOL), checked against KEYED_FAR."""
+    import torch
+    torch.cuda.synchronize()
+    same = (got == want) | (got.isnan() & want.isnan())
+    far = ~((got - want).abs() <= KEYED_RTOL * want.abs()) & ~same
+    n_far = int(far.sum())
+    check(n_far <= KEYED_FAR * got.numel(), "{}: {} of {} elements of the "
+          "kernel off the plain version beyond {} relative (tol {} of them)"
+          .format(label, n_far, got.numel(), KEYED_RTOL, KEYED_FAR))
+    err = float((got - want)[~(got.isnan() & want.isnan())].abs().max())
+    return err, int(same.sum()), n_far
+
+
+def keyed_draw_phases(dev, card, seed, Xtr, Ytr, nb_counts, deep_gp,
+                      normal_rows_s, loop_cls, zero_counts, sync,
+                      keyed_earlier):
+    """Phase 58: R1 and R2 (``csrc/keyed_draws.cu``) against their plain
+    versions on the card at GAMMA_ALPHAS and POISSON_RATES, their times
+    beside the plain versions', the library's and their bounds, then the
+    slice at full width: phase 28's deep GP with a Student-t propagation
+    and a count predictor, each exported and served on two generator
+    seeds against the live predictor. ``deep_gp``: phase 28's (Z0s,
+    trained state by name path); ``normal_rows_s``: phase 55's artifact
+    rows/s; ``keyed_earlier``: the R1/R2 launches of the earlier main
+    paths by phase. Returns the kernels' JSON rows, their launches those
+    of every main path: each run's, counted from zero just before it and
+    read just after it. Launches made to compare, to warm up, to export
+    or to check a gradient are never read."""
+    import torch
+    from mxfusion_tpu_torch.inference import (
+        BatchedPredictor, GradBasedInference, load_exported_predictor)
+    from mxfusion_tpu_torch.modules import DeepGPRegression
+    from mxfusion_tpu_torch.ops import keyed_random as kr
+    t_phase = time.perf_counter()
+    build = ROOT / "build"
+    R1, R2 = kr.keyed_standard_gamma, kr.keyed_poisson
+
+    # ---- 58a. the raw words and the draws against the plain versions
+    zero_counts()
+    g = torch.Generator(dev).manual_seed(seed + 58)
+    key = torch.randint(0, 2 ** 32, (2,), generator=g, dtype=torch.int64,
+                        device=dev)
+    x0 = torch.arange(KEYED_N, device=dev)
+    x1 = torch.randint(0, 2 ** 32, (KEYED_N,), generator=g,
+                       dtype=torch.int64, device=dev)
+    words = kr.threefry2x32(key, x0, x1)
+    plain_words = kr._threefry_torch(key[0], key[1], x0, x1)
+    sync()
+    check(all(torch.equal(a, b) for a, b in zip(words, plain_words)),
+          "the kernel's Threefry-2x32 words differ from the plain version's")
+    errs, notes = {"R1": 0.0, "R2": 0.0}, []
+    for dtype in (torch.float32, torch.float64):
+        for name, draw, plain, params, bound in (
+                ("R1", R1, kr._gamma_torch, GAMMA_ALPHAS, gamma_bound),
+                ("R2", R2, kr._poisson_torch, POISSON_RATES, poisson_bound)):
+            for p in params:
+                x = torch.full((KEYED_N,), p, dtype=dtype, device=dev)
+                got = draw(x, key)
+                want, hashes = plain(x, key, with_hashes=True)
+                label = "{} {} at {}".format(name, str(dtype)[6:], p)
+                err, same, far = keyed_check(label, got, want)
+                # one value broadcast, as the samplers pass it: read at
+                # stride 0, the same draws
+                check(torch.equal(draw(x[:1].expand(KEYED_N), key), got),
+                      "{}: the broadcast parameter's draws differ from the "
+                      "dense one's".format(label))
+                check(bool(torch.isfinite(got).all()) and
+                      bool((got >= 0).all()), "{}: draws not finite and "
+                      "nonnegative".format(label))
+                if name == "R2":
+                    check(bool((got == got.round()).all()),
+                          "{}: counts not whole".format(label))
+                z_mean, z_var = moment_check(got.double().cpu().numpy()[
+                    :, None], (p, p), None)
+                check(z_mean <= MOMENT_SE and z_var <= MOMENT_SE,
+                      "{}: mean {:.2f} and variance {:.2f} standard errors "
+                      "off the closed form (tol {})".format(
+                          label, z_mean, z_var, MOMENT_SE))
+                ms = cuda_ms(lambda: draw(x, key), reps=20)
+                lib = cuda_ms(lambda: torch._standard_gamma(x)
+                              if name == "R1" else torch.poisson(x), reps=20)
+                b_ms, b_by = bound(x, hashes)
+                errs[name] = max(errs[name], err)
+                notes.append("{} bit-equal {}/{}, beyond 1e-6 {}, max |d| "
+                             "{:.3g}, z {:.2f}/{:.2f}, hashes/elt {:.3f}, ms "
+                             "{:.5f} (library {:.5f}, bound {:.5f} by {}, "
+                             "share {:.1%})".format(
+                                 label, same, KEYED_N, far, err, z_mean,
+                                 z_var, float(hashes.double().mean()), ms,
+                                 lib, b_ms, b_by, b_ms / ms))
+    print("phase 58a keyed draws ({}): Threefry-2x32 words of {} counters "
+          "equal to the bit; each draw from a broadcast parameter (stride "
+          "0) equal to the dense one's | {}".format(
+              card, KEYED_N, " | ".join(notes)), flush=True)
+
+    # ---- 58c (first: its live runs give (b) the main path's shapes). The
+    # Student-t deep GP on phase 28's trained state
+    chunks = -(-TRAIN_N // CHUNK)
+    Z0s, dgp_state = deep_gp
+    sm, salg = deep_gp_model(DeepGPRegression, Z0s,
+                             rand_gen=student_t_rand_gen())
+    sinf = loaded(GradBasedInference(salg, dtype="float32", device=dev),
+                  dgp_state, {"X": Xtr[:CHUNK], "Y": Ytr[:CHUNK]})
+    spred = BatchedPredictor(model=sm, infr_params=sinf.params,
+                             observed=[sm.X], target_variables=[sm.Y.uuid],
+                             chunk_size=CHUNK)
+    spred.predict(X=Xtr[:CHUNK])
+    spath = build / "chip_smoke_student_t_deep_gp.zip"
+    t0 = time.perf_counter()
+    spred.export(str(spath))
+    sexport_s = time.perf_counter() - t0
+    sdraws = [(d["kind"], tuple(d["shape"]), d["dtype"])
+              for d in artifact_meta(spath)["draws"]]
+    check([d[0] for d in sdraws] == ["normal", "key"], "the Student-t "
+          "artifact records draws {}".format(sdraws))
+    sserved = load_exported_predictor(str(spath))
+    snodes = [str(n.target) for n in sserved._program.graph.nodes
+              if "keyed_" in str(n.target)]
+    check(snodes == ["mxfusion_tpu_torch.keyed_gamma.default"],
+          "the Student-t program holds {}".format(snodes))
+    sserved.predict(X=Xtr[:CHUNK])
+    souts, swalls, slaunch, sstates = {}, {"live": [], "artifact": []}, \
+        [], {}
+    for s_ in (1, 2):
+        for which, server in (("live", spred), ("artifact", sserved)):
+            g = torch.Generator(dev).manual_seed(s_)
+            zero_counts()
+            t0 = time.perf_counter()
+            souts[which, s_] = server.predict(X=Xtr, generator=g)[0]
+            sync()
+            swalls[which].append(time.perf_counter() - t0)
+            slaunch.append((R1.launches, R2.launches))
+            sstates[which, s_] = g.get_state()
+        for a, b in zip(souts["artifact", s_], souts["live", s_]):
+            check(a.shape == (1, TRAIN_N, 1) and np.isfinite(a).all()
+                  and np.array_equal(a, b), "the Student-t artifact's "
+                  "moments differ from the live predictor's on seed {}"
+                  .format(s_))
+        check(torch.equal(sstates["live", s_], sstates["artifact", s_]),
+              "the generators' states differ after seed {}".format(s_))
+    check(slaunch == [(chunks, 0)] * 4, "R1/R2 launches of the four "
+          "Student-t runs {}; expected {} R1 each".format(slaunch, chunks))
+    sgap = rel_err(souts["artifact", 1][0], souts["artifact", 2][0])
+    check(sgap > 0, "the Student-t artifact's seeds give equal means")
+
+    # the count predictor, MAP on phase 24's counts
+    cm = count_model(dev, seed + 58)
+    from mxfusion_tpu_torch.inference import MAP
+    calg = MAP(model=cm, observed=[cm.X, cm.Y])
+    zero_counts()
+    cinf, cloop, _ = train_nongaussian(loop_cls, cm, calg, Xtr, nb_counts,
+                                       1, dev, seed + 58)
+    closses = [float(v) for v in cloop.losses]
+    check(all(np.isfinite(closses)), "count predictor losses {}".format(
+        closses))
+    alpha = float(cinf.params[cm.dispersion].reshape(-1)[0])
+    cpred = BatchedPredictor(model=cm, infr_params=cinf.params,
+                             observed=[cm.X], target_variables=[cm.Y.uuid],
+                             chunk_size=CHUNK, num_samples=COUNT_S)
+    mu = BatchedPredictor(model=cm, infr_params=cinf.params,
+                          observed=[cm.X], target_variables=[cm.mu.uuid],
+                          chunk_size=CHUNK).predict(X=Xtr)[0]
+    cpred.predict(X=Xtr[:CHUNK])
+    cpath = build / "chip_smoke_counts.zip"
+    request = build / "chip_smoke_counts_request.npy"
+    served_out = build / "chip_smoke_counts_served.npz"
+    for f in (cpath, served_out):
+        if f.exists():
+            f.unlink()
+    np.save(request, Xtr)
+    t0 = time.perf_counter()
+    cpred.export(str(cpath))
+    cexport_s = time.perf_counter() - t0
+    cdraws = [d["kind"] for d in artifact_meta(cpath)["draws"]]
+    check(cdraws == ["key", "key"], "the count artifact records draws {}"
+          .format(cdraws))
+    proc = subprocess.run(
+        [sys.executable, "-c", SERVE_DRAWS.format(
+            root=str(ROOT), artifact=str(cpath), request=str(request),
+            out=str(served_out), chunk=CHUNK)],
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, "serving the count artifact failed:\n{}{}"
+          .format(proc.stdout[-4000:], proc.stderr[-4000:]))
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(not child["held"], "the serving process imported {}".format(
+        child["held"]))
+    check(child["nodes"] == ["mxfusion_tpu_torch.keyed_gamma.default",
+                             "mxfusion_tpu_torch.keyed_poisson.default"],
+          "the count program holds {}".format(child["nodes"]))
+    check(child["launches"] == [[chunks, chunks]] * 2, "the count "
+          "artifact launched R1/R2 {}; expected {} each a request".format(
+              child["launches"], chunks))
+    cwalls, clive = [], []
+    with np.load(served_out) as served:
+        for s_ in (1, 2):
+            g = torch.Generator(dev).manual_seed(s_)
+            zero_counts()
+            t0 = time.perf_counter()
+            y = cpred.predict(X=Xtr, generator=g)[0]
+            sync()
+            cwalls.append(time.perf_counter() - t0)
+            clive.append((R1.launches, R2.launches))
+            check(y.shape == (COUNT_S, TRAIN_N, 1) and np.array_equal(
+                y, served["y{}".format(s_)]), "the count artifact's draws "
+                "differ from the live predictor's on seed {}".format(s_))
+            check(np.array_equal(g.get_state().numpy(),
+                                 served["state{}".format(s_)]),
+                  "the generators' states differ after seed {}".format(s_))
+    check(clive == [(chunks, chunks)] * 2, "the live count predictor "
+          "launched R1/R2 {}; expected {} each".format(clive, chunks))
+    check(np.isfinite(y).all() and y.min() >= 0 and np.array_equal(
+        y, np.round(y)), "the served counts are not whole and nonnegative")
+    # mu (1, N, 1): the predicted means; each draw's variance
+    lam = mu + alpha * mu ** 2
+    z_mean = abs(float((y - mu).sum())) / math.sqrt(float(
+        lam.sum()) * COUNT_S)
+    var_ratio = float(((y - mu) ** 2).sum() / (COUNT_S * lam).sum())
+    check(z_mean <= MOMENT_SE and abs(var_ratio - 1) <= COUNT_VAR_RTOL,
+          "the served counts' mean is {:.2f} standard errors off the "
+          "predicted means (tol {}), their variance {:.4f} of the law's "
+          "(tol {})".format(z_mean, MOMENT_SE, var_ratio, COUNT_VAR_RTOL))
+
+    # ---- 58b. times at the main path's shapes, behind the spin kernel
+    sync()
+    zero_counts()
+    g = torch.Generator(dev).manual_seed(seed + 59)
+    key = torch.randint(0, 2 ** 32, (2,), generator=g, dtype=torch.int64,
+                        device=dev)
+    # the Student-t propagation's gamma draw of one chunk: one value
+    # broadcast, as sample_gamma passes it
+    a = torch.broadcast_to(torch.tensor(STUDENT_T_SHAPE, device=dev),
+                           sdraws[0][1])
+    # the count predictor's Poisson rates of one chunk: its gamma draw
+    # times its means, as NegativeBinomial draws them
+    mu_c = torch.as_tensor(mu[:, :CHUNK], device=dev)
+    r = 1.0 / alpha
+    rate = R1(torch.full((COUNT_S, CHUNK, 1), r, device=dev), key) * \
+        mu_c / r
+    times = {}
+    for name, draw, plain, lib, x, bound in (
+            ("R1", R1, kr._gamma_torch, torch._standard_gamma, a,
+             gamma_bound),
+            ("R2", R2, kr._poisson_torch, torch.poisson, rate,
+             poisson_bound)):
+        want, hashes = plain(x, key, with_hashes=True)
+        err, same, far = keyed_check(name + " at the main path's shape",
+                                     draw(x, key), want)
+        t = {"kernel": [], "plain": [], "library": []}
+        for _ in range(2):   # plain, kernel, kernel, plain in turns
+            t["plain"].append(cuda_ms(lambda: plain(x, key), reps=3))
+            t["kernel"].append(cuda_ms(lambda: draw(x, key)))
+            t["library"].append(cuda_ms(lambda: lib(x)))
+        times[name] = (tuple(x.shape), t, bound(x, hashes), err, same, far)
+        errs[name] = max(errs[name], err)
+    print("phase 58b keyed draw times ({}): device ms per call behind a "
+          "spin kernel, min of two | {}".format(card, " | ".join(
+              "{} at {} ({}): kernel {:.5f}, plain {:.5f}, library {:.5f} "
+              "({}), bound {:.5f} ({}), share {:.1%}; vs plain bit-equal "
+              "{}, beyond 1e-6 {}".format(
+                  name, shape, "Student-t shape 2.5" if name == "R1" else
+                  "the count predictor's rates", min(t["kernel"]),
+                  min(t["plain"]), min(t["library"]),
+                  "torch._standard_gamma" if name == "R1" else
+                  "torch.poisson", b[0], b[1], b[0] / min(t["kernel"]),
+                  same, far)
+              for name, (shape, t, b, _, same, far) in times.items())),
+          flush=True)
+    print("phase 58c slice at full width ({}): Student-t deep GP (phase "
+          "28's RBF({}) -> {} -> RBF({}) -> 1, S={}, each normal n of the "
+          "layers n·sqrt({}/g), g ~ Gamma({})), export {:.3f} s, draws {}, "
+          "program nodes {} | {} rows on torch.Generator(\"cuda\") seeds "
+          "1, 2: artifact bit-equal to the live predictor, generators' "
+          "states equal, seeds' means part by {:.3e}, R1/R2 launches "
+          "(live, artifact) {} | rows/s artifact {}, live {}; phase 55's "
+          "normal-only artifact {} | count predictor (X -> Linear({}, {}) "
+          "-> tanh -> Linear({}, 1) -> softplus -> NegativeBinomial), MAP "
+          "on phase 24's counts, {} steps: losses {}, dispersion {:.4f}; "
+          "export {:.3f} s, served in a process that builds no model: "
+          "load {:.3f} s, program nodes {}, R1/R2 {} a request; {} counts "
+          "a row on {} rows, seeds 1, 2: bit-equal to the live predictor "
+          "(R1/R2 {}), generators' states equal; mean {:.2f} standard "
+          "errors off the predicted means, pooled variance {:.4f} of the "
+          "law's | rows/s artifact {}, live {}".format(
+              card, D, DGP_H, DGP_H, sdraws[0][1][0], STUDENT_T_SHAPE,
+              STUDENT_T_SHAPE, sexport_s, sdraws, snodes, TRAIN_N, sgap,
+              slaunch, [round(TRAIN_N / w) for w in swalls["artifact"]],
+              [round(TRAIN_N / w) for w in swalls["live"]],
+              [round(v) for v in normal_rows_s], D, COUNT_HIDDEN,
+              COUNT_HIDDEN, len(closses), [round(v, 1) for v in closses],
+              alpha, cexport_s, child["load_s"], child["nodes"],
+              child["launches"], COUNT_S, TRAIN_N, clive, z_mean, var_ratio,
+              [round(TRAIN_N / w) for w in child["walls"]],
+              [round(TRAIN_N / w) for w in cwalls]), flush=True)
+    # every main path's R1/R2 launches, each run's read just after it
+    paths = dict(keyed_earlier)
+    paths["58c Student-t live and artifact"] = {
+        "R1": sum(r1 for r1, _ in slaunch), "R2": sum(r2 for _, r2 in slaunch)}
+    paths["58c count artifact, served"] = {
+        "R1": sum(r1 for r1, _ in child["launches"]),
+        "R2": sum(r2 for _, r2 in child["launches"])}
+    paths["58c count, live"] = {
+        "R1": sum(r1 for r1, _ in clive), "R2": sum(r2 for _, r2 in clive)}
+    launches = {n: sum(c[n] for c in paths.values()) for n in ("R1", "R2")}
+    print("phase 58d ({}): phases 20, 21 and 26 (BBVI, ADVI and the "
+          "library's draws, the gamma draw's gradient) passed on the keyed "
+          "draws with their bounds as they were | R1/R2 launches of the "
+          "main paths: {} in all, by path {} | phase 58 took {:.1f} s"
+          .format(card, launches, paths, time.perf_counter() - t_phase),
+          flush=True)
+    src = "mxfusion_tpu_torch/csrc/keyed_draws.cu"
+    rows = {}
+    for name, lib_name, replaces in (
+            ("R1", "keyed_gamma", "mxfusion_tpu/components/distributions/"
+             "random_gen.py:26"),
+            ("R2", "keyed_poisson", "mxfusion_tpu/components/distributions/"
+             "random_gen.py:66")):
+        _, t, b, _, _, _ = times[name]
+        check(launches[name] > 0, "{} was launched no time on the main "
+              "paths".format(name))
+        rows[name] = {"name": lib_name, "route": "cuda", "source": src,
+                      "replaces": replaces, "launches": launches[name],
+                      "max_abs_err": errs[name], "ms": min(t["kernel"]),
+                      "plain_ms": min(t["plain"]), "bound_ms": b[0],
+                      "bound_by": b[1], "library_ms": min(t["library"])}
+    return rows
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5688,7 +6220,8 @@ def main():
     from mxfusion_tpu_torch.inference import (
         BatchedPredictor, DeviceMinibatchLoop, GradBasedInference, MAP)
     from mxfusion_tpu_torch.ops import (cuda_build, cuda_kernels,
-                                        fused_gram, linalg, precision)
+                                        fused_gram, keyed_random, linalg,
+                                        precision)
     # the module; ops.batched_cholesky is the function, as in JAX
     batched_cholesky = importlib.import_module(
         "mxfusion_tpu_torch.ops.batched_cholesky")
@@ -5709,6 +6242,8 @@ def main():
         fused_gram._bwd_cuda.launches = 0
         batched_cholesky._k4_cuda.launches = 0
         batched_cholesky._k5_cuda.launches = 0
+        keyed_random.keyed_standard_gamma.launches = 0
+        keyed_random.keyed_poisson.launches = 0
 
     RecordingLoop = recording_loop(DeviceMinibatchLoop, read_counts)
     card = nvidia_smi()
@@ -5720,11 +6255,15 @@ def main():
               torch.backends.cudnn.allow_tf32), flush=True)
 
     # ---- 2. build: one nvcc per source, all started together
-    sources = ("rbf_gram.cu", "fused_gram.cu", "batched_cholesky.cu")
-    cached = [cuda_build.library_path(src).exists() for src in sources]
+    # each source with the extra nvcc flags its module loads it with
+    sources = {"rbf_gram.cu": (), "fused_gram.cu": (),
+               "batched_cholesky.cu": (),
+               keyed_random.SOURCE: keyed_random.NVCC_FLAGS}
+    cached = [cuda_build.library_path(*src).exists()
+              for src in sources.items()]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
-        libs = list(pool.map(cuda_build.build, sources))
+        libs = list(pool.map(cuda_build.build, sources, sources.values()))
     build_s = time.perf_counter() - t0
     for lib_path, was_cached in zip(libs, cached):
         print("phase 2 build: {} (cached={}) | ptxas: {}".format(
@@ -6543,16 +7082,16 @@ def main():
                           profile_summary(gp_prof, steps)), flush=True)
 
     # ---- 18-21. the mean-field slice: SVI, IWAE, BBVI and ADVI
-    meanfield_phases(dev, card, args.seed, Xtr, Ytr, x_ppca, W0,
-                     read_counts, zero_counts, sync)
+    keyed21 = meanfield_phases(dev, card, args.seed, Xtr, Ytr, x_ppca, W0,
+                               read_counts, zero_counts, sync)
 
     # ---- 22-26. the non-Gaussian SVGPs and the rest of the library
-    ng_k1, labels = nongaussian_phases(dev, card, args.seed, Xtr,
-                                       read_counts, zero_counts, sync,
-                                       RecordingLoop)
+    ng_k1, labels, nb_counts, keyed26 = nongaussian_phases(
+        dev, card, args.seed, Xtr, read_counts, zero_counts, sync,
+        RecordingLoop)
 
     # ---- 27-31. LMC, deep GPs and natural gradients
-    family, deep_gp_pred = gp_family_phases(
+    family, deep_gp_pred, deep_gp_state = gp_family_phases(
         dev, card, args.seed, Xtr, Ytr, labels, read_counts, zero_counts,
         sync, RecordingLoop)
 
@@ -6590,15 +7129,24 @@ def main():
                                 read_counts, zero_counts, sync)
 
     # ---- 54-55. the network artifact and the drawing artifact
-    artifacts_k1 = artifact_phases(dev, card, Xtr, deep_kernel_pred,
-                                   deep_gp_pred,
-                                   read_counts, zero_counts, sync)
+    artifacts_k1, normal_rows_s = artifact_phases(
+        dev, card, Xtr, deep_kernel_pred, deep_gp_pred, read_counts,
+        zero_counts, sync)
 
     # ---- 56. the examples, on the card
     examples = example_phases(card, read_counts, zero_counts, sync)
 
     # ---- 57. the notebooks, on the card
     notebooks = notebook_phases(card, read_counts, zero_counts, sync)
+
+    # ---- 58. the keyed gamma and Poisson draws (R1, R2), and the
+    # drawing artifacts they let export
+    keyed_rows = keyed_draw_phases(
+        dev, card, args.seed, Xtr, Ytr, nb_counts, deep_gp_state,
+        normal_rows_s, RecordingLoop, zero_counts, sync,
+        {"21 draws": keyed21, "26 draws": keyed26,
+         "56 examples": {n: examples[n] for n in ("R1", "R2")},
+         "57 notebooks": {n: notebooks[n] for n in ("R1", "R2")}})
 
     check(not any(k == "jax" or k.startswith(("jax.", "mxfusion_tpu."))
                   or k == "mxfusion_tpu" for k in sys.modules),
@@ -6651,7 +7199,8 @@ def main():
             r3_launches["K5"] + notebooks["K5"], chol_errs["K5"],
             min(chol_main["K5"]),
             min(chol_main["plain"]), chol_main["bound"],
-            min(chol_main["cholesky_ex"]))]}))
+            min(chol_main["cholesky_ex"])),
+        keyed_rows["R1"], keyed_rows["R2"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

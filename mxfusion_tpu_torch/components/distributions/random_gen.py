@@ -11,16 +11,20 @@ A gamma draw's gradient in its shape is the implicit reparameterization
 gradient that ``jax.random.gamma`` has (``ops/igamma.py``); the
 Student-t draw takes its chi-square from it.
 
-Every draw of :class:`RandomGenerator` that has a parameter-free base
-(a standard normal, a standard uniform, a unit exponential) takes it
-from :func:`base_draw`, and transforms it in torch. Under
-:func:`drawing_from` the base draws are recorded or replayed instead:
-``BatchedPredictor.export`` records a chunk's base draws, traces them as
-inputs of the program, and the artifact makes the same calls on the
-caller's generator at each chunk, so its stream advances as the live
-predictor's does. A gamma or Poisson draw has no such base and raises
-there. The source is the calling thread's, so a predictor serving in
-another thread of the process draws from its own generator meanwhile.
+Every draw of :class:`RandomGenerator` takes its randomness from
+:func:`base_draw`: a draw with a parameter-free base (a standard
+normal, a standard uniform, a unit exponential) transforms that base in
+torch, and a gamma or Poisson draw takes one key (kind ``"key"``, two
+int64 words below 2³²) and draws as ``jax.random`` does, a pure function
+of key, parameter and element index (``ops/keyed_random.py``: R1 and
+R2, one kernel each on the card). Under :func:`drawing_from` the base
+draws are recorded or replayed instead: ``BatchedPredictor.export``
+records a chunk's base draws, traces them as inputs of the program, and
+the artifact makes the same calls on the caller's generator at each
+chunk, so its stream advances as the live predictor's does and it draws
+the live predictor's numbers. The source is the calling thread's, so a
+predictor serving in another thread of the process draws from its own
+generator meanwhile.
 """
 import threading
 from contextlib import contextmanager
@@ -30,6 +34,7 @@ import torch
 
 from ...common.config import as_torch_dtype
 from ...ops.igamma import random_gamma_grad
+from ...ops.keyed_random import keyed_poisson, keyed_standard_gamma
 
 
 def _device(generator):
@@ -43,6 +48,8 @@ _BASE_DRAWS = {
         shape, generator=g, dtype=dtype, device=g.device),
     "exponential": lambda g, shape, dtype: torch.empty(
         shape, dtype=dtype, device=g.device).exponential_(generator=g),
+    "key": lambda g, shape, dtype: torch.randint(
+        0, 2 ** 32, shape, generator=g, dtype=torch.int64, device=g.device),
 }
 
 class _Source(threading.local):
@@ -54,20 +61,17 @@ _SOURCE = _Source()
 
 def base_draw(kind, generator, shape, dtype=None):
     """A parameter-free draw of ``kind`` ("normal", "uniform",
-    "exponential") on ``generator``, or, under :func:`drawing_from`,
-    the source's."""
+    "exponential", "key") on ``generator``, or, under
+    :func:`drawing_from`, the source's."""
     dtype = as_torch_dtype(dtype)
     if _SOURCE.source is not None:
         return _SOURCE.source.draw(kind, generator, tuple(shape), dtype)
     return _BASE_DRAWS[kind](generator, shape, dtype)
 
 
-def _no_base_draw(kind):
-    if _SOURCE.source is not None:
-        raise NotImplementedError(
-            "a {} draw has no parameter-free base draw, so it cannot be "
-            "an input of an exported program; serve this prediction "
-            "through BatchedPredictor.predict.".format(kind))
+def draw_key(generator):
+    """One key of the keyed draws: int64 (2,), each word below 2³²."""
+    return base_draw("key", generator, (2,), torch.int64)
 
 
 @contextmanager
@@ -122,12 +126,12 @@ def draw_inputs(specs, generator):
 
 
 class _StandardGamma(torch.autograd.Function):
-    """Gamma(alpha, 1) draws on ``generator``; the backward in ``alpha``
-    is JAX's implicit gradient, ``random_gamma_grad(alpha, x)``."""
+    """Gamma(alpha, 1) draws under ``key`` (R1); the backward in
+    ``alpha`` is JAX's implicit gradient, ``random_gamma_grad(alpha, x)``."""
 
     @staticmethod
-    def forward(ctx, alpha, generator):
-        x = torch._standard_gamma(alpha, generator=generator)
+    def forward(ctx, alpha, key):
+        x = keyed_standard_gamma(alpha, key)
         ctx.save_for_backward(alpha, x)
         return x
 
@@ -150,11 +154,11 @@ class RandomGenerator:
                      dtype=None):
         """Gamma(shape=alpha, rate=beta) samples. The backward in
         ``alpha`` is the implicit reparameterization gradient, as
-        ``jax.random.gamma``'s is."""
-        _no_base_draw("gamma")
+        ``jax.random.gamma``'s is. One key from ``generator``."""
         alpha = torch.as_tensor(alpha, dtype=as_torch_dtype(dtype),
                                 device=generator.device)
-        g = _StandardGamma.apply(torch.broadcast_to(alpha, shape), generator)
+        g = _StandardGamma.apply(torch.broadcast_to(alpha, shape),
+                                 draw_key(generator))
         return g / beta
 
     def sample_multinomial(self, generator, data, shape=None,
@@ -190,12 +194,15 @@ class RandomGenerator:
             -2.0 * torch.abs(u))
 
     def sample_poisson(self, generator, rate=1.0, shape=None, dtype=None):
-        """Counts in ``dtype``; no gradient flows into the rate."""
-        _no_base_draw("Poisson")
+        """Counts in ``dtype``, drawn in ``dtype`` where it is float32 or
+        float64 and in float64 otherwise; no gradient flows into the
+        rate. One key from ``generator``."""
+        dtype = as_torch_dtype(dtype)
+        work = dtype if dtype in (torch.float32, torch.float64) \
+            else torch.float64
         lam = torch.broadcast_to(torch.as_tensor(
-            rate, device=generator.device), shape).detach()
-        return torch.poisson(lam, generator=generator).to(
-            as_torch_dtype(dtype))
+            rate, device=generator.device).detach().to(work), shape)
+        return keyed_poisson(lam, draw_key(generator)).to(dtype)
 
     def sample_studentt(self, generator, degrees_of_freedom, location=0.0,
                         scale=1.0, shape=None, dtype=None):

@@ -14,13 +14,15 @@ chunked and merged there, and returned as numpy arrays.
 ``torch.export`` and writes it beside a parameter snapshot;
 ``load_exported_predictor(path)`` serves it without the
 model-definition code or a graph rebuild, needing only this package
-(which registers the operators the program calls: K1's launch and the
-tiered products, each carrying its precision). The program's inputs are
-the parameters, the buffers of the graph's networks, the chunk and the
-chunk's base draws (``random_gen.base_draw``): a prediction that draws
-is served by drawing those inputs from the caller's generator, with the
-calls the live predictor makes, so that on the same generator state the
-artifact returns the live predictor's draws and outputs.
+(which registers the operators the program calls: K1's launch, the
+tiered products, each carrying its precision, and the keyed gamma and
+Poisson draws). The program's inputs are the parameters, the buffers of
+the graph's networks, the chunk and the chunk's base draws
+(``random_gen.base_draw``: normals, uniforms, exponentials, and the key
+of each gamma or Poisson draw): a prediction that draws is served by
+drawing those inputs from the caller's generator, with the calls the
+live predictor makes, so that on the same generator state the artifact
+returns the live predictor's draws and outputs.
 
 Over a mesh (``mesh=``, one process per device, ``parallel``), both
 predictors deal whole chunks to the ranks round-robin and all-gather
@@ -54,12 +56,14 @@ from ..common.config import resolve_device
 from ..common.exceptions import ModelSpecificationError
 from ..components.distributions import random_gen
 # the operators an exported program calls, registered on import
-from ..ops import cuda_kernels, precision  # noqa: F401
+from ..ops import cuda_kernels, keyed_random, precision  # noqa: F401
 
 # torch-1.1 adds the networks' buffers and the base draws as program
-# inputs; a torch-1.0 program takes (trainable, fixed, chunk)
-FORMAT_VERSION = "torch-1.1"
-_READABLE_VERSIONS = ("torch-1.0", FORMAT_VERSION)
+# inputs; a torch-1.0 program takes (trainable, fixed, chunk). torch-1.2
+# adds the keys of gamma and Poisson draws to the base draws and the
+# keyed-draw operators to the program; it is called as torch-1.1 is.
+FORMAT_VERSION = "torch-1.2"
+_READABLE_VERSIONS = ("torch-1.0", "torch-1.1", FORMAT_VERSION)
 # the float32 matmul precision every untiered product of a chunk runs at
 _SERVING_PRECISION = "highest"
 
@@ -334,12 +338,13 @@ class BatchedPredictor:
         and the chunk's base draws as program inputs. It is traced on
         the store's device and runs only there, with every untiered
         product, the networks' included, at IEEE float32 as in
-        ``predict``; two networks whose buffers share a name raise. A
-        draw of the prediction's random generators is
-        recorded as an input; a gamma or Poisson draw, which has no
-        parameter-free base, raises. So does a draw that bypasses the
-        generators, such as a network's ``Dropout`` in training mode
-        (put the network in eval mode), and so does a mesh predictor,
+        ``predict``; two networks whose buffers share a name raise.
+        Every draw of the prediction's random generators is recorded as
+        an input: a base draw's value, or the key of a gamma or Poisson
+        draw, which the program then draws with the keyed operators as
+        the live path does. A draw that bypasses the generators, such
+        as a network's ``Dropout`` in training mode, raises (put the
+        network in eval mode), and so does a mesh predictor,
         as in JAX (the program would be pinned to this mesh): export an
         unsharded predictor and pass the mesh to
         ``load_exported_predictor``."""
@@ -609,15 +614,16 @@ class ExportedPredictor:
 
 
 def load_exported_predictor(path, device=None, mesh=None, data_axis=None):
-    """Load a ``BatchedPredictor.export`` artifact (format torch-1.1, or
-    torch-1.0 as written before the buffers and draws became program
-    inputs) to serve on ``device`` (default: the package's default
-    device; under a mesh, this rank's), which must be of the type it was
-    traced on. A JAX package artifact (``function.bin``) raises: it is
-    StableHLO, which this package does not run. ``mesh``: serve over a
-    ``parallel`` mesh, whole chunks dealt to the ranks of ``data_axis``
-    (default: the first axis) and their outputs all-gathered; the chunk
-    must divide by the axis size, as in JAX."""
+    """Load a ``BatchedPredictor.export`` artifact (format torch-1.2;
+    torch-1.1, written before gamma and Poisson draws exported, served
+    as it is; or torch-1.0, written before the buffers and draws became
+    program inputs) to serve on ``device`` (default: the package's
+    default device; under a mesh, this rank's), which must be of the
+    type it was traced on. A JAX package artifact (``function.bin``)
+    raises: it is StableHLO, which this package does not run. ``mesh``:
+    serve over a ``parallel`` mesh, whole chunks dealt to the ranks of
+    ``data_axis`` (default: the first axis) and their outputs
+    all-gathered; the chunk must divide by the axis size, as in JAX."""
     if mesh is not None and device is None:
         from ..parallel.mesh import mesh_device
         device = mesh_device(mesh)

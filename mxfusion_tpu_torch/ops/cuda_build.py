@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` file exports a plain C interface. It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) on first use, into
 ``build/mxfusion_tpu_torch/`` beside the package (a directory git
 ignores), under a name keyed by a hash of the source and the flags, so a
-changed source is rebuilt and an unchanged one is loaded as it is.
+changed source is rebuilt and an unchanged one is loaded as it is. A
+caller may add nvcc flags that its source needs (``flags``).
 """
 import ctypes
 import hashlib
@@ -42,27 +43,30 @@ def find_nvcc():
     return nvcc
 
 
-def library_path(source):
-    """Where the library built from ``csrc/<source>`` lives."""
+def library_path(source, flags=()):
+    """Where the library built from ``csrc/<source>`` with the extra
+    nvcc ``flags`` lives."""
     src = CSRC_DIR / source
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + " ".join(NVCC_FLAGS + tuple(flags)).encode()
+    ).hexdigest()[:16]
     return BUILD_DIR / "{}-{}.so".format(src.stem, digest)
 
 
-def build(source):
-    """Compile ``csrc/<source>`` unless its library exists; return the
-    library's path. nvcc's output (with ``-Xptxas -v``: registers,
-    shared memory and spills of each kernel) is kept beside it as
-    ``.log``. Raises with nvcc's stderr when the compile fails."""
-    out = library_path(source)
+def build(source, flags=()):
+    """Compile ``csrc/<source>`` (NVCC_FLAGS, then the extra ``flags``)
+    unless its library exists; return the library's path. nvcc's
+    output (with ``-Xptxas -v``: registers, shared memory and spills of
+    each kernel) is kept beside it as ``.log``. Raises with nvcc's
+    stderr when the compile fails."""
+    out = library_path(source, flags)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name("{}.{}.tmp".format(out.name, os.getpid()))
     try:
         proc = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+            [find_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp),
              str(CSRC_DIR / source)],
             capture_output=True, text=True)
         if proc.returncode != 0:
@@ -77,12 +81,12 @@ def build(source):
     return out
 
 
-def load(source):
+def load(source, flags=()):
     """Build (if needed) and load ``csrc/<source>``; one handle per
     process."""
     with _LOCK:
         lib = _LOADED.get(source)
         if lib is None:
-            lib = ctypes.CDLL(str(build(source)))
+            lib = ctypes.CDLL(str(build(source, flags)))
             _LOADED[source] = lib
         return lib

@@ -12,10 +12,15 @@ implementation and no CPU kernel; the loader refuses a JAX artifact and
 an artifact traced on another device type; a prediction that draws
 exports with its base draws as program inputs and equals the live
 predictor on the same generator state; a network's buffers are program
-inputs; a torch-1.0 artifact still serves; a gamma draw and a Dropout in
-training mode refuse to export. The test marked ``cuda`` exports on
-the card, where K1 is an operator node of the program. This file imports
-no JAX, so that it runs on the card as it is.
+inputs; a torch-1.0 and a torch-1.1 artifact still serve; a gamma or
+Poisson draw (a Student-t deep GP, a Poisson, a negative-binomial and a
+Beta prediction) exports with its key as an input and one keyed-draw
+operator node, and serves the live predictor's draws, and the
+negative-binomial artifact draws as JAX's artifact does on the same
+carried-over parameters; a Dropout in training mode refuses to export.
+The test marked ``cuda`` exports on the card, where K1 is an operator
+node of the program. Only the JAX comparison imports JAX, inside its
+test, so that the file runs on the card as it is.
 """
 import io
 import json
@@ -27,6 +32,7 @@ import zipfile
 import numpy as np
 import pytest
 import torch
+from torch.utils import _pytree as pytree
 
 import mxfusion_tpu_torch as mt
 from mxfusion_tpu_torch.common import config as tconfig
@@ -355,7 +361,7 @@ def test_a_drawing_artifact_equals_the_live_predictor_on_each_seed(tmp_path):
     pred.export(path, X=X[:8])
     with zipfile.ZipFile(path) as zf:
         meta = json.loads(zf.read("meta.json"))
-    assert meta["format_version"] == "torch-1.1"
+    assert meta["format_version"] == "torch-1.2"
     assert meta["draws"] == [{"kind": "normal", "shape": [20, 8, 2],
                               "dtype": "float64"}]
     served = load_exported_predictor(path, device="cpu")
@@ -406,16 +412,226 @@ class _StudentTPropagation(RandomGenerator):
         return loc + scale * n * torch.sqrt(2.5 / g)
 
 
-def test_a_gamma_draw_refuses_to_export(tmp_path):
-    """A gamma draw has no parameter-free base draw to make an input of:
-    export names it; the live predictor serves."""
+KEY_DRAW = {"kind": "key", "shape": [2], "dtype": "int64"}
+
+
+def artifact_meta(path):
+    with zipfile.ZipFile(path) as zf:
+        return json.loads(zf.read("meta.json"))
+
+
+def _keyed_nodes(program):
+    """The keyed-draw operator nodes of ``program``, by name."""
+    names = [str(n.target).split(".")[1] for n in program.graph.nodes
+             if n.op == "call_function" and "keyed_" in str(n.target)]
+    return {k: names.count(k) for k in sorted(set(names))}
+
+
+def _equal_on_two_seeds(pred, served, **data):
+    """The artifact equals the live predictor to the bit on seeds 1 and
+    2, each generator left where the other is; the seeds differ."""
+    outs = []
+    for seed in (1, 2):
+        g_live = torch.Generator().manual_seed(seed)
+        g_served = torch.Generator().manual_seed(seed)
+        live = pred.predict(generator=g_live, **data)
+        out = served.predict(generator=g_served, **data)
+        for a, b in zip(pytree.tree_leaves(out), pytree.tree_leaves(live)):
+            np.testing.assert_array_equal(a, b)
+        assert torch.equal(g_live.get_state(), g_served.get_state())
+        outs.append(pytree.tree_leaves(out)[0])
+    assert not np.array_equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("chunk", [8, 16])
+def test_a_student_t_deep_gp_exports(tmp_path, chunk):
+    """Student-t propagation (ν = 2.5): each normal draw of the deep
+    GP's layers is scaled by a gamma draw, whose key the artifact takes
+    as an input beside the normals; the program holds one keyed_gamma
+    node, and on two seeds the artifact equals the live predictor to
+    the bit."""
     rng = np.random.default_rng(9)
     m, infr, X = trained_deep_gp(rng, rand_gen=_StudentTPropagation())
-    pred = predictor(m, infr, 8)
+    pred = predictor(m, infr, chunk)
     mu, _ = pred.predict(X=X)[0]
     assert np.isfinite(mu).all()
-    with pytest.raises(NotImplementedError, match="gamma draw"):
-        pred.export(str(tmp_path / "t.zip"))
+    path = pred.export(str(tmp_path / "t.zip"))
+    meta = artifact_meta(path)
+    assert meta["format_version"] == "torch-1.2"
+    assert [d["kind"] for d in meta["draws"]] == ["normal", "key"]
+    assert meta["draws"][1] == KEY_DRAW
+    served = load_exported_predictor(path, device="cpu")
+    assert _keyed_nodes(served._program) == {"keyed_gamma": 1}
+    _equal_on_two_seeds(pred, served, X=rng.random((19, 2)) * 4)
+
+
+def count_model(kind, P=None):
+    """A prediction whose target draws through gamma or Poisson draws:
+    X (n, 1) → softplus(X·w) as the rate of a ``Poisson``, the mean of a
+    ``NegativeBinomial`` with a learned dispersion, or the first shape
+    of a ``Beta`` (the second softplus(X·w + 0.5)). ``P``: the package
+    (default the port)."""
+    if P is None:
+        P = mt
+    import importlib
+    pkg = P.__name__
+    dists = importlib.import_module(pkg + ".components.distributions")
+    ops = importlib.import_module(pkg + ".components.functions.operators")
+    variables = importlib.import_module(pkg + ".components.variables")
+    m = P.Model()
+    m.n = P.Variable()
+    m.X = P.Variable(shape=(m.n, 1))
+    m.w = P.Variable(shape=(1,), initial_value=np.array([0.8]))
+    rate = ops.softplus(m.X * m.w)
+    if kind == "poisson":
+        m.Y = dists.Poisson.define_variable(rate=rate, shape=(m.n, 1))
+    elif kind == "negative_binomial":
+        m.dispersion = P.Variable(
+            shape=(1,), transformation=variables.PositiveTransformation(),
+            initial_value=np.array([0.5]))
+        m.Y = dists.NegativeBinomial.define_variable(
+            mean=rate, dispersion=m.dispersion, shape=(m.n, 1))
+    else:
+        m.Y = dists.Beta.define_variable(
+            alpha=rate, beta=ops.softplus(m.X * m.w + 0.5), shape=(m.n, 1))
+    return m
+
+
+def count_data(kind, rng, n=30):
+    X = rng.random((n, 1)) * 3
+    if kind == "beta":
+        return X, rng.beta(2.0, 2.0, (n, 1))
+    return X, rng.poisson(np.log1p(np.exp(0.8 * X))).astype(np.float64)
+
+
+def trained_count_predictor(kind, rng, dtype, chunk=8, num_samples=5):
+    X, Y = count_data(kind, rng)
+    m = count_model(kind)
+    infr = GradBasedInference(MAP(model=m, observed=[m.X, m.Y]),
+                              dtype=dtype, device="cpu")
+    infr.run(max_iter=10, learning_rate=0.05, X=X, Y=Y)
+    return BatchedPredictor(model=m, infr_params=infr.params,
+                            observed=[m.X], target_variables=[m.Y.uuid],
+                            chunk_size=chunk, num_samples=num_samples), X
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("kind", ["poisson", "negative_binomial", "beta"])
+def test_a_count_or_beta_prediction_exports(tmp_path, kind, dtype):
+    """A Poisson, a negative-binomial and a Beta prediction (5 draws a
+    row, 30 rows through chunks of 8) export with one key a gamma or
+    Poisson draw, and on two seeds the artifact equals the live
+    predictor to the bit."""
+    rng = np.random.default_rng(21)
+    pred, X = trained_count_predictor(kind, rng, dtype)
+    draws = pred.predict(X=X)[0]
+    assert draws.shape == (5, 30, 1) and np.isfinite(draws).all()
+    if kind == "beta":
+        assert draws.min() > 0 and draws.max() < 1
+    else:
+        assert np.array_equal(draws, np.round(draws)) and draws.min() >= 0
+    path = pred.export(str(tmp_path / "c.zip"))
+    keys = {"poisson": 1, "negative_binomial": 2, "beta": 2}[kind]
+    assert artifact_meta(path)["draws"] == [KEY_DRAW] * keys
+    served = load_exported_predictor(path, device="cpu")
+    _equal_on_two_seeds(pred, served, X=X)
+
+
+@pytest.mark.parametrize("kind,nodes", [
+    ("poisson", {"keyed_poisson": 1}),
+    ("negative_binomial", {"keyed_gamma": 1, "keyed_poisson": 1}),
+    ("beta", {"keyed_gamma": 2}),
+    ("student_t", {"keyed_gamma": 1})])
+def test_a_cpu_artifact_holds_the_keyed_operators(tmp_path, kind, nodes):
+    """The saved program (lowered to the ATen IR) holds each gamma and
+    Poisson draw as one ``mxfusion_tpu_torch`` operator node, whose CPU
+    implementation is the plain version, and no seeded operator."""
+    rng = np.random.default_rng(22)
+    if kind == "student_t":
+        m, infr, X = trained_deep_gp(rng, rand_gen=_StudentTPropagation())
+        pred = predictor(m, infr, 8)
+    else:
+        pred, X = trained_count_predictor(kind, rng, "float64")
+    path = pred.export(str(tmp_path / "k.zip"), X=X)
+    with zipfile.ZipFile(path) as zf:
+        program = torch.export.load(io.BytesIO(zf.read("program.pt2")))
+    assert _keyed_nodes(program) == nodes
+    assert not [n for n in program.graph.nodes if n.op == "call_function"
+                and torch.Tag.nondeterministic_seeded in
+                getattr(n.target, "tags", ())]
+
+
+def test_a_torch_1_1_artifact_still_serves(tmp_path):
+    """An artifact of the previous format, a normal-only drawing export
+    whose meta names torch-1.1, loads and serves the live predictor's
+    draws to the bit."""
+    rng = np.random.default_rng(23)
+    m, infr, X = trained_deep_gp(rng)
+    pred = predictor(m, infr, 8)
+    path = pred.export(str(tmp_path / "new.zip"), X=X)
+
+    def as_1_1(items):
+        meta = json.loads(items["meta.json"])
+        meta["format_version"] = "torch-1.1"
+        items["meta.json"] = json.dumps(meta).encode()
+
+    old = _rewritten(path, str(tmp_path / "old.zip"), as_1_1)
+    assert artifact_meta(old)["format_version"] == "torch-1.1"
+    assert [d["kind"] for d in artifact_meta(old)["draws"]] == ["normal"]
+    _equal_on_two_seeds(pred, load_exported_predictor(old, device="cpu"),
+                        X=X)
+
+
+def test_exported_negative_binomial_draws_as_jax(tmp_path):
+    """The negative-binomial prediction, MAP-fitted by the JAX package
+    and carried into the port by name path (``util/carryover.py``): the
+    port's artifact and JAX's (``jax.export``) each draw 2000 counts a
+    row for 8 rows, and the per-row means agree within six standard
+    errors of their difference (each draw's variance mu + alpha·mu²
+    from the carried parameters). JAX is imported here only (and the
+    test skips on a machine without it, as the card's)."""
+    jax = pytest.importorskip("jax")
+    import mxfusion_tpu as mj
+    from mxfusion_tpu.inference import BatchedPredictor as JPredictor
+    from mxfusion_tpu.inference import GradBasedInference as JInference
+    from mxfusion_tpu.inference import MAP as JMAP
+    from mxfusion_tpu.inference import load_exported_predictor as jload
+    from mxfusion_tpu_torch.util.carryover import carryover_params
+    from tests.test_torch_svgp_classification import jax_f64
+    S = 2000
+    rng = np.random.default_rng(24)
+    X, Y = count_data("negative_binomial", rng, n=40)
+    Xt = np.linspace(0.1, 3.0, 8)[:, None]
+    with jax_f64():
+        jm = count_model("negative_binomial", mj)
+        jinf = JInference(JMAP(model=jm, observed=[jm.X, jm.Y]))
+        jinf.run(max_iter=20, learning_rate=0.05, X=X, Y=Y)
+        state = {k: np.asarray(v) for k, v in jinf.params.param_dict.items()}
+        w = float(np.asarray(jinf.params[jm.w]).ravel()[0])
+        alpha = float(np.asarray(jinf.params[jm.dispersion]).ravel()[0])
+        JPredictor(model=jm, infr_params=jinf.params, observed=[jm.X],
+                   target_variables=[jm.Y.uuid], chunk_size=8,
+                   num_samples=S).export(str(tmp_path / "j.zip"), X=Xt)
+        jdraws = np.asarray(jload(str(tmp_path / "j.zip")).predict(
+            key=jax.random.PRNGKey(3), X=Xt)[0])
+    tm = count_model("negative_binomial")
+    params = carryover_params(state, [tm], source_graphs=jinf.graphs,
+                              dtype="float64", device="cpu")
+    tpred = BatchedPredictor(model=tm, infr_params=params,
+                             observed=[tm.X], target_variables=[tm.Y.uuid],
+                             chunk_size=8, num_samples=S)
+    tpred.export(str(tmp_path / "t.zip"), X=Xt)
+    tdraws = load_exported_predictor(str(tmp_path / "t.zip"),
+                                     device="cpu").predict(
+        X=Xt, generator=torch.Generator().manual_seed(3))[0]
+    assert tdraws.shape == jdraws.shape == (S, 8, 1)
+    mu = np.log1p(np.exp(w * Xt[:, 0]))
+    var = mu + alpha * mu ** 2
+    gap = np.abs(tdraws.mean(0)[:, 0] - jdraws.mean(0)[:, 0])
+    np.testing.assert_array_less(gap, 6 * np.sqrt(2 * var / S))
+    # the carried parameters are what both served: the means track mu
+    np.testing.assert_array_less(np.abs(tdraws.mean(0)[:, 0] - mu),
+                                 6 * np.sqrt(var / S))
 
 
 class _NormedNet(torch.nn.Module):

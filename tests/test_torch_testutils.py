@@ -7,7 +7,9 @@ the same graph (factor kinds, variable name paths and shapes);
 ``make_net`` with JAX's weights carried through ``linear_stack_map``
 computes what JAX's does at 1e-10, and its own weights come from its
 seed alone; the check helpers pass and fail on the same samples as
-JAX's, tensors included."""
+JAX's, tensors included. ``util.util``'s ``rename_duplicate_names``
+and ``parse_string_to_tuple`` give JAX's answers on the inputs of
+``tests/util/test_testutils_factories.py`` and a few more."""
 import inspect
 import re
 
@@ -19,9 +21,11 @@ from scipy import stats
 
 import mxfusion_tpu as mj
 from mxfusion_tpu.util import testutils as jtu
+from mxfusion_tpu.util import util as jutil
 
 import mxfusion_tpu_torch as mt
 from mxfusion_tpu_torch.util import testutils as ttu
+from mxfusion_tpu_torch.util import util as tutil
 from mxfusion_tpu_torch.util.carryover import (apply_param_map,
                                                linear_stack_map, name_paths)
 
@@ -175,3 +179,27 @@ def test_check_helpers_agree_with_jax(shift, scale):
     assert verdicts[0] == verdicts[1] == want
     # the unshifted draws pass every check, the moved ones fail one
     assert all(want) == (shift == 0.0 and scale == 1.0)
+
+
+@pytest.mark.parametrize("names", [
+    [("a", 1), ("a", 2), ("b", 3)],
+    [("b", 3), ("a", 1), ("b", 4), ("a", 2), ("b", 5)],
+    [("x", None)], []])
+def test_rename_duplicate_names_as_jax(names):
+    """Duplicates suffixed _0, _1, ... in order, the others kept, as
+    JAX's helper does (the first case is JAX's own test's)."""
+    got = tutil.rename_duplicate_names(names)
+    assert got == jutil.rename_duplicate_names(names)
+    if names == [("a", 1), ("a", 2), ("b", 3)]:
+        assert [n for n, _ in got] == ["a_0", "a_1", "b"]
+
+
+@pytest.mark.parametrize("text", ["(1, 2)", "(3,)", "[4, 5, 6]", "()"])
+def test_parse_string_to_tuple_as_jax(text):
+    """A literal parsed into a tuple, as JAX's helper does; code is
+    refused by both."""
+    assert tutil.parse_string_to_tuple(text) == \
+        jutil.parse_string_to_tuple(text)
+    for helper in (tutil.parse_string_to_tuple, jutil.parse_string_to_tuple):
+        with pytest.raises(ValueError):
+            helper("(__import__('os'),)")
