@@ -419,13 +419,16 @@ that each print one line:
 58. keyed draws: (a) the raw Threefry-2x32 words of 2^20 counters, R1
    (``keyed_standard_gamma``) at 2^20 elements of each of GAMMA_ALPHAS
    and R2 (``keyed_poisson``) at each of POISSON_RATES, float32 and
-   float64, against their plain versions on the card (equal to the
-   bit, or within 1e-6 relative with at most 1e-5 of the elements
-   accepted in another round; the counts printed; a parameter broadcast
-   from one value, read at stride 0, equal to the dense one), their
-   means and variances within six standard errors of the closed forms,
-   with their times beside ``torch._standard_gamma``'s and
-   ``torch.poisson``'s (information); (c) phase 28's trained deep GP
+   float64, against their plain versions on the card (every float32
+   draw and every count equal to the bit, float64 gamma within
+   GAMMA_F64_ULPS in no more draws than GAMMA_F64_ULP_DRAWS at seed 0; a
+   parameter broadcast from one value, read at stride 0, equal to the
+   dense one), their means and variances within six standard errors of
+   the closed forms, with their times beside ``torch._standard_gamma``'s and
+   ``torch.poisson``'s (information), the launch's tile and warps an SM
+   and the lane efficiency of its schedule beside one thread an
+   element's, both emulated from the plain versions' hashes
+   (``keyed_random.emulate_schedule``); (c) phase 28's trained deep GP
    with tests/test_torch_export.py's Student-t propagation, exported
    (the program holds one keyed_gamma node) and served on 262144 rows
    from ``torch.Generator("cuda")`` seeds 1 and 2: bit-equal to the live
@@ -437,7 +440,11 @@ that each print one line:
    standard errors of the predicted means and their variance within 5%
    of the law's; rows/s beside phase 55's normal-only artifact; (b) R1
    and R2 timed at those paths' shapes against their plain versions and
-   the library calls, beside their bounds; (d) phases 20, 21 and 26's
+   the library calls, beside their bounds, both schedules' lane
+   efficiency and the one-thread-an-element kernels' times
+   (ONE_THREAD_AN_ELEMENT_MS) (information; 58a and 58b run alone,
+   on a stand-in for the count predictor's means, through
+   ``keyed_phases_alone``); (d) phases 20, 21 and 26's
    checks (BBVI, ADVI, the library's draws, the gamma draw's gradient)
    ran on the keyed draws with their bounds as they were; R1's and R2's
    launches on the main paths by path (phases 21 and 26's draws, the
@@ -784,6 +791,18 @@ POISSON_RATES = (0.3, 4.0, 9.99, 10.0, 37.0, 1e4)
 # 34 TFLOP/s of fp64 outside the tensor cores (NVIDIA's data sheet)
 HASH_OPS, GAMMA_ROUND_OPS, KNUTH_ROUND_OPS, PTRS_ROUND_OPS = 88, 24, 3, 27
 FP64_FLOP_S = 34e12
+# float64 gamma draws off the plain version, of KEYED_N at seed 0, as the
+# kernels first measured them (PERF.md §6): boosted ones, whose pow is
+# built here without FMA contraction and in torch with it. Each pow is
+# within 2 ulps of the exact value (CUDA's double-precision library), so
+# the two differ by up to 4 ulps and the draws, after the product's
+# rounding, by up to GAMMA_F64_ULPS (representable doubles between them,
+# by their bits; 2 measured at seed 0). The tile schedule moves no bit,
+# so no shape may have more
+GAMMA_F64_ULP_DRAWS, GAMMA_F64_ULPS = {0.1: 25, 0.7: 2}, 9
+# the one-thread-an-element kernels' times at phase 58b's shapes on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6), printed beside this run's
+ONE_THREAD_AN_ELEMENT_MS = {"R1": 0.10005, "R2": 0.00982}
 # the slice at full width: phase 28's deep GP with the Student-t
 # propagation of tests/test_torch_export.py (each normal draw n of the
 # layers scaled by sqrt(2.5 / g), g ~ Gamma(2.5): a t with 5 degrees of
@@ -838,14 +857,17 @@ def ptxas_summary(lib_path):
     log = lib_path.with_suffix(".log")
     out = []
     for ln in log.read_text().splitlines() if log.exists() else []:
-        # a kernel's name, and its int or bool template argument if it
-        # has one (ILi64EE: <64>, ILb1EE: <true>)
+        # a kernel's name, and its template arguments if it has them
+        # (ILi64EE: <64>, ILb1EE: <true>, IfE: <f>, IfLi2EE: <f,2>)
         name = re.search(
-            r"([a-z_0-9]*[a-z0-9]_kernel)(?:IL([ib])(\d+)EE|I([fd])E|E)", ln)
+            r"([a-z][a-z_]*[a-z]_kernel)(?:IL([ib])(\d+)EE|I([fd])E|"
+            r"I([fd])Li(\d+)EE|E)", ln)
         if "Compiling entry function" in ln and name:
             kind, value = name.group(2), name.group(3) or name.group(4)
             if kind == "b":
                 value = "true" if value == "1" else "false"
+            if name.group(5):
+                value = name.group(5) + "," + name.group(6)
             out.append(name.group(1) + ("<{}>".format(value)
                                         if value else "") + ":")
         elif "registers" in ln or "spill" in ln:
@@ -5882,6 +5904,279 @@ def keyed_check(label, got, want):
     return err, int(same.sum()), n_far
 
 
+def ulps_apart(got, want):
+    """Representable doubles between each pair of nonnegative float64
+    draws (the distance of their bits); NaN pairs 0."""
+    import torch
+    both = got.isnan() & want.isnan()
+    d = (got.view(torch.int64) - want.view(torch.int64)).abs()
+    return torch.where(both, torch.zeros_like(d), d)
+
+
+def keyed_schedule(kind, x, hashes):
+    """The launch R1 or R2 makes over ``x`` on this card and the lane
+    efficiency of its schedule, emulated from the plain version's
+    ``hashes``, beside one thread an element's: (tile, warps an SM,
+    thread efficiency, tile efficiency)."""
+    import torch
+    from mxfusion_tpu_torch.ops import keyed_random as kr
+    tile, warps = kr.launch_plan(kind, x.dtype, x.numel())
+    sched = kr.emulate_schedule(kind, x, hashes, tile)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return (tile, warps // sms, sched["thread_efficiency"],
+            sched["tile_efficiency"])
+
+
+def keyed_other_build(source):
+    """R1 and R2 built from another ``keyed_draws.cu`` (a path; one with
+    the C interface ``(dtype, parameter, stride, key, out, n, stream)``
+    of both entries, as this one and the one-thread-an-element design
+    have), with this one's nvcc flags: {R1, R2: draw(x, key)}, counting no launch. For
+    comparing two designs in one run."""
+    import ctypes
+    import torch
+    from mxfusion_tpu_torch.ops import cuda_build, keyed_random as kr
+    out = ROOT / "build" / "keyed_other.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS,
+                           *kr.NVCC_FLAGS, "-o", str(out), str(source)],
+                          capture_output=True, text=True)
+    check(proc.returncode == 0, "nvcc failed on {}:\n{}".format(
+        source, proc.stderr[-4000:]))
+    lib = ctypes.CDLL(str(out))
+    ptr, cint, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+    def entry(fn):
+        fn.argtypes = [cint, ptr, cll, ptr, ptr, cll, ptr]
+        fn.restype = cint
+
+        def draw(x, key):
+            stride = 0 if all(st == 0 for st, n in zip(x.stride(), x.shape)
+                              if n > 1) else 1
+            x = x.contiguous() if stride else x
+            y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+            err = fn({torch.float32: 0, torch.float64: 1}[x.dtype],
+                     x.data_ptr(), stride, key.data_ptr(), y.data_ptr(),
+                     x.numel(), torch.cuda.current_stream().cuda_stream)
+            check(err == 0, "the other build's launch failed ({})".format(
+                err))
+            return y
+        return draw
+    return {"R1": entry(lib.mxf_keyed_gamma),
+            "R2": entry(lib.mxf_keyed_poisson)}
+
+
+def keyed_kernel_checks(dev, card, seed, zero_counts, sync, other=None):
+    """Phase 58a: the raw Threefry words of KEYED_N counters, then R1 at
+    KEYED_N elements of each of GAMMA_ALPHAS and R2 at each of
+    POISSON_RATES, float32 and float64, against their plain versions on
+    the card: every float32 draw and every count bit-equal, float64 gamma
+    at most GAMMA_F64_ULPS off in no more draws than GAMMA_F64_ULP_DRAWS
+    at seed 0; a parameter broadcast from one value (read at stride 0)
+    equal to the dense one; moments within MOMENT_SE standard errors;
+    each time beside the library's, the bound and both schedules' lane
+    efficiency; with ``other`` (``keyed_other_build``), that build's
+    draws compared bit for bit and its time beside. Returns {R1, R2: max
+    |kernel − plain|}."""
+    import torch
+    from mxfusion_tpu_torch.ops import keyed_random as kr
+    R1, R2 = kr.keyed_standard_gamma, kr.keyed_poisson
+    zero_counts()
+    g = torch.Generator(dev).manual_seed(seed + 58)
+    key = torch.randint(0, 2 ** 32, (2,), generator=g, dtype=torch.int64,
+                        device=dev)
+    x0 = torch.arange(KEYED_N, device=dev)
+    x1 = torch.randint(0, 2 ** 32, (KEYED_N,), generator=g,
+                       dtype=torch.int64, device=dev)
+    words = kr.threefry2x32(key, x0, x1)
+    plain_words = kr._threefry_torch(key[0], key[1], x0, x1)
+    sync()
+    check(all(torch.equal(a, b) for a, b in zip(words, plain_words)),
+          "the kernel's Threefry-2x32 words differ from the plain version's")
+    errs, notes = {"R1": 0.0, "R2": 0.0}, []
+    for dtype in (torch.float32, torch.float64):
+        for name, kind, draw, plain, params, bound in (
+                ("R1", "gamma", R1, kr._gamma_torch, GAMMA_ALPHAS,
+                 gamma_bound),
+                ("R2", "poisson", R2, kr._poisson_torch, POISSON_RATES,
+                 poisson_bound)):
+            for p in params:
+                x = torch.full((KEYED_N,), p, dtype=dtype, device=dev)
+                got = draw(x, key)
+                want, hashes = plain(x, key, with_hashes=True)
+                label = "{} {} at {}".format(name, str(dtype)[6:], p)
+                err, same, far = keyed_check(label, got, want)
+                if name == "R1" and dtype == torch.float64:
+                    ulps = ulps_apart(got, want)
+                    off = int((ulps > 0).sum())
+                    check(int(ulps.max()) <= GAMMA_F64_ULPS and (
+                        seed != 0 or off <= GAMMA_F64_ULP_DRAWS.get(p, 0)),
+                          "{}: {} draws off the plain version (tol {} at "
+                          "seed 0), by up to {} ulps (tol {})".format(
+                              label, off, GAMMA_F64_ULP_DRAWS.get(p, 0),
+                              int(ulps.max()), GAMMA_F64_ULPS))
+                    label += " (ulps apart: {})".format(
+                        torch.bincount(ulps).tolist())
+                else:
+                    check(same == KEYED_N, "{}: {} of {} draws bit-equal to "
+                          "the plain version; all expected".format(
+                              label, same, KEYED_N))
+                # one value broadcast, as the samplers pass it: read at
+                # stride 0, the same draws
+                check(torch.equal(draw(x[:1].expand(KEYED_N), key), got),
+                      "{}: the broadcast parameter's draws differ from the "
+                      "dense one's".format(label))
+                check(bool(torch.isfinite(got).all()) and
+                      bool((got >= 0).all()), "{}: draws not finite and "
+                      "nonnegative".format(label))
+                if name == "R2":
+                    check(bool((got == got.round()).all()),
+                          "{}: counts not whole".format(label))
+                z_mean, z_var = moment_check(got.double().cpu().numpy()[
+                    :, None], (p, p), None)
+                check(z_mean <= MOMENT_SE and z_var <= MOMENT_SE,
+                      "{}: mean {:.2f} and variance {:.2f} standard errors "
+                      "off the closed form (tol {})".format(
+                          label, z_mean, z_var, MOMENT_SE))
+                ms = cuda_ms(lambda: draw(x, key), reps=20)
+                lib = cuda_ms(lambda: torch._standard_gamma(x)
+                              if name == "R1" else torch.poisson(x), reps=20)
+                if other is not None:
+                    theirs = other[name](x, key)
+                    sync()
+                    label += " (other build: bit-equal {}, {:.5f} ms)".format(
+                        int(((theirs == got) | (theirs.isnan() & got.isnan()))
+                            .sum()), cuda_ms(lambda: other[name](x, key),
+                                             reps=20))
+                b_ms, b_by = bound(x, hashes)
+                tile, per_sm, eff_thread, eff_tile = keyed_schedule(
+                    kind, x, hashes)
+                errs[name] = max(errs[name], err)
+                notes.append("{} bit-equal {}/{}, beyond 1e-6 {}, max |d| "
+                             "{:.3g}, z {:.2f}/{:.2f}, hashes/elt {:.3f}, ms "
+                             "{:.5f} (library {:.5f}, bound {:.5f} by {}, "
+                             "share {:.1%}), tile {} at {} warps/SM, lane "
+                             "efficiency {:.3f} (one thread an element "
+                             "{:.3f})".format(
+                                 label, same, KEYED_N, far, err, z_mean,
+                                 z_var, float(hashes.double().mean()), ms,
+                                 lib, b_ms, b_by, b_ms / ms, tile, per_sm,
+                                 eff_tile, eff_thread))
+    print("phase 58a keyed draws ({}): Threefry-2x32 words of {} counters "
+          "equal to the bit; each draw from a broadcast parameter (stride "
+          "0) equal to the dense one's | {}".format(
+              card, KEYED_N, " | ".join(notes)), flush=True)
+    return errs
+
+
+def keyed_kernel_times(dev, card, seed, shape, mu, alpha, errs,
+                       other=None):
+    """Phase 58b: R1 and R2 timed at the main paths' shapes against their
+    plain versions and the library calls, beside their bounds, both
+    schedules' lane efficiency and the one-thread-an-element kernels'
+    times: R1 on one STUDENT_T_SHAPE broadcast to ``shape`` (the
+    Student-t propagation's draw of a chunk), R2 on the Poisson rates a
+    ``NegativeBinomial`` of means ``mu`` and dispersion ``alpha`` draws
+    (the count predictor's of a chunk); with ``other``
+    (``keyed_other_build``), that build in the same turns. Updates
+    ``errs``; returns {R1, R2: {"shape", "t", "bound", ...}}."""
+    import torch
+    from mxfusion_tpu_torch.ops import keyed_random as kr
+    R1, R2 = kr.keyed_standard_gamma, kr.keyed_poisson
+    g = torch.Generator(dev).manual_seed(seed + 59)
+    key = torch.randint(0, 2 ** 32, (2,), generator=g, dtype=torch.int64,
+                        device=dev)
+    a = torch.broadcast_to(torch.tensor(STUDENT_T_SHAPE, device=dev), shape)
+    r = 1.0 / alpha
+    rate = R1(torch.full((COUNT_S,) + tuple(mu.shape[1:]), r, device=dev),
+              key) * mu / r
+    times = {}
+    for name, kind, draw, plain, lib, x, bound in (
+            ("R1", "gamma", R1, kr._gamma_torch, torch._standard_gamma, a,
+             gamma_bound),
+            ("R2", "poisson", R2, kr._poisson_torch, torch.poisson, rate,
+             poisson_bound)):
+        want, hashes = plain(x, key, with_hashes=True)
+        err, same, far = keyed_check(name + " at the main path's shape",
+                                     draw(x, key), want)
+        check(same == x.numel(), "{} at the main path's shape: {} of {} "
+              "draws bit-equal to the plain version; all expected".format(
+                  name, same, x.numel()))
+        t = {"kernel": [], "plain": [], "library": [], "other": []}
+        if other is not None:
+            check(torch.equal(other[name](x, key), want), "{}: the other "
+                  "build differs from the plain version".format(name))
+        for turn in range(2):   # plain, kernel, kernel, plain in turns
+            t["plain"].append(cuda_ms(lambda: plain(x, key), reps=3))
+            if other is not None and turn == 0:
+                t["other"].append(cuda_ms(lambda: other[name](x, key)))
+            t["kernel"].append(cuda_ms(lambda: draw(x, key)))
+            if other is not None and turn == 1:
+                t["other"].append(cuda_ms(lambda: other[name](x, key)))
+            t["library"].append(cuda_ms(lambda: lib(x)))
+        times[name] = {"shape": tuple(x.shape), "t": t,
+                       "bound": bound(x, hashes), "same": same, "far": far,
+                       "schedule": keyed_schedule(kind, x, hashes)}
+        errs[name] = max(errs[name], err)
+    rows = []
+    for name, v in times.items():
+        kernel = min(v["t"]["kernel"])
+        rows.append(
+            "{} at {} ({}): kernel {:.5f} (one thread an element {:.5f} on "
+            "an H100 at 700 W), plain {:.5f}, library {:.5f} ({}), bound "
+            "{:.5f} ({}), share {:.1%}; tile {} at {} warps/SM, lane "
+            "efficiency {:.3f} (one thread an element {:.3f}); vs plain "
+            "bit-equal {}, beyond 1e-6 {}{}".format(
+                name, v["shape"], "Student-t shape 2.5" if name == "R1" else
+                "the count predictor's rates", kernel,
+                ONE_THREAD_AN_ELEMENT_MS[name], min(v["t"]["plain"]),
+                min(v["t"]["library"]), "torch._standard_gamma"
+                if name == "R1" else "torch.poisson", v["bound"][0],
+                v["bound"][1], v["bound"][0] / kernel, v["schedule"][0],
+                v["schedule"][1], v["schedule"][3], v["schedule"][2],
+                v["same"], v["far"], "; other build {} ms (other, kernel, "
+                "kernel, other)".format([round(m, 5) for m in v["t"][
+                    "other"]]) if v["t"]["other"] else ""))
+    print("phase 58b keyed draw times ({}): device ms per call behind a "
+          "spin kernel, min of two | {}".format(card, " | ".join(rows)),
+          flush=True)
+    return times
+
+
+def keyed_phases_alone(seed=0, other=None):
+    """Phases 58a and 58b alone, on the card: build ``keyed_draws.cu``
+    (its ptxas report printed), then 58a, then 58b at the Student-t
+    chunk's shape and on a stand-in for the count predictor's means
+    (exp(N(0, 0.5²)) at NB_DISPERSION, where the whole script uses the
+    trained predictor's). ``other``: the path of another
+    ``keyed_draws.cu`` to compare with in the same run
+    (``keyed_other_build``). For iterating on R1 and R2; the whole script
+    is the record."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from mxfusion_tpu_torch.ops import cuda_build, keyed_random as kr
+    check(torch.cuda.is_available(), "phase 58 needs an NVIDIA GPU")
+    dev, card = torch.device("cuda:0"), nvidia_smi()
+    t0 = time.perf_counter()
+    lib = cuda_build.build(kr.SOURCE, kr.NVCC_FLAGS)
+    print("phase 2 build ({}): {} in {:.3f} s | ptxas: {}".format(
+        card, lib.name, time.perf_counter() - t0, ptxas_summary(lib)),
+        flush=True)
+
+    def zero_counts():
+        kr.keyed_standard_gamma.launches = 0
+        kr.keyed_poisson.launches = 0
+    builds = None if other is None else keyed_other_build(other)
+    errs = keyed_kernel_checks(dev, card, seed, zero_counts,
+                               torch.cuda.synchronize, builds)
+    rng = np.random.default_rng(seed + 58)
+    mu = np.exp(0.5 * rng.standard_normal((1, CHUNK, 1))).astype(np.float32)
+    keyed_kernel_times(dev, card, seed, (DGP_SERVE_S, CHUNK, DGP_H),
+                       torch.as_tensor(mu, device=dev), NB_DISPERSION, errs,
+                       builds)
+    return errs
+
+
 def keyed_draw_phases(dev, card, seed, Xtr, Ytr, nb_counts, deep_gp,
                       normal_rows_s, loop_cls, zero_counts, sync,
                       keyed_earlier):
@@ -5905,64 +6200,8 @@ def keyed_draw_phases(dev, card, seed, Xtr, Ytr, nb_counts, deep_gp,
     t_phase = time.perf_counter()
     build = ROOT / "build"
     R1, R2 = kr.keyed_standard_gamma, kr.keyed_poisson
-
     # ---- 58a. the raw words and the draws against the plain versions
-    zero_counts()
-    g = torch.Generator(dev).manual_seed(seed + 58)
-    key = torch.randint(0, 2 ** 32, (2,), generator=g, dtype=torch.int64,
-                        device=dev)
-    x0 = torch.arange(KEYED_N, device=dev)
-    x1 = torch.randint(0, 2 ** 32, (KEYED_N,), generator=g,
-                       dtype=torch.int64, device=dev)
-    words = kr.threefry2x32(key, x0, x1)
-    plain_words = kr._threefry_torch(key[0], key[1], x0, x1)
-    sync()
-    check(all(torch.equal(a, b) for a, b in zip(words, plain_words)),
-          "the kernel's Threefry-2x32 words differ from the plain version's")
-    errs, notes = {"R1": 0.0, "R2": 0.0}, []
-    for dtype in (torch.float32, torch.float64):
-        for name, draw, plain, params, bound in (
-                ("R1", R1, kr._gamma_torch, GAMMA_ALPHAS, gamma_bound),
-                ("R2", R2, kr._poisson_torch, POISSON_RATES, poisson_bound)):
-            for p in params:
-                x = torch.full((KEYED_N,), p, dtype=dtype, device=dev)
-                got = draw(x, key)
-                want, hashes = plain(x, key, with_hashes=True)
-                label = "{} {} at {}".format(name, str(dtype)[6:], p)
-                err, same, far = keyed_check(label, got, want)
-                # one value broadcast, as the samplers pass it: read at
-                # stride 0, the same draws
-                check(torch.equal(draw(x[:1].expand(KEYED_N), key), got),
-                      "{}: the broadcast parameter's draws differ from the "
-                      "dense one's".format(label))
-                check(bool(torch.isfinite(got).all()) and
-                      bool((got >= 0).all()), "{}: draws not finite and "
-                      "nonnegative".format(label))
-                if name == "R2":
-                    check(bool((got == got.round()).all()),
-                          "{}: counts not whole".format(label))
-                z_mean, z_var = moment_check(got.double().cpu().numpy()[
-                    :, None], (p, p), None)
-                check(z_mean <= MOMENT_SE and z_var <= MOMENT_SE,
-                      "{}: mean {:.2f} and variance {:.2f} standard errors "
-                      "off the closed form (tol {})".format(
-                          label, z_mean, z_var, MOMENT_SE))
-                ms = cuda_ms(lambda: draw(x, key), reps=20)
-                lib = cuda_ms(lambda: torch._standard_gamma(x)
-                              if name == "R1" else torch.poisson(x), reps=20)
-                b_ms, b_by = bound(x, hashes)
-                errs[name] = max(errs[name], err)
-                notes.append("{} bit-equal {}/{}, beyond 1e-6 {}, max |d| "
-                             "{:.3g}, z {:.2f}/{:.2f}, hashes/elt {:.3f}, ms "
-                             "{:.5f} (library {:.5f}, bound {:.5f} by {}, "
-                             "share {:.1%})".format(
-                                 label, same, KEYED_N, far, err, z_mean,
-                                 z_var, float(hashes.double().mean()), ms,
-                                 lib, b_ms, b_by, b_ms / ms))
-    print("phase 58a keyed draws ({}): Threefry-2x32 words of {} counters "
-          "equal to the bit; each draw from a broadcast parameter (stride "
-          "0) equal to the dense one's | {}".format(
-              card, KEYED_N, " | ".join(notes)), flush=True)
+    errs = keyed_kernel_checks(dev, card, seed, zero_counts, sync)
 
     # ---- 58c (first: its live runs give (b) the main path's shapes). The
     # Student-t deep GP on phase 28's trained state
@@ -6094,48 +6333,13 @@ def keyed_draw_phases(dev, card, seed, Xtr, Ytr, nb_counts, deep_gp,
     # ---- 58b. times at the main path's shapes, behind the spin kernel
     sync()
     zero_counts()
-    g = torch.Generator(dev).manual_seed(seed + 59)
-    key = torch.randint(0, 2 ** 32, (2,), generator=g, dtype=torch.int64,
-                        device=dev)
     # the Student-t propagation's gamma draw of one chunk: one value
-    # broadcast, as sample_gamma passes it
-    a = torch.broadcast_to(torch.tensor(STUDENT_T_SHAPE, device=dev),
-                           sdraws[0][1])
-    # the count predictor's Poisson rates of one chunk: its gamma draw
-    # times its means, as NegativeBinomial draws them
-    mu_c = torch.as_tensor(mu[:, :CHUNK], device=dev)
-    r = 1.0 / alpha
-    rate = R1(torch.full((COUNT_S, CHUNK, 1), r, device=dev), key) * \
-        mu_c / r
-    times = {}
-    for name, draw, plain, lib, x, bound in (
-            ("R1", R1, kr._gamma_torch, torch._standard_gamma, a,
-             gamma_bound),
-            ("R2", R2, kr._poisson_torch, torch.poisson, rate,
-             poisson_bound)):
-        want, hashes = plain(x, key, with_hashes=True)
-        err, same, far = keyed_check(name + " at the main path's shape",
-                                     draw(x, key), want)
-        t = {"kernel": [], "plain": [], "library": []}
-        for _ in range(2):   # plain, kernel, kernel, plain in turns
-            t["plain"].append(cuda_ms(lambda: plain(x, key), reps=3))
-            t["kernel"].append(cuda_ms(lambda: draw(x, key)))
-            t["library"].append(cuda_ms(lambda: lib(x)))
-        times[name] = (tuple(x.shape), t, bound(x, hashes), err, same, far)
-        errs[name] = max(errs[name], err)
-    print("phase 58b keyed draw times ({}): device ms per call behind a "
-          "spin kernel, min of two | {}".format(card, " | ".join(
-              "{} at {} ({}): kernel {:.5f}, plain {:.5f}, library {:.5f} "
-              "({}), bound {:.5f} ({}), share {:.1%}; vs plain bit-equal "
-              "{}, beyond 1e-6 {}".format(
-                  name, shape, "Student-t shape 2.5" if name == "R1" else
-                  "the count predictor's rates", min(t["kernel"]),
-                  min(t["plain"]), min(t["library"]),
-                  "torch._standard_gamma" if name == "R1" else
-                  "torch.poisson", b[0], b[1], b[0] / min(t["kernel"]),
-                  same, far)
-              for name, (shape, t, b, _, same, far) in times.items())),
-          flush=True)
+    # broadcast, as sample_gamma passes it; the count predictor's means of
+    # one chunk, its Poisson rates drawn from them as NegativeBinomial draws
+    # them
+    times = keyed_kernel_times(dev, card, seed, sdraws[0][1],
+                               torch.as_tensor(mu[:, :CHUNK], device=dev),
+                               alpha, errs)
     print("phase 58c slice at full width ({}): Student-t deep GP (phase "
           "28's RBF({}) -> {} -> RBF({}) -> 1, S={}, each normal n of the "
           "layers n·sqrt({}/g), g ~ Gamma({})), export {:.3f} s, draws {}, "
@@ -6185,7 +6389,7 @@ def keyed_draw_phases(dev, card, seed, Xtr, Ytr, nb_counts, deep_gp,
              "random_gen.py:26"),
             ("R2", "keyed_poisson", "mxfusion_tpu/components/distributions/"
              "random_gen.py:66")):
-        _, t, b, _, _, _ = times[name]
+        t, b = times[name]["t"], times[name]["bound"]
         check(launches[name] > 0, "{} was launched no time on the main "
               "paths".format(name))
         rows[name] = {"name": lib_name, "route": "cuda", "source": src,

@@ -49,6 +49,22 @@ the plain version. Neither is tagged ``nondeterministic_seeded``: each is
 a pure function of its inputs. ``threefry2x32`` exposes the raw words
 (the kernel's and the plain version's), so the hash can be held to
 JAX's and the kernel to its plain version bit for bit.
+
+**The kernels' schedule.** How many rounds an element takes depends on
+its own draws, so one thread an element leaves a warp's lanes idle while
+its slowest element redraws. While n fits the lanes of the warps the
+card holds at once, both kernels draw tiles of 32 consecutive elements,
+one a lane, each to its end. Above, R1 splits n evenly over the
+resident warps, one wave (:func:`tile_elements`, :func:`launch_plan`);
+each lane runs one round of its element an iteration and, once the
+element is written, takes the tile's next one; the boosts below α = 1
+run in a pass over the tile after the loop. R2 stays one element a lane,
+a block for each 256: handing elements out paid only at PTRS's dear
+rounds, which no path draws at that size. The schedule moves no
+bit: every draw is a pure function of (key, parameter, index).
+:func:`emulate_schedule` plays it in torch from the plain versions' hash
+counts, with the one-thread-an-element schedule's lane efficiency beside
+it.
 """
 import ctypes
 import math
@@ -231,8 +247,12 @@ def _lib():
     if _LIB is None:
         lib = cuda_build.load(SOURCE, NVCC_FLAGS)
         ptr, cint, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for fn in (lib.mxf_keyed_gamma, lib.mxf_keyed_poisson):
-            fn.argtypes = [cint, ptr, cll, ptr, ptr, cll, ptr]
+        lib.mxf_keyed_gamma.argtypes = [cint, ptr, cll, ptr, ptr, cll, ptr]
+        lib.mxf_keyed_poisson.argtypes = lib.mxf_keyed_gamma.argtypes
+        lib.mxf_keyed_plan.argtypes = [cint, cint, cll, ctypes.POINTER(cll),
+                                       ctypes.POINTER(cint)]
+        for fn in (lib.mxf_keyed_gamma, lib.mxf_keyed_poisson,
+                   lib.mxf_keyed_plan):
             fn.restype = cint
         lib.mxf_threefry2x32.argtypes = [ptr, ptr, ptr, ptr, ptr, cll, ptr]
         lib.mxf_threefry2x32.restype = cint
@@ -277,6 +297,131 @@ def _poisson_cuda(rate, key):
     out = _launch("keyed_poisson", "mxf_keyed_poisson", rate, key)
     keyed_poisson.launches += 1
     return out
+
+
+def tile_elements(n, resident_warps):
+    """The elements each warp of R1 draws over n elements when the card
+    holds ``resident_warps`` of its warps at once (the kernel's rule;
+    :func:`launch_plan` gives the card's own): 32, one a lane, while n
+    fits the resident lanes, else n split evenly over them. R2's tile is
+    always 32."""
+    return 32 if n <= 32 * resident_warps else -(-n // resident_warps)
+
+
+def launch_plan(kind, dtype, n):
+    """The launch R1 (``kind`` "gamma") or R2 ("poisson") makes over n
+    elements of ``dtype`` on the current card: (tile, the kernel's resident
+    warps); R2's tile is always 32. Needs the card."""
+    lib = _lib()
+    tile, warps = ctypes.c_longlong(), ctypes.c_int()
+    err = lib.mxf_keyed_plan({"gamma": 0, "poisson": 1}[kind],
+                             _DTYPE_CODE[dtype], n, ctypes.byref(tile),
+                             ctypes.byref(warps))
+    if err != 0:
+        raise RuntimeError("keyed draw launch plan failed: {} ({})".format(
+            lib.mxf_cuda_error_string(err).decode(), err))
+    return tile.value, warps.value
+
+
+def _group_max(x, size):
+    """The largest entry of each ``size`` consecutive entries of ``x``
+    (padded with zeros)."""
+    return torch.nn.functional.pad(x, (0, -x.numel() % size)).reshape(
+        -1, size).amax(1)
+
+
+def emulate_schedule(kind, param, hashes, tile):
+    """R1's or R2's schedule, played in torch on ``param``'s device (no
+    kernel runs). Each warp draws a tile of ``tile`` consecutive
+    elements (R2: 32, one a lane). R1: each lane runs one round of its
+    element an iteration (the warp runs as many as its longest lane)
+    and, once the element is written, takes the tile's next one at the
+    next iteration; its boosts below α = 1 run in a pass over the tile
+    after the loop. R2: each lane draws its element to its end in one
+    iteration, each arm its live lanes hold in turn.
+
+    ``kind``: "gamma" or "poisson"; ``param``: the draw's parameter;
+    ``hashes``: the Threefry calls each element needs (the plain
+    version's ``with_hashes``). Returns a dict: ``lane``, ``start`` and
+    ``finish`` (the iterations of an element's first and last round;
+    finish = start - 1 for one that needs no round) and ``rank`` (its
+    place in its tile's hand-out order) of each element;
+    ``tile_slots`` and ``thread_slots``, the hash slots the warps issue
+    (32 for each hash a warp runs) in this schedule and in one thread an
+    element's (each 32 consecutive elements a warp, every lane running as
+    many rounds as the warp's slowest element of its arm); and
+    ``tile_efficiency``/``thread_efficiency``, the hashes needed over
+    those slots."""
+    p = param.reshape(-1)
+    h = hashes.reshape(-1).to(torch.int64)
+    n, dev = p.numel(), p.device
+    # each element's work in units (rounds; Knuth's: hashes), the units
+    # it runs an iteration and the hashes a unit
+    if kind == "gamma":
+        boost = ~(p >= 1)
+        units = (h - boost.to(torch.int64)) // 3
+        per, unit = torch.ones_like(h), torch.full_like(h, 3)
+        arm = torch.zeros_like(h)
+        thread = 3 * _group_max(units, 32) + _group_max(
+            boost.to(torch.int64), 32)
+    elif kind == "poisson":
+        if tile != 32:
+            raise ValueError("emulate_schedule: R2 draws tiles of 32, not "
+                             "{}".format(tile))
+        knuth = torch.isnan(p) | (p < 10)
+        arm = (~knuth).to(torch.int64)
+        per = torch.full_like(h, ROUNDS)
+        units = torch.where(knuth, h, h // 2)
+        unit = torch.where(knuth, 1, 2)
+        zero = torch.zeros_like(h)
+        thread = _group_max(torch.where(knuth, h, zero), 32) + _group_max(
+            torch.where(knuth, zero, h), 32)
+    else:
+        raise ValueError("emulate_schedule: kind is 'gamma' or 'poisson', "
+                         "not {!r}".format(kind))
+    tiles = -(-n // tile)
+    count = torch.full((tiles,), tile, device=dev)
+    count[-1] = n - (tiles - 1) * tile
+    first = torch.arange(tiles, device=dev)[:, None] * tile
+    rem = torch.zeros((tiles, 32), dtype=torch.int64, device=dev)
+    cur = torch.zeros_like(rem)
+    cursor = torch.zeros(tiles, dtype=torch.int64, device=dev)
+    lane, start, finish, rank = (torch.zeros_like(h) for _ in range(4))
+    slots, t = 0, 0
+    while True:
+        idle = rem == 0
+        at = cursor[:, None] + idle.cumsum(1) - 1
+        take = idle & (at < count[:, None])
+        if not bool(take.any()) and not bool((rem > 0).any()):
+            break
+        # each tile hands its elements out in index order
+        el = (first + at)[take]
+        ti, li = take.nonzero(as_tuple=True)
+        cur[ti, li] = el
+        rem[ti, li] = units[el]
+        lane[el], start[el], rank[el] = li, t, at[take]
+        cursor += take.sum(1)
+        live = rem > 0
+        used = torch.minimum(per[cur], rem) * live
+        c, a = used * unit[cur], arm[cur]
+        zero = torch.zeros_like(c)
+        slots += 32 * int((torch.where(a == 0, c, zero).amax(1)
+                           + torch.where(a == 1, c, zero).amax(1)).sum())
+        rem -= used
+        done = live & (rem == 0)
+        finish[cur[done]] = t
+        t += 1
+    finish = torch.where(units == 0, start - 1, finish)
+    if kind == "gamma":   # the boost pass: every lane, a hash a slot
+        boosted = torch.nn.functional.pad(boost, (0, tiles * tile - n)) \
+            .reshape(tiles, tile).any(1)
+        slots += 32 * int((boosted * -(-count // 32)).sum())
+    need = int(h.sum())
+    thread_slots = 32 * int(thread.sum())
+    return {"lane": lane, "start": start, "finish": finish, "rank": rank,
+            "tile_slots": slots, "thread_slots": thread_slots,
+            "tile_efficiency": need / slots,
+            "thread_efficiency": need / thread_slots}
 
 
 def keyed_standard_gamma(alpha, key):

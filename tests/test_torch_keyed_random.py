@@ -333,3 +333,57 @@ def test_a_broadcast_parameter_draws_as_a_dense_one_on_the_card(card, dtype):
         dense = torch.full((64, 1024), p, dtype=dtype, device=card)
         assert torch.equal(draw(torch.broadcast_to(one, (64, 1024)), key),
                            draw(dense, key))
+
+
+# two pows each within 2 ulps of the exact value differ by up to 4 ulps;
+# times the unboosted draw that is up to 8 of the product's ulps, 9 after
+# each product's rounding
+F64_GAMMA_ULPS = 9
+
+
+def _equal_or_ulps(got, want, ulps):
+    """Every element bit-equal (NaN where NaN), or at most ``ulps``
+    representable values apart (by the bits of nonnegative draws)."""
+    same = (got == want) | (got.isnan() & want.isnan())
+    if ulps:
+        bits = {torch.float32: torch.int32, torch.float64: torch.int64}[
+            got.dtype]
+        same |= (got.view(bits).long() - want.view(bits).long()).abs() <= \
+            ulps
+    return bool(same.all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ragged_and_short_tiles_are_the_plain_versions_on_the_card(card,
+                                                                   dtype):
+    """R1 and R2 on mixed dense parameters (the roundless rates 0, -1
+    and NaN among them) at n below 32, at one tile of 32 for every
+    resident warp, and at an n that is no multiple of R1's tile (its
+    last tile ragged; R2's tiles of 32 more than its resident warps, the
+    last of 5): float32 draws and every count bit-equal to the plain versions,
+    float64 gamma within F64_GAMMA_ULPS (the boost's pow, within 2 ulps
+    of the exact value in CUDA's double-precision library, is built
+    without FMA contraction here and with it in torch)."""
+    key = torch.tensor([99, 2 ** 31 - 3], device=card)
+    _, warps = kr.launch_plan("gamma", dtype, 1)
+    big = 3 * (1 << 20) + 5
+    tile, _ = kr.launch_plan("gamma", dtype, big)
+    assert big % tile != 0 and tile > 32
+    assert kr.launch_plan("poisson", dtype, big)[0] == 32
+    for n in (1, 7, 31, 32 * warps, big):
+        rng = np.random.default_rng([12, n])
+        for draw, plain, values in (
+                (kr.keyed_standard_gamma, kr._gamma_torch,
+                 (0.1, 0.7, 2.5, 50.0)),
+                (kr.keyed_poisson, kr._poisson_torch,
+                 (0.0, -1.0, math.nan, 0.3, 4.0, 9.99, 10.0, 37.0, 1e4))):
+            p = torch.as_tensor(rng.choice(values, n), dtype=dtype,
+                                device=card)
+            want = plain(p, key)
+            got = draw(p, key)
+            gamma64 = draw is kr.keyed_standard_gamma and \
+                dtype == torch.float64
+            assert _equal_or_ulps(got, want,
+                                  F64_GAMMA_ULPS if gamma64 else 0), (
+                n, draw.__name__)
