@@ -387,8 +387,15 @@ that each print one line:
    at phases 37-38's widths, 20 steps, within 1e-5 of
    ``BatchInferenceLoop``'s), ``BatchedPredictor(mesh=)`` on 262144 rows
    against the plain predictor, and HMC on phase 39's BLR over
-   ``shard_data`` against the unsharded chain; the step walls, and the
-   process group torn down;
+   ``shard_data`` against the unsharded chain; the step walls; the model
+   axis: ``make_mesh_2d(1, 1)`` with q(U) and Z placed over ``model`` by
+   ``device_put``, 4 ``make_shard_map_step`` Adam steps at the headline
+   shape (B = 65536, M = 512, D = 32, the fused arm, phase 6's data and
+   start) against the replicated step (losses within 1e-6, bit-equality
+   reported, K1/K2/K3 once/once/three times a step, both step walls),
+   then one step each way at benchmarks/model_axis_2d.py's M = 2048,
+   D = 16, B = 4096 and the bytes this rank holds of q(U), Z and their
+   Adam moments; and the process group torn down;
 54. the network artifact: phase 36's deep-kernel predictor exported at
    chunk 8192 (the network's products recorded at IEEE fp32) and served
    by ``load_exported_predictor`` in a subprocess that builds no model,
@@ -643,6 +650,13 @@ REMAT_GRAD_TOL = 1e-6
 DP_RTOL, DP_NN_STEPS, DP_NN_RTOL = 1e-6, 20, 1e-5
 DP_SERVE_ROWS, DP_SERVE_TOL, DP_HMC_DRAWS, DP_HMC_ATOL = (
     262144, 1e-6, 50, 1e-5)
+# the model axis over a world of one: q(U) and Z placed over "model" of a
+# 1 x 1 mesh, make_shard_map_step at the headline shape from phase 6's
+# start against the replicated step (one rank gathers its own block, so
+# the two steps run the same operations: bit-equality expected), then one
+# step at benchmarks/model_axis_2d.py's M = 2048, D = 16, B = 4096
+MA_STEPS, MA_LR, MA_RTOL = 4, 3e-3, 1e-6
+MA_M, MA_D, MA_B = 2048, 16, 4096
 # persistence (phases 32-34) at phase 6's configuration: a resume restores
 # the float32 parameters and Adam's moments bit for bit and K2/K3 are
 # deterministic, so the resumed losses match the uninterrupted run's to
@@ -5399,8 +5413,173 @@ def traced_idle(fn, log_dir):
     return device_busy(device, mark["ts"], mark["ts"] + mark["dur"])
 
 
+def model_axis_part(dev, card, seed, tm, start_state, Xtr, Ytr,
+                    read_counts, zero_counts, sync):
+    """Phase 53's model axis over the world of one: ``make_mesh_2d(1, 1)``
+    with q(U)'s three parameters and Z placed over ``model`` by
+    ``device_put``, MA_STEPS ``make_shard_map_step`` Adam steps at the
+    headline shape (phase 6's model, start and first batch, the fused
+    arm) against the replicated step from the same state, in the order
+    replicated, placed, placed, replicated; then one step each way at
+    benchmarks/model_axis_2d.py's widths and the bytes this rank holds
+    for the placed parameters and their Adam moments. Returns the line's
+    text and K1-K3's launches."""
+    import torch
+    from mxfusion_tpu_torch import Model, Variable
+    from mxfusion_tpu_torch.common.placement import is_sharded
+    from mxfusion_tpu_torch.components.distributions.gp.kernels import RBF
+    from mxfusion_tpu_torch.components.variables import \
+        PositiveTransformation
+    from mxfusion_tpu_torch.inference import (MAP, GradBasedInference,
+                                              create_executor)
+    from mxfusion_tpu_torch.modules import SVGPRegression
+    from mxfusion_tpu_torch.parallel import (
+        batch_sharding, device_put, make_mesh_2d, make_shard_map_step,
+        shard_data)
+    t_part = time.perf_counter()
+    mesh2 = make_mesh_2d(1, 1)
+    launches = {"K1": 0, "K2": 0, "K3": 0}
+
+    def placed_uuids(m):
+        q = m.Y.factor._extra_graphs[0]
+        return {q.qU_mean.uuid, q.qU_cov_W.uuid, q.qU_cov_diag.uuid,
+                m.Y.factor._module_graph.inducing_inputs.uuid}
+
+    def run(m, ex, state, trainable, data, steps, placed):
+        """``steps`` shard_map steps from ``state`` (its ``trainable``
+        entries trained): losses, walls, per-step launches and the bytes
+        held of the placed entries and their moments."""
+        uuids = placed_uuids(m)
+        step, opt = make_shard_map_step(ex, mesh2, "adam", MA_LR)
+        tr = {k: v.clone() for k, v in state.items() if k in trainable}
+        if placed:
+            tr = {k: device_put(v, batch_sharding(mesh2, v.ndim, "model"))
+                  if k in uuids else v for k, v in tr.items()}
+        fx = {k: v for k, v in state.items() if k not in trainable}
+        opt_state = opt.init(tr)
+        losses, walls, counts = [], [], []
+        for _ in range(steps):
+            zero_counts()
+            sync()
+            t0 = time.perf_counter()
+            tr, opt_state, loss, _ = step(
+                tr, fx, opt_state, torch.Generator(dev).manual_seed(seed),
+                data)
+            losses.append(float(loss))
+            sync()
+            walls.append(time.perf_counter() - t0)
+            counts.append({k: read_counts()[k] for k in launches})
+            for k in launches:
+                launches[k] += counts[-1][k]
+        check(all(is_sharded(tr[k]) == placed for k in uuids),
+              "the step handed back the placed parameters as {}".format(
+                  {k: type(tr[k]).__name__ for k in uuids}))
+        held = sum(t.numel() * t.element_size() for k in uuids
+                   for t in (opt_state.leaves[k],
+                             opt_state.state[opt_state.leaves[k]]["exp_avg"],
+                             opt_state.state[opt_state.leaves[k]][
+                                 "exp_avg_sq"]))
+        return losses, walls, counts, held
+
+    # the headline shape: phase 6's model, start and first batch
+    alg = MAP(model=tm, observed=[tm.X, tm.Y])
+    inf = GradBasedInference(alg, dtype="float32", device=dev)
+    inf.initialize(X=Xtr[:TRAIN_B], Y=Ytr[:TRAIN_B])
+    inf.params.update_params({k: v.clone() for k, v in start_state.items()})
+    trainable = set(inf.params.trainable_params())
+    ex = create_executor(alg, inf.params,
+                         rv_scaling={tm.Y.uuid: TRAIN_N / TRAIN_B})
+    data = shard_data(mesh2, [Xtr[:TRAIN_B], Ytr[:TRAIN_B]])
+    runs = {"replicated": [], "placed": []}
+    for which in ("replicated", "placed", "placed", "replicated"):
+        runs[which].append(run(tm, ex, start_state, trainable, data,
+                               MA_STEPS, which == "placed"))
+    per_step = {"K1": 1, "K2": 1, "K3": 3}
+    for which, rs in runs.items():
+        for losses, _, counts, _ in rs:
+            check(len(losses) == MA_STEPS and all(
+                math.isfinite(x) for x in losses), "{} model-axis losses {}"
+                .format(which, losses))
+            check(all(c == per_step for c in counts), "{} model-axis step "
+                  "launched {}; expected {} a step".format(
+                      which, counts, per_step))
+    ref = runs["replicated"][0][0]
+    rel = max(abs(a - b) / abs(b) for r in runs["placed"] + runs[
+        "replicated"][1:] for a, b in zip(r[0], ref))
+    check(rel <= MA_RTOL, "placed over the model axis: losses {} vs the "
+          "replicated step's {}: rel {}".format(
+              [r[0] for r in runs["placed"]], ref, rel))
+    bitwise = all(r[0] == ref for r in runs["placed"])
+    # each run's first step also builds the optimizer's state (and the
+    # first placed one NCCL's communicator of the model axis)
+    walls = {k: "median {:.3f} (quartiles {:.3f}-{:.3f}) of {}, first "
+             "steps {}".format(
+                 *np.percentile([1e3 * w for r in rs for w in r[1][1:]],
+                                [50, 25, 75]),
+                 sum(len(r[1]) - 1 for r in rs),
+                 [round(1e3 * r[1][0], 3) for r in rs])
+             for k, rs in runs.items()}
+
+    # benchmarks/model_axis_2d.py's widths: one step each way
+    rng = np.random.default_rng(seed + 530)
+    Xm = (rng.random((MA_B, MA_D)) * BOX).astype(np.float32)
+    Ym = (np.sin(Xm[:, :1]) + rng.standard_normal((MA_B, 1)) * 0.1
+          ).astype(np.float32)
+    mm = Model()
+    mm.n = Variable()
+    mm.X = Variable(shape=(mm.n, MA_D))
+    mm.noise_var = Variable(transformation=PositiveTransformation(),
+                            initial_value=0.1)
+    mm.Y = SVGPRegression.define_variable(
+        X=mm.X, kernel=RBF(input_dim=MA_D, variance=1.0,
+                           lengthscale=math.sqrt(MA_D)),
+        noise_var=mm.noise_var, shape=(mm.n, 1),
+        inducing_inputs=Variable(shape=(MA_M, MA_D), initial_value=(
+            rng.random((MA_M, MA_D)) * BOX).astype(np.float32)))
+    malg = MAP(model=mm, observed=[mm.X, mm.Y])
+    minf = GradBasedInference(malg, dtype="float32", device=dev)
+    minf.initialize(X=Xm, Y=Ym, generator=torch.Generator(dev).manual_seed(
+        seed))
+    mstate = {k: v.clone() for k, v in minf.params.param_dict.items()}
+    trainable = set(minf.params.trainable_params())
+    mex = create_executor(malg, minf.params)
+    mdata = shard_data(mesh2, [Xm, Ym])
+    wide = {which: run(mm, mex, mstate, trainable, mdata, 1,
+                       which == "placed")
+            for which in ("replicated", "placed")}
+    wrel = abs(wide["placed"][0][0] - wide["replicated"][0][0]) / abs(
+        wide["replicated"][0][0])
+    check(wrel <= MA_RTOL and wide["placed"][2] == wide["replicated"][2],
+          "M={}: placed step loss {} launches {} vs replicated {} {}".format(
+              MA_M, wide["placed"][0], wide["placed"][2],
+              wide["replicated"][0], wide["replicated"][2]))
+    arithmetic = 12 * (MA_M * MA_M + 2 * MA_M + MA_M * MA_D)
+    check(wide["placed"][3] == arithmetic, "M={}: this rank holds {} bytes "
+          "of q(U), Z and their Adam moments; 12·(M² + 2M + M·D) = {}"
+          .format(MA_M, wide["placed"][3], arithmetic))
+    line = (
+        "model axis ({}): make_mesh_2d(1, 1), qU_mean, qU_cov_W, "
+        "qU_cov_diag and Z placed over 'model' by device_put, {} "
+        "make_shard_map_step Adam steps (lr {}) at B={}, M={}, D={} from "
+        "phase 6's start, fused arm: losses {} vs replicated {}, max rel "
+        "{:.3e} (tol {:.0e}), bit-equal {}, launches a step {} | step wall "
+        "ms after each run's first step: placed {}, replicated {} | M={}, "
+        "D={}, B={}: one step each way, loss rel {:.3e}, launches {}, "
+        "bytes this rank holds of q(U), Z and Adam's two moments {} "
+        "({:.1f} MB; on a model axis of one rank, the whole) | part wall "
+        "{:.3f} s".format(
+            card, MA_STEPS, MA_LR, TRAIN_B, M, D,
+            runs["placed"][0][0], ref, rel, MA_RTOL, bitwise,
+            runs["placed"][0][2][0],
+            walls["placed"], walls["replicated"],
+            MA_M, MA_D, MA_B, wrel, wide["placed"][2][0],
+            wide["placed"][3], wide["placed"][3] / 1e6,
+            time.perf_counter() - t_part))
+    return line, launches
+
+
 def loop_options_phases(dev, card, seed, Xtr, Ytr, x_ppca, W0, read_counts,
-                        zero_counts, sync):
+                        zero_counts, sync, tm, start_state):
     """Phases 50-53: the native batcher, the north star's host loop at
     batches_per_call 1, 5 and 20, remat, and data parallelism over a
     world of one (NCCL). Returns K1-K3's launches on their main paths."""
@@ -5746,6 +5925,12 @@ def loop_options_phases(dev, card, seed, Xtr, Ytr, x_ppca, W0, read_counts,
         "{:.3f} s".format(MCMC_N, MCMC_D, MCMC_CHAINS, DP_HMC_DRAWS,
                           DP_HMC_DRAWS, MCMC_L, herr, DP_HMC_ATOL,
                           chains["sharded"][1], chains["plain"][1]))
+    ma_line, ma_launches = model_axis_part(
+        dev, card, seed, tm, start_state, Xtr, Ytr, read_counts, zero_counts,
+        sync)
+    for k in launches:
+        launches[k] += ma_launches[k]
+    dp_lines.append(ma_line)
     dist.destroy_process_group()
     check(not dist.is_initialized(), "the process group outlived phase 53")
     print("phase 53 data parallel ({}): a world of one, backend {}, the "
@@ -7330,7 +7515,8 @@ def main():
     # ---- 50-53. the native batcher, batches_per_call at the north star's
     # width, remat, data parallelism over a world of one (NCCL)
     loops = loop_options_phases(dev, card, args.seed, Xtr, Ytr, x_ppca, W0,
-                                read_counts, zero_counts, sync)
+                                read_counts, zero_counts, sync, tm,
+                                start_state)
 
     # ---- 54-55. the network artifact and the drawing artifact
     artifacts_k1, normal_rows_s = artifact_phases(

@@ -24,6 +24,7 @@ from ..util.serialization import (
     SERIALIZATION_VERSION, FILENAMES, make_numpy_zip_bytes,
     read_numpy_zip_bytes)
 from ..common.exceptions import InferenceError, SerializationError
+from ..common.placement import whole
 from ..__version__ import __version__
 
 
@@ -72,7 +73,7 @@ class Inference:
                     name = g.components[uuid].name
                     break
             out.append("{} ({}): {}".format(
-                name, uuid[:8], arr.detach().cpu().numpy()))
+                name, uuid[:8], whole(arr).detach().cpu().numpy()))
         return "\n".join(out)
 
     def _fetch_observed(self, kwargs):

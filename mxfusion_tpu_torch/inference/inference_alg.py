@@ -21,6 +21,7 @@ import torch
 
 from .inference_parameters import MASK_SUFFIX
 from ..common.exceptions import InferenceError
+from ..common.placement import whole
 from ..components.variables.variable import VariableType
 from ..util.inference import variables_to_UUID
 
@@ -243,8 +244,9 @@ def _make_env_builder(algorithm, params, rv_scaling=None):
 
     Applies, in order: constants (python ints stay shape constants;
     scalars get the (1, 1) layout), fixed and trainable parameters
-    (bijector-transformed, sample dim added), observed data (sample dim
-    added), variable ties. Constants are converted to tensors once, here.
+    (a DTensor gathered whole, bijector-transformed, sample dim added),
+    observed data (sample dim added), variable ties. Constants are
+    converted to tensors once, here.
     """
     var_trans = algorithm.prepare_executor(rv_scaling=rv_scaling)
     # an array rv_scaling (observation mask) joins the fixed parameters
@@ -276,6 +278,9 @@ def _make_env_builder(algorithm, params, rv_scaling=None):
         env = VariableEnv(constants)
         for source in ({**masks, **fixed}, trainable):
             for uuid, v in source.items():
+                # a parameter placed over a mesh axis, whole (every
+                # rank's block, all-gathered) before its transform
+                v = whole(v)
                 t = var_trans.get(uuid)
                 tv = t.transform(v) if t is not None else v
                 env[uuid] = torch.unsqueeze(tv, 0)

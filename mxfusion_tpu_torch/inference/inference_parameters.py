@@ -6,13 +6,19 @@ applied when the env is built), a constants dict (python ints for
 symbolic shape dims plus numpy arrays), and a ``fixed`` set marking
 non-trainable entries (module caches, carried-over parameters). The
 store has one dtype and one device; every tensor in it lives there,
-loaded arrays included.
+loaded arrays included. An entry may be a DTensor, a parameter placed
+over a mesh axis (``parallel.device_put``): the store keeps it as each
+rank's block, and every reader (indexing, ``get_serializable``, a
+carry-over into a predictor, a checkpoint) sees the whole tensor, as
+``np.asarray`` sees a sharded array in JAX. Such a read gathers over the
+mesh, so every rank of the mesh reads alike.
 """
 import numpy as np
 import torch
 
 from ..common.config import as_torch_dtype, resolve_device
 from ..common.exceptions import InferenceError
+from ..common.placement import whole
 from ..components.variables.variable import Variable
 from ..util.inference import realize_shape
 
@@ -56,7 +62,9 @@ class InferenceParameters:
         return {k: v for k, v in self._params.items() if k in self._fixed}
 
     def update_params(self, new_values):
-        """Overwrite entries: {uuid: unconstrained tensor}."""
+        """Overwrite entries: {uuid: unconstrained tensor}. A DTensor
+        (a step's model-sharded parameter) stays sharded in the store;
+        readers gather it."""
         self._params.update(new_values)
 
     def fix_all(self):
@@ -130,7 +138,7 @@ class InferenceParameters:
                     all_uuids.update(ig.components.keys())
         for uuid, value in carryover_params.items():
             if uuid in all_uuids:
-                self._params[uuid] = self.as_tensor(value)
+                self._params[uuid] = self.as_tensor(whole(value))
                 if fix_carryover:
                     self._fixed.add(uuid)
 
@@ -141,7 +149,7 @@ class InferenceParameters:
         if not isinstance(variable, Variable):
             raise KeyError("Index InferenceParameters with a Variable.")
         if variable.uuid in self._params:
-            raw = self._params[variable.uuid]
+            raw = whole(self._params[variable.uuid])
             if variable.transformation is not None:
                 return variable.transformation.transform(raw)
             return raw
@@ -170,7 +178,7 @@ class InferenceParameters:
         UUID: the JAX package's split."""
         def host(v):
             if isinstance(v, torch.Tensor):
-                return v.detach().cpu().numpy()
+                return whole(v).detach().cpu().numpy()
             return np.asarray(v)
 
         params = {k: host(v) for k, v in self._params.items()}

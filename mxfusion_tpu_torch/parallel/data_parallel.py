@@ -39,6 +39,7 @@ import torch.distributed as dist
 
 from .mesh import (DATA_AXIS, all_gather, axis_size, batch_sharding,
                    data_shardings, replicate_tree)
+from ..common.placement import is_sharded
 from ..components.variables.variable import Variable, VariableType
 from ..inference.batch_loop import BatchInferenceLoop
 from ..inference.grad_loop import make_optimizer
@@ -317,21 +318,51 @@ def _gathered(data, mesh, axis_name):
     return [all_gather(d, group, n) for d in data]
 
 
+class _Placed:
+    """How a parameter placed over a mesh axis (a DTensor) is laid out:
+    ``view(local)`` is the DTensor over ``local``, this rank's block,
+    differentiable so that the block's gradient reaches ``local``."""
+
+    def __init__(self, dtensor):
+        self.mesh = dtensor.device_mesh
+        self.placements = dtensor.placements
+        self.shape = dtensor.shape
+        self.stride = dtensor.stride()
+
+    def view(self, local):
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(local, self.mesh, self.placements,
+                                  run_check=False, shape=self.shape,
+                                  stride=self.stride)
+
+
 class _ShardMapOptimizer:
     """``init(trainable)`` -> the optimizer state that
     ``make_shard_map_step``'s step takes: a ``torch.optim`` optimizer
-    over leaf copies of ``trainable`` (optax's ``opt.init``)."""
+    over leaf copies of ``trainable`` (optax's ``opt.init``). A DTensor
+    entry (``parallel.device_put`` over the model axis) keeps its
+    placement: its leaf is a copy of this rank's block, so the
+    optimizer's moments have the block's shape, and ``placed`` records
+    how to view the leaf as the DTensor again."""
 
     def __init__(self, optimizer, learning_rate):
         self.optimizer = optimizer
         self.learning_rate = learning_rate
 
     def init(self, trainable):
-        leaves = {k: v.detach().clone().requires_grad_(True)
+        placed = {k: _Placed(v) for k, v in trainable.items()
+                  if is_sharded(v)}
+        leaves = {k: (v.to_local() if k in placed else v)
+                  .detach().clone().requires_grad_(True)
                   for k, v in trainable.items()}
         opt = make_optimizer(self.optimizer, self.learning_rate,
                              list(leaves.values()))
         opt.leaves = leaves
+        opt.placed = placed
+        # what the step hands back: the leaves, a placed one viewed as
+        # its DTensor (sharing the leaf's storage)
+        opt.held = {k: placed[k].view(v.detach()) if k in placed else v
+                    for k, v in leaves.items()}
         return opt
 
 
@@ -344,7 +375,13 @@ def make_shard_map_step(executor, mesh, optimizer, learning_rate,
     ``shard_data``).
 
     Each rank runs the objective on its own rows; the loss and gradients
-    are averaged over the data axis and the update runs replicated. For
+    are averaged over the data axis and the update runs replicated. A
+    ``trainable`` entry placed over the model axis (a DTensor from
+    ``parallel.device_put``) stays placed: the objective gathers it whole
+    (and hands its block's gradient back), its gradient is averaged over
+    the data axis through its block, the optimizer updates the block and
+    its moments, of the block's shape, and the step returns it as the
+    DTensor, as JAX returns a sharded array. For
     an objective whose likelihood is a sum over the data (SVI, SVGP),
     build the executor with ``rv_scaling`` multiplied by the axis size
     and the data dim bound to the local rows, so the ranks' losses
@@ -369,17 +406,25 @@ def make_shard_map_step(executor, mesh, optimizer, learning_rate,
     index = mesh.get_local_rank(axis_name)
 
     def step(trainable, fixed, opt_state, generator, data):
-        leaves = opt_state.leaves
+        leaves, placed = opt_state.leaves, opt_state.placed
         with torch.no_grad():
             for k, v in trainable.items():
-                if leaves[k] is not v:
-                    leaves[k].copy_(v)
+                if is_sharded(v) != (k in placed):
+                    raise ValueError(
+                        "trainable entry {} is {}placed over a mesh axis, "
+                        "but opt.init took it {}placed: place it alike for "
+                        "both.".format(k, "" if k not in placed else "not ",
+                                       "" if k in placed else "not "))
+                if v is not opt_state.held[k]:
+                    leaves[k].copy_(v.to_local() if k in placed else v)
         if gather_data:
             data = _gathered(data, mesh, axis_name)
         else:
             generator = _rank_generator(generator, index)
         opt_state.zero_grad(set_to_none=True)
-        loss, loss_for_grad, aux = executor(leaves, fixed, data, generator)
+        inputs = {k: placed[k].view(v) if k in placed else v
+                  for k, v in leaves.items()}
+        loss, loss_for_grad, aux = executor(inputs, fixed, data, generator)
         loss_for_grad.backward()
         loss = loss.detach()
         grads = [p.grad for p in leaves.values() if p.grad is not None]
@@ -387,7 +432,7 @@ def make_shard_map_step(executor, mesh, optimizer, learning_rate,
         opt_state.step()
         if not gather_data:
             aux = {}  # a rank's caches are not reducible (see above)
-        return dict(leaves), opt_state, loss, aux
+        return dict(opt_state.held), opt_state, loss, aux
 
     return step, opt
 

@@ -16,6 +16,14 @@ mesh, a data axis and a placement, ``Shard(0)`` (each rank holds its
 block of axis 0) or ``Replicate()`` (every rank holds the whole array).
 ``batch_sharding`` and ``replicated_sharding`` make them, and the loops'
 ``data_sharding=`` takes a list of them.
+
+A parameter placed over an axis (:func:`device_put` with a sharding that
+shards, as JAX places q(U) and Z over ``"model"``) is a
+:class:`torch.distributed.tensor.DTensor`: each rank holds its block of
+rows. An objective gathers it into the whole tensor before its transform
+(``inference_alg``'s env builder), and the gather's backward gives each
+rank its block's gradient, so any step the caller writes partitions
+itself as a jitted step does under GSPMD.
 """
 import warnings
 
@@ -25,6 +33,7 @@ import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 from ..common.config import resolve_device
+from ..common.placement import is_sharded, whole
 
 DATA_AXIS = "data"
 
@@ -77,9 +86,20 @@ def make_mesh(n_devices=None, axis_name=DATA_AXIS, devices=None):
 def make_mesh_2d(data_size, model_size, data_axis=DATA_AXIS,
                  model_axis="model", devices=None):
     """2-D (data × model) mesh: rank ``r`` sits at
-    ``(r // model_size, r % model_size)``. The port shards data over the
-    data axis only; ranks that share a data coordinate hold the same
-    rows and the model axis replicates (parameters are never split)."""
+    ``(r // model_size, r % model_size)``. Data shards over the data
+    axis: ranks that share a data coordinate hold the same rows. A
+    parameter placed over the model axis (:func:`device_put` with
+    ``batch_sharding(mesh, ndim, "model")``) is held as each model-axis
+    rank's block of rows; every other parameter is replicated.
+
+    Guidance, as in the JAX package: sharding the M-inducing axis of
+    q(U) and Z over ``model`` is a MEMORY-CAPACITY lever, not a speed
+    lever. It divides the M² q(U) parameters and their Adam moments by
+    the axis size, but each step all-gathers every placed parameter and
+    computes the rest replicated (Kuu's Cholesky is whole on every rank
+    regardless), so it adds collectives and no compute-rate benefit.
+    Replicate q(U) (``model_size=1``) unless its parameters and Adam
+    state approach a device's memory (M of about 16k in float32)."""
     _ensure_process_group()
     need = data_size * model_size
     ranks = list(devices) if devices is not None else list(range(need))
@@ -149,7 +169,8 @@ class Sharding:
 
     @property
     def index(self):
-        """This rank's block on the data axis."""
+        """This rank's block on the sharding's axis (``axis_name``); 0
+        where the sharding replicates."""
         return self.mesh.get_local_rank(self.axis_name) \
             if self.is_shard else 0
 
@@ -218,6 +239,46 @@ def shard_data(mesh, arrays, axis_name=DATA_AXIS):
     return out
 
 
+def device_put(a, sharding):
+    """``a`` placed on this rank under ``sharding``: the counterpart of
+    ``jax.device_put(a, NamedSharding(mesh, spec))``.
+
+    A sharding that shards (``batch_sharding(mesh, a.ndim, "model")``, or
+    ``Sharding(mesh, Shard(0), "model")``) gives a
+    :class:`torch.distributed.tensor.DTensor` on the mesh, ``Shard(0)``
+    on the sharding's axis and ``Replicate()`` on every other, whose
+    local tensor is this rank's contiguous block of axis 0 on its
+    device. Axis 0 must divide by the axis size: otherwise ValueError,
+    as in JAX. A replicated sharding gives the whole tensor on this
+    rank's device. A DTensor ``a`` is gathered whole first."""
+    t = whole(a).detach() if is_sharded(a) else torch.as_tensor(
+        a if torch.is_tensor(a) else np.asarray(a))
+    device = mesh_device(sharding.mesh)
+    if not sharding.is_shard:
+        return t.to(device).contiguous()
+    n = sharding.n_shards
+    if t.ndim == 0:
+        raise ValueError("device_put: a 0-d array has no axis 0 to shard "
+                         "over '{}': replicate it (replicated_sharding("
+                         "mesh)).".format(sharding.axis_name))
+    if t.shape[0] % n:
+        raise ValueError(
+            "device_put: the sharding {} of an array of shape {} implies "
+            "that the global size of its dimension 0 should be divisible "
+            "by {}, but it is equal to {}. Pad or trim axis 0 to a "
+            "multiple of {}, or replicate the array "
+            "(replicated_sharding(mesh)).".format(
+                sharding, tuple(t.shape), n, t.shape[0], n))
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    lo, hi = sharding.block(t.shape[0])
+    placements = [Shard(0) if name == sharding.axis_name else Replicate()
+                  for name in sharding.mesh.mesh_dim_names]
+    full = t.contiguous()
+    return DTensor.from_local(t[lo:hi].to(device).contiguous(),
+                              sharding.mesh, placements, run_check=False,
+                              shape=full.shape, stride=full.stride())
+
+
 def all_gather(t, group, n, dim=0):
     """Every rank's ``t`` of the ``n``-rank ``group``, concatenated along
     ``dim`` in rank order."""
@@ -229,11 +290,14 @@ def all_gather(t, group, n, dim=0):
 def replicate_tree(mesh, tree):
     """The tree's tensors on this rank's device, equal on every rank:
     broadcast from the mesh's first rank (so ranks that initialized
-    differently start alike)."""
+    differently start alike). A parameter placed over an axis is
+    gathered whole first, as JAX's replicated ``device_put`` gathers
+    it."""
     device = mesh_device(mesh)
     src = int(mesh.mesh.flatten()[0])
 
     def bcast(a):
+        a = whole(a).detach() if is_sharded(a) else a
         t = torch.as_tensor(a).to(device).contiguous()
         if dist.get_world_size() > 1:
             dist.broadcast(t, src=src)

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .serialization import make_numpy_zip_bytes, read_numpy_zip_bytes
+from ..common.placement import whole
 
 
 class CheckpointCallback:
@@ -49,7 +50,8 @@ class CheckpointCallback:
 
 
 def _host(t):
-    return t.detach().cpu().numpy()
+    """``t`` on the host; a parameter placed over a mesh axis whole."""
+    return whole(t).detach().cpu().numpy()
 
 
 def save_params(params, path, step=None):

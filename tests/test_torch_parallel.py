@@ -665,11 +665,161 @@ def case_serving(P, mesh, tmp):
     return out
 
 
+def _model_axis_data(M=16):
+    """test_2d_mesh_svgp_data_and_model_sharded's data and inducing
+    inputs."""
+    rng = np.random.default_rng(6)
+    X = rng.random((160, 2)) * 4
+    Y = np.sin(X[:, :1]) + rng.standard_normal((160, 1)) * 0.1
+    return X, Y, rng.random((M, 2)) * 4
+
+
+MODEL_AXIS_MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
+MODEL_AXIS_STEPS, MODEL_AXIS_LR = 10, 0.05
+
+
+def case_model_axis(P, mesh, tmp):
+    """test_2d_mesh_svgp_data_and_model_sharded: SVGP MAP with X and Y
+    over the data axis and q(U) and Z placed over the model axis of a
+    2 x 2 and a 1 x 4 mesh (``make_shard_map_step``), and the JAX test's
+    own hand-written Adam step over the placed parameters on the 2 x 2
+    mesh, each beside the one-process run from the same start: losses,
+    final parameters, what each rank holds, the saved file and the
+    served moments."""
+    import zipfile
+    import torch
+    from mxfusion_tpu_torch.common.placement import is_sharded, whole
+    from mxfusion_tpu_torch.parallel import (
+        batch_sharding, device_put, make_mesh_2d, make_shard_map_step,
+        shard_data)
+    from mxfusion_tpu_torch.util.carryover import load_state, name_paths
+    from mxfusion_tpu_torch.util.serialization import (FILENAMES,
+                                                       read_numpy_zip_bytes)
+    inf_mod = P["inference"]
+    X, Y, Z0 = _model_axis_data()
+    Xt = np.linspace(-0.5, 4.5, 128).reshape(64, 2)
+    rank = mesh.get_local_rank("data")
+
+    def build(rows, start=None):
+        m = _svgp(P, Z0)
+        alg = inf_mod.MAP(model=m, observed=[m.X, m.Y])
+        inf = inf_mod.GradBasedInference(inference_algorithm=alg,
+                                         dtype="float64")
+        inf.initialize(X=X[:rows], Y=Y[:rows])
+        if start is not None:
+            load_state(inf.params, start, inf.graphs)
+        q = m.Y.factor._extra_graphs[0]
+        placed = {q.qU_mean.uuid, q.qU_cov_W.uuid, q.qU_cov_diag.uuid,
+                  m.Y.factor._module_graph.inducing_inputs.uuid}
+        return m, alg, inf, placed
+
+    def by_path(inf, values):
+        paths = name_paths(inf.graphs)
+        return {paths[k]: _np(whole(v)) for k, v in values.items()}
+
+    def held(opt, leaves, placed):
+        """Elements this rank holds of the placed parameters and their
+        Adam moments."""
+        return sum((t.to_local() if is_sharded(t) else t).numel()
+                   for k in placed for t in (
+                       leaves[k], opt.state[leaves[k]]["exp_avg"],
+                       opt.state[leaves[k]]["exp_avg_sq"]))
+
+    def saved(m, inf, name):
+        """The parameters ``Inference.save`` wrote, by name path, and a
+        predictor's moments on ``Xt`` from the same store."""
+        path = os.path.join(tmp, "{}{}.zip".format(name, rank))
+        inf.save(path)
+        with zipfile.ZipFile(path) as zf:
+            arrays = read_numpy_zip_bytes(zf.read(FILENAMES["params"]))
+        paths = name_paths(inf.graphs)
+        pred = inf_mod.BatchedPredictor(
+            model=m, infr_params=inf.params, observed=[m.X],
+            target_variables=[m.Y.uuid], chunk_size=16)
+        return ({paths[k]: v for k, v in arrays.items()},
+                [np.asarray(a) for a in pred.predict(X=Xt)[0]])
+
+    def adam_steps(ex, inf, leaves, placed):
+        """The JAX test's own step: torch Adam over ``leaves``, the whole
+        data on every rank."""
+        fx = dict(inf.params.fixed_params())
+        adam = torch.optim.Adam(list(leaves.values()), lr=MODEL_AXIS_LR)
+        losses = []
+        for _ in range(MODEL_AXIS_STEPS):
+            adam.zero_grad()
+            loss, lfg, _ = ex(leaves, fx, [X, Y], _gen())
+            lfg.backward()
+            adam.step()
+            losses.append(float(loss.detach()))
+        return {"losses": losses, "final": by_path(inf, leaves),
+                "held": held(adam, leaves, placed)}
+
+    def local_shapes(tensors):
+        return sorted(str(tuple(t.to_local().shape)) for t in tensors
+                      if is_sharded(t))
+
+    # the one-process run: Adam over whole tensors
+    m, alg, inf, placed = build(160)
+    start = by_path(inf, inf.params.param_dict)
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in inf.params.trainable_params().items()}
+    out = {"start": start,
+           "single": adam_steps(inf_mod.create_executor(alg, inf.params),
+                                inf, leaves, placed)}
+    inf.params.update_params({k: v.detach() for k, v in leaves.items()})
+    out["single"]["saved"] = saved(m, inf, "single")
+
+    meshes = {}
+    for name, (n_data, n_model) in MODEL_AXIS_MESHES.items():
+        mesh2 = meshes[name] = make_mesh_2d(n_data, n_model)
+        m, alg, inf, placed = build(160 // n_data, start)
+        ex = inf_mod.create_executor(alg, inf.params,
+                                     rv_scaling={m.Y.uuid: float(n_data)})
+        step, opt = make_shard_map_step(ex, mesh2, "adam", MODEL_AXIS_LR)
+        tr = {k: device_put(v, batch_sharding(mesh2, v.ndim, "model"))
+              if k in placed else v
+              for k, v in inf.params.trainable_params().items()}
+        fx = dict(inf.params.fixed_params())
+        opt_state = opt.init(tr)
+        data = shard_data(mesh2, [X, Y])
+        losses = []
+        for _ in range(MODEL_AXIS_STEPS):
+            tr, opt_state, loss, _ = step(tr, fx, opt_state, _gen(), data)
+            losses.append(float(loss))
+        out[name] = {"losses": losses, "final": by_path(inf, tr),
+                     "held": held(opt_state, opt_state.leaves, placed),
+                     "sharded": local_shapes(tr.values()),
+                     "moments": sorted(
+                         str(tuple(opt_state.state[opt_state.leaves[k]][
+                             "exp_avg"].shape)) for k in placed)}
+        if name == "2x2":
+            inf.params.update_params(tr)
+            out[name]["saved"] = saved(m, inf, name)
+    try:
+        device_put(np.zeros((15, 2)), batch_sharding(meshes["2x2"], 2,
+                                                     "model"))
+        out["indivisible"] = None
+    except ValueError as e:
+        out["indivisible"] = str(e)
+    # the JAX test's hand-written step over the placed parameters: no
+    # collective but the gathers
+    m, alg, inf, placed = build(160, start)
+    leaves = {k: (device_put(v, batch_sharding(meshes["2x2"], v.ndim,
+                                               "model"))
+                  if k in placed else v).detach().requires_grad_(True)
+              for k, v in inf.params.trainable_params().items()}
+    out["hand"] = adam_steps(inf_mod.create_executor(alg, inf.params), inf,
+                             leaves, placed)
+    out["hand"]["sharded"] = local_shapes(leaves.values())
+    return out
+
+
 CASES = {"objective": case_objective, "local_latent": case_local_latent,
          "batch_loops": case_batch_loops,
          "minibatch": case_minibatch, "device_loop": case_device_loop,
          "shard_map": case_shard_map, "mesh_helpers": case_mesh_helpers,
-         "samplers": case_samplers, "serving": case_serving}
+         "samplers": case_samplers, "serving": case_serving,
+         "model_axis": case_model_axis}
 
 
 def _worker(rank, world, port, out_dir):
@@ -687,8 +837,8 @@ def _worker(rank, world, port, out_dir):
     results = {}
     for name, fn in CASES.items():
         try:
-            results[name] = fn(P, mesh, out_dir) if name == "serving" \
-                else fn(P, mesh)
+            results[name] = fn(P, mesh, out_dir) \
+                if name in ("serving", "model_axis") else fn(P, mesh)
         except Exception:
             results[name] = {"error": traceback.format_exc()}
     with open(os.path.join(out_dir, "rank{}.pkl".format(rank)), "wb") as f:
@@ -956,3 +1106,147 @@ def test_local_latent_draws_differ_in_value_not_in_distribution(ranks):
         for tag in ("dp", "single"):
             np.testing.assert_allclose(r[tag], -elbo, rtol=1e-2)
         assert r["dp"] != r["single"]
+
+
+MODEL_AXIS_RUNS = ["2x2", "1x4", "hand"]
+
+
+@pytest.mark.parametrize("run", MODEL_AXIS_RUNS)
+def test_model_axis_losses_equal_the_one_process_run(ranks, run):
+    """q(U) and Z placed over the model axis, X and Y over the data axis
+    (the 2 x 2 and 1 x 4 meshes through ``make_shard_map_step``, and the
+    JAX test's hand-written Adam step on the 2 x 2 mesh): every rank's
+    per-step losses equal the one-process run's at 1e-12, and the step
+    hands the placed parameters back as DTensors of one block."""
+    block = {"2x2": 8, "1x4": 4, "hand": 8}[run]
+    for r in _case(ranks, "model_axis"):
+        _close(r[run]["losses"], r["single"]["losses"], 1e-12)
+        assert r[run]["sharded"] == sorted(
+            str(s) for s in ((block, 1), (block, 16), (block, 2), (block,)))
+    assert ranks[0]["model_axis"]["single"]["losses"][-1] < \
+        ranks[0]["model_axis"]["single"]["losses"][0]
+
+
+def _jax_model_axis_losses(start):
+    """The JAX test's ``train(None)`` in float64, started from the port's
+    initial parameters carried over by name path."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    import mxfusion_tpu as mj
+    from mxfusion_tpu.common import config as jconfig
+    from mxfusion_tpu.components.distributions.gp.kernels import RBF as JRBF
+    from mxfusion_tpu.components.variables import \
+        PositiveTransformation as JPositive
+    from mxfusion_tpu.inference import (MAP as JMAP,
+                                        GradBasedInference as JInference,
+                                        create_executor as jcreate)
+    from mxfusion_tpu.modules import SVGPRegression as JSVGP
+    from mxfusion_tpu_torch.util.carryover import name_paths
+    X, Y, Z0 = _model_axis_data()
+    old = jconfig.get_default_dtype()
+    jconfig.set_default_dtype("float64")
+    try:
+        m = mj.Model()
+        m.n = mj.Variable()
+        m.X = mj.Variable(shape=(m.n, 2))
+        m.noise_var = mj.Variable(transformation=JPositive(),
+                                  initial_value=0.1)
+        kernel = JRBF(input_dim=2, variance=1.0, lengthscale=1.0,
+                      dtype="float64")
+        m.Y = JSVGP.define_variable(
+            X=m.X, kernel=kernel, noise_var=m.noise_var, shape=(m.n, 1),
+            dtype="float64",
+            inducing_inputs=mj.Variable(shape=Z0.shape, initial_value=Z0))
+        alg = JMAP(model=m, observed=[m.X, m.Y])
+        infr = JInference(inference_algorithm=alg, dtype="float64")
+        infr.initialize(X=X, Y=Y)
+        uuid = {p: u for u, p in name_paths(infr.graphs).items()}
+        assert set(start) == {name_paths(infr.graphs)[u]
+                              for u in infr.params.param_dict}
+        infr.params.update_params({uuid[p]: jnp.asarray(v)
+                                   for p, v in start.items()})
+        ex = jcreate(alg, infr.params)
+        tr = dict(infr.params.trainable_params())
+        fx = dict(infr.params.fixed_params())
+        data = [jnp.asarray(X), jnp.asarray(Y)]
+        opt = optax.adam(MODEL_AXIS_LR)
+        opt_state = opt.init(tr)
+        key = jax.random.PRNGKey(0)
+
+        @jax.jit
+        def step1(tr, fx, opt_state, key):
+            def lf(t):
+                loss, lg, aux = ex(t, fx, data, key)
+                return lg, loss
+            (_, loss), g = jax.value_and_grad(lf, has_aux=True)(tr)
+            up, opt_state2 = opt.update(g, opt_state, tr)
+            return optax.apply_updates(tr, up), opt_state2, loss
+        losses = []
+        for _ in range(MODEL_AXIS_STEPS):
+            key, sk = jax.random.split(key)
+            tr, opt_state, loss = step1(tr, fx, opt_state, sk)
+            losses.append(float(loss))
+        return losses
+    finally:
+        jconfig.set_default_dtype(old)
+
+
+def test_model_axis_losses_equal_jax(ranks):
+    """The one-process run and every placed run equal JAX's unsharded
+    float64 run from the same start at 1e-9."""
+    results = _case(ranks, "model_axis")
+    jlosses = _jax_model_axis_losses(results[0]["start"])
+    for r in results:
+        for run in ["single"] + MODEL_AXIS_RUNS:
+            _close(r[run]["losses"], jlosses, 1e-9)
+
+
+@pytest.mark.parametrize("run", MODEL_AXIS_RUNS)
+def test_model_axis_final_parameters(ranks, run):
+    """The placed parameters gathered whole, and every other one, equal
+    the one-process run's after the ten steps at 1e-10."""
+    for r in _case(ranks, "model_axis"):
+        final, single = r[run]["final"], r["single"]["final"]
+        assert sorted(final) == sorted(single)
+        for path in single:
+            _close(final[path], single[path], 1e-10)
+
+
+@pytest.mark.parametrize("run", MODEL_AXIS_RUNS)
+def test_model_axis_divides_what_each_rank_holds(ranks, run):
+    """Each rank holds 1/2 (2 x 2) and 1/4 (1 x 4) of the replicated
+    run's elements of q(U), Z and Adam's two moments, which have the
+    block's shape."""
+    share = {"2x2": 2, "1x4": 4, "hand": 2}[run]
+    for r in _case(ranks, "model_axis"):
+        assert r["single"]["held"] == 3 * (16 + 16 * 16 + 16 + 16 * 2)
+        assert r[run]["held"] * share == r["single"]["held"]
+        if run != "hand":
+            assert r[run]["moments"] == r[run]["sharded"]
+
+
+def test_model_axis_indivisible_rows_raise(ranks):
+    """M = 15 rows over a model axis of 2 raise ValueError, naming the
+    fix, as JAX's ``device_put`` does."""
+    for r in _case(ranks, "model_axis"):
+        msg = r["indivisible"]
+        assert msg is not None
+        assert "divisible by 2, but it is equal to 15" in msg
+        assert "Pad or trim axis 0" in msg
+
+
+def test_model_axis_save_and_serve(ranks):
+    """``Inference.save`` after the 2 x 2 run, whose store holds the
+    placed DTensors, writes the one-process run's arrays, and a
+    ``BatchedPredictor`` over that store serves its moments on 64 rows at
+    1e-10."""
+    for r in _case(ranks, "model_axis"):
+        arrays, moments = r["2x2"]["saved"]
+        single_arrays, single_moments = r["single"]["saved"]
+        assert sorted(arrays) == sorted(single_arrays)
+        for path in single_arrays:
+            assert arrays[path].shape == single_arrays[path].shape
+            _close(arrays[path], single_arrays[path], 1e-10)
+        assert moments[0].shape == (1, 64, 1)
+        _close(moments, single_moments, 1e-10)

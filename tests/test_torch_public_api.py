@@ -27,6 +27,9 @@ EXTRA = {
     "mxfusion_tpu_torch.ops.kalman": ["lgssm_path"],
     "mxfusion_tpu_torch.util": ["special", "CheckpointCallback",
                                 "save_params", "load_params"],
+    # jax.device_put, which places q(U) and Z over the model axis; it is
+    # JAX's own and not in the JAX package's SURFACE
+    "mxfusion_tpu_torch.parallel": ["device_put"],
 }
 
 
