@@ -1,0 +1,3 @@
+"""idle_share.train: % of the traced training window with nothing
+running on the device (the union of kernel, copy and set intervals)."""
+from perfbench.lib.readers import idle_share as read  # noqa: F401
