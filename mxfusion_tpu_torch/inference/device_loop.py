@@ -27,6 +27,7 @@ import torch
 import torch.distributed as dist
 
 from .minibatch_loop import MinibatchInferenceLoop
+from ..util.profiling import span
 
 
 class DeviceMinibatchLoop(MinibatchInferenceLoop):
@@ -46,12 +47,13 @@ class DeviceMinibatchLoop(MinibatchInferenceLoop):
         ``epoch``, padded by wrapping to whole batches of B."""
         B = min(self.batch_size, N)
         n_batches = max(1, -(-N // B))
-        g = self._perm_generator.manual_seed(epoch)
-        perm = torch.randperm(N, generator=g, device=g.device)
-        pad = n_batches * B - N
-        if pad:
-            perm = torch.cat([perm, perm.repeat(-(-pad // N))[:pad]])
-        return perm.reshape(n_batches, B)
+        with span("loop.shuffle"):
+            g = self._perm_generator.manual_seed(epoch)
+            perm = torch.randperm(N, generator=g, device=g.device)
+            pad = n_batches * B - N
+            if pad:
+                perm = torch.cat([perm, perm.repeat(-(-pad // N))[:pad]])
+            return perm.reshape(n_batches, B)
 
     def _local_epoch_batches(self, Nl, Bl, epoch, n, index):
         """Shard-local index batches of rank ``index`` of ``n``: the
@@ -100,9 +102,12 @@ class DeviceMinibatchLoop(MinibatchInferenceLoop):
 
             def epoch_calls(e):
                 for idx in self._epoch_batches(N, e):
-                    idx = torch.as_tensor(idx, device=device)
-                    yield [[torch.index_select(d, 0, idx)
-                            for d in resident]]
+                    # the span closes before the step runs on the batch
+                    with span("loop.gather"):
+                        idx = torch.as_tensor(idx, device=device)
+                        batch = [torch.index_select(d, 0, idx)
+                                 for d in resident]
+                    yield [batch]
             return self._epochs(executor, params, optimizer, learning_rate,
                                 max_iter, generator, verbose, callback,
                                 resume_state, epoch_calls)

@@ -13,6 +13,8 @@ from abc import ABC, abstractmethod
 
 import torch
 
+from ..util.profiling import span
+
 
 class TrainState:
     """Loop-internal state for a deterministic resume: the step (the
@@ -186,13 +188,15 @@ class GradLoop(ABC):
         opt.zero_grad(set_to_none=True)
         loss, loss_for_grad, aux = executor(trainable, fixed, batch,
                                             generator)
-        loss_for_grad.backward()
+        with span("loop.backward"):
+            loss_for_grad.backward()
         loss = self._reduce(loss.detach(), trainable.values())
         gnorm = None
         if grad_norm:
             gnorm = _global_norm([p.grad for p in trainable.values()
                                   if p.grad is not None])
-        opt.step()
+        with span("loop.optimizer"):
+            opt.step()
         return loss.detach(), aux, gnorm
 
     @staticmethod

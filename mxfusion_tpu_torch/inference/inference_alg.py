@@ -24,6 +24,7 @@ from ..common.exceptions import InferenceError
 from ..common.placement import whole
 from ..components.variables.variable import VariableType
 from ..util.inference import variables_to_UUID
+from ..util.profiling import span
 
 
 def _scaling_env_key(uuid):
@@ -275,21 +276,22 @@ def _make_env_builder(algorithm, params, rv_scaling=None):
         var_ties.update(g.var_ties)
 
     def build_env(trainable, fixed, data_list):
-        env = VariableEnv(constants)
-        for source in ({**masks, **fixed}, trainable):
-            for uuid, v in source.items():
-                # a parameter placed over a mesh axis, whole (every
-                # rank's block, all-gathered) before its transform
-                v = whole(v)
-                t = var_trans.get(uuid)
-                tv = t.transform(v) if t is not None else v
-                env[uuid] = torch.unsqueeze(tv, 0)
-        for uuid, arr in zip(observed_uuid, data_list):
-            env[uuid] = torch.unsqueeze(
-                as_runtime_tensor(arr, params.dtype, params.device), 0)
-        for tied, to in var_ties.items():
-            env[tied] = env[to]
-        return env
+        with span("executor.env"):
+            env = VariableEnv(constants)
+            for source in ({**masks, **fixed}, trainable):
+                for uuid, v in source.items():
+                    # a parameter placed over a mesh axis, whole (every
+                    # rank's block, all-gathered) before its transform
+                    v = whole(v)
+                    t = var_trans.get(uuid)
+                    tv = t.transform(v) if t is not None else v
+                    env[uuid] = torch.unsqueeze(tv, 0)
+            for uuid, arr in zip(observed_uuid, data_list):
+                env[uuid] = torch.unsqueeze(
+                    as_runtime_tensor(arr, params.dtype, params.device), 0)
+            for tied, to in var_ties.items():
+                env[tied] = env[to]
+            return env
 
     return build_env
 

@@ -26,6 +26,7 @@ import torch
 
 from .grad_loop import GradLoop
 from ..native import gather_rows, shuffled_indices
+from ..util.profiling import span
 
 
 def _aligned(nbytes, to=64):
@@ -111,7 +112,8 @@ class MinibatchInferenceLoop(GradLoop):
                 call_means.append(torch.mean(torch.stack(losses)))
             # the mean of the calls' means (JAX's epoch loss); one host
             # sync per epoch
-            epoch_loss = float(torch.mean(torch.stack(call_means)))
+            with span("loop.sync"):
+                epoch_loss = float(torch.mean(torch.stack(call_means)))
             if verbose:
                 print("epoch {} loss: {}".format(e + 1, epoch_loss))
             if callback is not None or metrics_cb is not None:

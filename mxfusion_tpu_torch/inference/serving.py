@@ -57,6 +57,7 @@ from ..common.exceptions import ModelSpecificationError
 from ..components.distributions import random_gen
 # the operators an exported program calls, registered on import
 from ..ops import cuda_kernels, keyed_random, precision  # noqa: F401
+from ..util.profiling import span
 
 # torch-1.1 adds the networks' buffers and the base draws as program
 # inputs; a torch-1.0 program takes (trainable, fixed, chunk). torch-1.2
@@ -156,13 +157,14 @@ def _chunked_predict(call, C, data, generator, output_spec=None,
             "predict() called with zero rows; chunked serving needs at "
             "least one input row.")
     pads, inputs = [], []
-    for i in range(0, N, C):
-        chunk = [d[i:i + C] for d in data]
-        pad = C - chunk[0].shape[0]
-        if pad:
-            chunk = [_pad_chunk(c, C) for c in chunk]
-        pads.append(pad)
-        inputs.append(chunk)
+    with span("serving.pad"):
+        for i in range(0, N, C):
+            chunk = [d[i:i + C] for d in data]
+            pad = C - chunk[0].shape[0]
+            if pad:
+                chunk = [_pad_chunk(c, C) for c in chunk]
+            pads.append(pad)
+            inputs.append(chunk)
     outs = run_chunks(inputs) if run_chunks is not None else \
         (call(chunk, generator) for chunk in inputs)
     chunks = []      # (pad, flat leaves) per chunk
@@ -190,9 +192,11 @@ def _chunked_predict(call, C, data, generator, output_spec=None,
             if not ok:
                 spec = None
         axes = _leaf_data_axes(x0.shape, C, spec)
-        merged.append(_merge_leaf(
-            [(pad, leaves[j]) for pad, leaves in chunks], axes, C,
-            N).cpu().numpy())
+        with span("serving.merge"):
+            leaf = _merge_leaf([(pad, leaves[j]) for pad, leaves in chunks],
+                               axes, C, N)
+        with span("serving.to_host"):
+            merged.append(leaf.cpu().numpy())
     return pytree.tree_unflatten(merged, treedef)
 
 
@@ -258,8 +262,9 @@ class BatchedPredictor:
         device; builds the executor at the first request."""
         names = self._infr.observed_variable_names
         params = self._infr.params
-        data = [as_runtime_tensor(kwargs[n], params.dtype, params.device)
-                for n in names]
+        with span("serving.to_device"):
+            data = [as_runtime_tensor(kwargs[n], params.dtype,
+                                      params.device) for n in names]
         if data[0].shape[0] == 0:
             raise ValueError(
                 "zero input rows; chunked serving needs at least one "

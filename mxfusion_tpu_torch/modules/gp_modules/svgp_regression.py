@@ -37,6 +37,7 @@ from ...ops.linalg import (broadcast_to_w_samples, cholesky, make_diagonal,
 from ...ops.precision import einsum as p_einsum
 from ...ops.precision import (data_einsum, data_precision_scope,
                               guarded_data_einsum, guarded_forward_matmul)
+from ...util.profiling import span
 
 LOG2PI = math.log(2.0 * math.pi)
 
@@ -73,6 +74,10 @@ class SVGPRegressionLogPdf(VariationalInference):
         self.whitened = whitened
 
     def compute(self, env, ctx):
+        with span("svgp.bound"):
+            return self._bound(env)
+
+    def _bound(self, env):
         from ...components.distributions.gp.kernels import RBF
         has_mean = self.model.F.factor.has_mean
         X = env[self.model.X]
@@ -231,49 +236,54 @@ class SVGPRegressionMeanVariancePrediction(SamplingAlgorithm):
             arrays_as_samples(
                 [X, Z, noise_var, qU_mean, S_W, S_diag, kern_params])
 
-        S = p_einsum("...ik,...jk->...ij", S_W, S_W) + \
-            make_diagonal(S_diag)
-        Kuu = kern.K(Z, **kern_params)
-        if self.jitter > 0.0:
-            Kuu = Kuu + torch.eye(M, dtype=Z.dtype, device=Z.device) * \
-                self.jitter
-        # one batched Cholesky for the two independent M×M factors
-        LL = cholesky(torch.stack([Kuu, S], dim=-3))
-        L = LL[..., 0, :, :]
-        Ls = LL[..., 1, :, :]
-        if self.whitened:
-            # u = L v: Linv cancels against the whitened parameters
-            LinvLs = Ls
-            Linvmu = qU_mean
-        else:
-            LinvLs = _solve_lower(L, Ls)
-            Linvmu = _solve_lower(L, qU_mean)
-        LinvSLinvT = p_einsum("...ik,...jk->...ij", LinvLs, LinvLs)
-        wv = torch.linalg.solve_triangular(L.mT, Linvmu, upper=True)
+        # the factors depend on the parameters only, the moments on the
+        # rows: two spans, so that a trace tells their costs apart
+        with span("svgp.factors"):
+            S = p_einsum("...ik,...jk->...ij", S_W, S_W) + \
+                make_diagonal(S_diag)
+            Kuu = kern.K(Z, **kern_params)
+            if self.jitter > 0.0:
+                Kuu = Kuu + torch.eye(M, dtype=Z.dtype, device=Z.device) * \
+                    self.jitter
+            # one batched Cholesky for the two independent M×M factors
+            LL = cholesky(torch.stack([Kuu, S], dim=-3))
+            L = LL[..., 0, :, :]
+            Ls = LL[..., 1, :, :]
+            if self.whitened:
+                # u = L v: Linv cancels against the whitened parameters
+                LinvLs = Ls
+                Linvmu = qU_mean
+            else:
+                LinvLs = _solve_lower(L, Ls)
+                Linvmu = _solve_lower(L, qU_mean)
+            LinvSLinvT = p_einsum("...ik,...jk->...ij", LinvLs, LinvLs)
+            wv = torch.linalg.solve_triangular(L.mT, Linvmu, upper=True)
 
-        Kxt = kern.K(Z, X, **kern_params)
-        mu = p_einsum("...mn,...md->...nd", Kxt, wv)
-        if has_mean:
-            mu = mu + env[self.model.mean]
-        LinvKxt = _solve_lower(L, Kxt)
-        if self.diagonal_variance:
-            Ktt = kern.Kdiag(X, **kern_params)
-            tmp = p_einsum("...mk,...kn->...mn", LinvSLinvT, LinvKxt)
-            var = Ktt - torch.sum(torch.square(LinvKxt), dim=-2) + \
-                torch.sum(tmp * LinvKxt, dim=-2)
-            var = torch.unsqueeze(var, -1)
-            if not self.noise_free:
-                var = var + noise_var
-        else:
-            Ktt = kern.K(X, **kern_params)
-            tmp = p_einsum("...mk,...kn->...mn", LinvSLinvT, LinvKxt)
-            var = Ktt - \
-                p_einsum("...mn,...mk->...nk", LinvKxt, LinvKxt) + \
-                p_einsum("...mn,...mk->...nk", LinvKxt, tmp)
-            if not self.noise_free:
-                var = var + torch.eye(N, dtype=X.dtype, device=X.device) * \
-                    torch.unsqueeze(noise_var, -2)
-        return mu, var
+        with span("svgp.moments"):
+            Kxt = kern.K(Z, X, **kern_params)
+            mu = p_einsum("...mn,...md->...nd", Kxt, wv)
+            if has_mean:
+                mu = mu + env[self.model.mean]
+            LinvKxt = _solve_lower(L, Kxt)
+            if self.diagonal_variance:
+                Ktt = kern.Kdiag(X, **kern_params)
+                tmp = p_einsum("...mk,...kn->...mn", LinvSLinvT, LinvKxt)
+                var = Ktt - torch.sum(torch.square(LinvKxt), dim=-2) + \
+                    torch.sum(tmp * LinvKxt, dim=-2)
+                var = torch.unsqueeze(var, -1)
+                if not self.noise_free:
+                    var = var + noise_var
+            else:
+                Ktt = kern.K(X, **kern_params)
+                tmp = p_einsum("...mk,...kn->...mn", LinvSLinvT, LinvKxt)
+                var = Ktt - \
+                    p_einsum("...mn,...mk->...nk", LinvKxt, LinvKxt) + \
+                    p_einsum("...mn,...mk->...nk", LinvKxt, tmp)
+                if not self.noise_free:
+                    var = var + torch.eye(N, dtype=X.dtype,
+                                          device=X.device) * \
+                        torch.unsqueeze(noise_var, -2)
+            return mu, var
 
     def compute(self, env, ctx):
         mu, var = self._moments(env)
