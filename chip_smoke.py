@@ -65,7 +65,8 @@ that each print one line:
    with float64 (the plain branch) within 1e-4 relative;
 4. serve: loads a seeded state through ``util.carryover``, answers three
    requests (8192, 20000 and 128 rows), checks that the kernel ran
-   exactly twice per chunk (Kuu and Kzx), that outputs are finite with
+   once per chunk (Kzx) and once more (Kuu, which the predictor builds
+   once for its parameters and keeps), that outputs are finite with
    variances >= -1e-6, that they agree with the plain path (means 1e-4
    relative, variances 1e-4 absolute) and, on 256 rows, with a float64
    numpy evaluation of the predictive formulas (1e-3 relative);
@@ -236,7 +237,8 @@ that each print one line:
 33. save/load: ``Inference.save`` of phase 6's trained inference, the
    model rebuilt in code (fresh UUIDs), ``Inference.load`` onto it, and a
    ``BatchedPredictor`` on the loaded store answering phase 5's
-   262144-row request (32 chunks, K1 twice a chunk) against phase 6's
+   262144-row request (32 chunks, K1 once a chunk and once for Kuu,
+   which a new predictor builds once) against phase 6's
    live predictor at phase 4's serving tolerances (means 1e-4 relative,
    variances 1e-4 absolute); the walls of save and load;
 34. export: ``BatchedPredictor.export`` of the live predictor, served by
@@ -261,7 +263,8 @@ that each print one line:
    materialized, within 5e-3 of its largest entry; the step wall's median
    and quartiles beside phase 6's;
 36. deep-kernel serving: ``BatchedPredictor`` with ``X_raw`` observed on
-   262144 rows (the network runs on each chunk): K1 twice a chunk, kernel
+   262144 rows (the network runs on each chunk): K1 once a chunk (Kzx;
+   the warm predictor keeps Kuu's factors), kernel
    vs plain path (means 1e-4 relative, variances 1e-4 absolute), 256 rows
    vs a float64 store (1e-3); rows/s and the 128-row latency;
 37. BNN (BASELINE config 5a, benchmarks/bnn_vae_dp.py's widths): N =
@@ -3130,9 +3133,10 @@ def persistence_phases(dev, card, Xtr, Ytr, bulk, tm, start_state,
     mu2, var2 = pred2.predict(X=bulk)[0]
     load_k1 = read_counts()["K1"]
     chunks = -(-BULK_ROWS // CHUNK)
-    check(load_k1 == 2 * chunks, "the loaded predictor launched K1 {} "
-          "times for {} chunks; expected 2 per chunk".format(load_k1,
-                                                              chunks))
+    # Kzx in every chunk and Kuu once: the new predictor keeps its factors
+    check(load_k1 == chunks + 1, "the loaded predictor launched K1 {} "
+          "times for {} chunks; expected 1 per chunk and 1 for Kuu".format(
+              load_k1, chunks))
 
     def against_live(mu, var, label):
         check(mu.shape == var.shape == (1, BULK_ROWS, 1)
@@ -3149,8 +3153,8 @@ def persistence_phases(dev, card, Xtr, Ytr, bulk, tm, start_state,
 
     load_err = against_live(mu2, var2, "loaded predictor")
     print("phase 33 save/load ({}): save {:.3f} s, rebuild + load {:.3f} s "
-          "({} entries onto fresh UUIDs) | {} rows in {} chunks: K1 {} (2 "
-          "per chunk) | vs the live predictor: mean rel {:.3e} (tol {:.0e}), "
+          "({} entries onto fresh UUIDs) | {} rows in {} chunks: K1 {} (1 "
+          "per chunk and 1 for Kuu) | vs the live predictor: mean rel {:.3e} (tol {:.0e}), "
           "var abs {:.3e} (tol {:.0e})".format(
               card, save_s, load_s, len(inf2.params.param_dict), BULK_ROWS,
               chunks, load_k1, load_err[0], PLAIN_MEAN_RTOL, load_err[1],
@@ -3407,8 +3411,9 @@ def deep_kernel_phases(dev, card, seed, Xtr, Ytr, phase6_wall, read_counts,
     bulk_s = time.perf_counter() - t0
     serve_launches = read_counts()
     chunks = -(-TRAIN_N // CHUNK)
-    check(serve_launches["K1"] == 2 * chunks, "deep-kernel serving launched "
-          "K1 {} times for {} chunks; expected 2 a chunk".format(
+    # Kzx alone: the warm predictor keeps the factors of Kuu it built
+    check(serve_launches["K1"] == chunks, "deep-kernel serving launched "
+          "K1 {} times for {} chunks; expected 1 a chunk (Kzx)".format(
               serve_launches["K1"], chunks))
     check(mu.shape == var.shape == (1, TRAIN_N, 1) and np.isfinite(mu).all()
           and np.isfinite(var).all() and var.min() >= -VAR_ATOL,
@@ -3440,7 +3445,7 @@ def deep_kernel_phases(dev, card, seed, Xtr, Ytr, phase6_wall, read_counts,
           "serving vs float64: mean rel {}, variance rel {} (tol {})".format(
               f64_mean, f64_var, F64_RTOL))
     print("phase 36 deep-kernel serving ({}): {} rows in chunks of {} | K1 "
-          "launches {} (2 a chunk) | vs plain: mean rel {:.3e}, var abs "
+          "launches {} (1 a chunk) | vs plain: mean rel {:.3e}, var abs "
           "{:.3e} | vs float64 on {} rows: mean rel {:.3e}, var rel {:.3e} "
           "(tol {:.0e}) | {:.0f} rows/s ({:.3f} s) | {}-row latency ms: "
           "median {:.3f} of {}".format(
@@ -6849,8 +6854,11 @@ def main():
     out_kernel = serve(True)
     launches = cuda_kernels.rbf_kernel_matrix.launches
     chunks = sum(-(-n // CHUNK) for n in REQUESTS)
-    check(launches == 2 * chunks, "rbf_gram launched {} times for {} "
-          "chunks; expected 2 per chunk (Kuu, Kzx)".format(launches, chunks))
+    # Kzx in every chunk; Kuu once, when the predictor builds the factors
+    # it keeps for its parameters
+    check(launches == chunks + 1, "rbf_gram launched {} times for {} "
+          "chunks; expected 1 per chunk (Kzx) and 1 for the predictor (Kuu)"
+          .format(launches, chunks))
     for n, (mu, var) in zip(REQUESTS, out_kernel):
         check(mu.shape == (1, n, 1) and var.shape == (1, n, 1),
               "output shapes {} {} for {} rows".format(mu.shape, var.shape,
@@ -6880,7 +6888,7 @@ def main():
           "vs float64: mean rel err {}, variance rel err {} (tol {})"
           .format(f64_mean, f64_var, F64_RTOL))
     print("phase 4 serve: requests {} -> {} chunks, rbf_gram launches {} "
-          "(2 per chunk) | vs plain: mean rel {:.3e}, var abs {:.3e} | vs "
+          "(1 per chunk and 1 for Kuu) | vs plain: mean rel {:.3e}, var abs {:.3e} | vs "
           "float64 ({} rows, cond(Kuu)={:.3e}): mean rel {:.3e}, var rel "
           "{:.3e}".format(list(REQUESTS), chunks, launches, mean_err,
                           var_err, F64_ROWS, cond, f64_mean, f64_var),

@@ -19,6 +19,7 @@ from abc import ABC, abstractmethod
 import numpy as np
 import torch
 
+from . import param_memo
 from .inference_parameters import MASK_SUFFIX
 from ..common.exceptions import InferenceError
 from ..common.placement import whole
@@ -240,14 +241,24 @@ class SamplingAlgorithm(InferenceAlgorithm):
         return self._num_samples
 
 
+def _env_parameter(v, t):
+    """A parameter's env entry: ``v`` (a parameter placed over a mesh
+    axis, whole: every rank's block, all-gathered) under its transform
+    ``t``, with the sample axis added."""
+    v = whole(v)
+    tv = t.transform(v) if t is not None else v
+    return torch.unsqueeze(tv, 0)
+
+
 def _make_env_builder(algorithm, params, rv_scaling=None):
     """Shared env-construction closure for all executors.
 
     Applies, in order: constants (python ints stay shape constants;
     scalars get the (1, 1) layout), fixed and trainable parameters
-    (a DTensor gathered whole, bijector-transformed, sample dim added),
-    observed data (sample dim added), variable ties. Constants are
-    converted to tensors once, here.
+    (a DTensor gathered whole, bijector-transformed, sample dim added;
+    inside a ``param_memo`` scope, the entry built for that tensor at its
+    version), observed data (sample dim added), variable ties. Constants
+    are converted to tensors once, here.
     """
     var_trans = algorithm.prepare_executor(rv_scaling=rv_scaling)
     # an array rv_scaling (observation mask) joins the fixed parameters
@@ -280,12 +291,11 @@ def _make_env_builder(algorithm, params, rv_scaling=None):
             env = VariableEnv(constants)
             for source in ({**masks, **fixed}, trainable):
                 for uuid, v in source.items():
-                    # a parameter placed over a mesh axis, whole (every
-                    # rank's block, all-gathered) before its transform
-                    v = whole(v)
+                    # inside a predictor's memo scope a parameter's entry
+                    # is kept while its tensor is unchanged
                     t = var_trans.get(uuid)
-                    tv = t.transform(v) if t is not None else v
-                    env[uuid] = torch.unsqueeze(tv, 0)
+                    env[uuid] = param_memo.env_value(
+                        uuid, v, t, lambda: _env_parameter(v, t))
             for uuid, arr in zip(observed_uuid, data_list):
                 env[uuid] = torch.unsqueeze(
                     as_runtime_tensor(arr, params.dtype, params.device), 0)

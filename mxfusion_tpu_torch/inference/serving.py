@@ -8,7 +8,11 @@ stripped from the outputs. The JAX package compiles the executor once
 at that chunk shape; PyTorch runs eagerly, so here the executor is
 built once and every chunk keeps the same shapes (the ground a later
 CUDA-graph capture stands on). A request is moved to the device once,
-chunked and merged there, and returned as numpy arrays.
+chunked and merged there, and returned as numpy arrays. What a chunk
+computes from the parameters alone (the env's transformed parameters,
+the SVGP's factors of Kuu and S) is kept in the predictor's
+``param_memo.ParamMemo`` across chunks and requests, and built again
+only once a parameter's tensor is replaced or changed in place.
 
 ``BatchedPredictor.export(path)`` captures the per-chunk call with
 ``torch.export`` and writes it beside a parameter snapshot;
@@ -50,6 +54,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from .inference import TransferInference
+from . import param_memo
 from .inference_alg import create_sampling_executor, as_runtime_tensor
 from .prediction import ModulePredictionAlgorithm
 from ..common.config import resolve_device
@@ -244,6 +249,9 @@ class BatchedPredictor:
         self._infr = TransferInference(alg, infr_params=infr_params)
         self._executor = None
         self._chunk = None
+        # the parameter-derived values of its chunks, kept across chunks
+        # and requests while the parameters are unchanged
+        self._memo = param_memo.ParamMemo()
 
     def _build(self, names, data):
         """Fix the chunk size from the first request and build the
@@ -324,10 +332,18 @@ class BatchedPredictor:
                     generator, self._mesh.get_local_rank(self._data_axis))
                 run_chunks = _dealt_chunks(lambda chunk: call(chunk, g),
                                            self._mesh, self._data_axis)
-            with precision._matmul_precision(_SERVING_PRECISION):
+            with precision._matmul_precision(_SERVING_PRECISION), \
+                    self._memo.scope():
                 return _chunked_predict(call, self._chunk, data, generator,
                                         output_spec=self.output_spec,
                                         run_chunks=run_chunks)
+
+    @property
+    def memo_counts(self):
+        """How often the chunks of this predictor's requests found the
+        factors their prediction builds from the parameters alone
+        (``hits``) and how often they built them (``misses``)."""
+        return {"hits": self._memo.hits, "misses": self._memo.misses}
 
     # ------------------------------------------------------------------
     def export(self, path, **example_data):

@@ -31,12 +31,14 @@ from ...components.functions.operators import broadcast_to
 from ...inference.variational import VariationalInference
 from ...inference.inference_alg import SamplingAlgorithm
 from ...inference.forward_sampling import ForwardSamplingAlgorithm
+from ...inference import param_memo
 from ...ops import fused_gram
 from ...ops.linalg import (broadcast_to_w_samples, cholesky, make_diagonal,
                            triangular_inverse, wide_triangular_solve)
 from ...ops.precision import einsum as p_einsum
 from ...ops.precision import (data_einsum, data_precision_scope,
-                              guarded_data_einsum, guarded_forward_matmul)
+                              get_data_precision, guarded_data_einsum,
+                              guarded_forward_matmul)
 from ...util.profiling import span
 
 LOG2PI = math.log(2.0 * math.pi)
@@ -219,26 +221,12 @@ class SVGPRegressionMeanVariancePrediction(SamplingAlgorithm):
         return ((1,), (1,)) if self.diagonal_variance \
             else ((1,), (1, 2))
 
-    def _moments(self, env):
-        has_mean = self.model.F.factor.has_mean
-        X = env[self.model.X]
-        N = X.shape[-2]
-        Z = env[self.model.inducing_inputs]
-        noise_var = env[self.model.noise_var]
-        posterior = self._extra_graphs[0]
-        qU_mean = env[posterior.qU_mean]
-        S_W = env[posterior.qU_cov_W]
-        S_diag = env[posterior.qU_cov_diag]
-        M = Z.shape[-2]
-        kern = self.model.kernel
-        kern_params = kern.fetch_parameters(env)
-        X, Z, noise_var, qU_mean, S_W, S_diag, kern_params = \
-            arrays_as_samples(
-                [X, Z, noise_var, qU_mean, S_W, S_diag, kern_params])
-
-        # the factors depend on the parameters only, the moments on the
-        # rows: two spans, so that a trace tells their costs apart
+    def _factors(self, Z, qU_mean, S_W, S_diag, kern_params):
+        """What the moments need of the parameters alone: L = chol(Kuu),
+        L⁻¹SL⁻ᵀ and wv = Kuu⁻¹·qU_mean (whitened: L⁻ᵀ·qU_mean)."""
         with span("svgp.factors"):
+            kern = self.model.kernel
+            M = Z.shape[-2]
             S = p_einsum("...ik,...jk->...ij", S_W, S_W) + \
                 make_diagonal(S_diag)
             Kuu = kern.K(Z, **kern_params)
@@ -258,6 +246,34 @@ class SVGPRegressionMeanVariancePrediction(SamplingAlgorithm):
                 Linvmu = _solve_lower(L, qU_mean)
             LinvSLinvT = p_einsum("...ik,...jk->...ij", LinvLs, LinvLs)
             wv = torch.linalg.solve_triangular(L.mT, Linvmu, upper=True)
+            return L, LinvSLinvT, wv
+
+    def _moments(self, env):
+        has_mean = self.model.F.factor.has_mean
+        X = env[self.model.X]
+        N = X.shape[-2]
+        Z = env[self.model.inducing_inputs]
+        noise_var = env[self.model.noise_var]
+        posterior = self._extra_graphs[0]
+        qU_mean = env[posterior.qU_mean]
+        S_W = env[posterior.qU_cov_W]
+        S_diag = env[posterior.qU_cov_diag]
+        kern = self.model.kernel
+        kern_params = kern.fetch_parameters(env)
+        # the env tensors the factors are built from, as the env holds them
+        sources = (Z, qU_mean, S_W, S_diag) + tuple(kern_params.values())
+        X, Z, noise_var, qU_mean, S_W, S_diag, kern_params = \
+            arrays_as_samples(
+                [X, Z, noise_var, qU_mean, S_W, S_diag, kern_params])
+
+        # the factors depend on the parameters only, the moments on the
+        # rows: two spans, so that a trace tells their costs apart. Inside
+        # a predictor's memo scope the factors are built once for a set
+        # of parameters and kept while those tensors are unchanged
+        L, LinvSLinvT, wv = param_memo.derived(
+            self, (self.jitter, self.whitened, get_data_precision(),
+                   Z.shape[0]), sources,
+            lambda: self._factors(Z, qU_mean, S_W, S_diag, kern_params))
 
         with span("svgp.moments"):
             Kxt = kern.K(Z, X, **kern_params)

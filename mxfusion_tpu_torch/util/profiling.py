@@ -23,7 +23,8 @@ never holds another on the same thread, are:
 * serving (``BatchedPredictor``): ``serving.to_device`` (the request's
   inputs to the device), ``serving.pad`` (chunking and padding),
   ``executor.env``, ``svgp.factors`` (the prediction's factors of Kuu
-  and S, which depend on the parameters only), ``svgp.moments`` (the
+  and S, which depend on the parameters only: built in a predictor's
+  first chunk and after a parameter changes), ``svgp.moments`` (the
   rows' moments), ``serving.merge`` (padding stripped, chunks joined on
   the device) and ``serving.to_host`` (an output leaf to numpy).
 
